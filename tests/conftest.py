@@ -21,6 +21,9 @@ jax.config.update("jax_platforms", "cpu")
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running scale tests")
     config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (akka_tpu_torch kernels); "
+        "skips without one")
+    config.addinivalue_line(
         "markers",
         "timing: wall-clock-coupled suites (lease TTLs, heartbeats, SBR "
         "stable-after). Deadlines auto-dilate with machine load "
