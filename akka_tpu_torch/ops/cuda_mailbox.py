@@ -10,6 +10,10 @@ kernel. Its two modes are two kernels in practice, and both sit behind the
   arrival order in its ring (types, payload, valid), and `dropped` = valid
   rows past `slots`. C entry `ring_slots`.
 
+Each C entry zeroes its own outputs (`cudaMemsetAsync`) and launches one
+kernel (K1) or two (K2); `launch_reduce`/`launch_slots` call it on outputs
+the caller allocated, so a benchmark can time the C entry alone.
+
 On a CUDA tensor each wrapper launches its kernel through ctypes or raises;
 on a CPU tensor it runs the plain PyTorch version beside it
 (`ring_reduce_plain`, `ring_slots_plain`), which the CPU tests hold against
@@ -19,8 +23,10 @@ entry; the plain versions never touch it.
 The library is built at first use: `nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC` into
 `akka_tpu_torch/_build/`, named by a hash of the source, and loaded with
-ctypes. Every launch goes to `torch.cuda.current_stream()`; the C entry
-returns `cudaGetLastError()` and the wrapper raises on anything but 0.
+ctypes (`compile_library` builds any source with this interface, for
+side-by-side timing). Every launch goes to `torch.cuda.current_stream()`;
+the C entry returns `cudaGetLastError()` and the wrapper raises on anything
+but 0.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"ring_reduce": 0, "ring_slots": 0}
 
 _INT_MAX = 2 ** 31 - 1
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
 _lib: Optional[ctypes.CDLL] = None
 _build_lock = threading.Lock()
 
@@ -83,6 +90,8 @@ def unsupported_reason(n_actors: int, p: int, slots: int = 1,
         return f"shape n_actors={n_actors} slots={slots} p={p}"
     if dtype != torch.float32:
         return f"payload dtype {dtype}"
+    if n_actors * slots >= _INT_MAX:
+        return f"{n_actors} x {slots} ring cells exceed the int32 cell index"
     return None
 
 
@@ -105,39 +114,48 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def compile_library(source: Path = SOURCE,
+                    verbose: bool = False) -> ctypes.CDLL:
+    """Compile a CUDA source (once per source hash) into `BUILD_DIR` and
+    load it, without binding argument types. With `verbose`, nvcc runs with
+    `-Xptxas -v` and its output is printed."""
+    src = Path(source).read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()[:16]
+    so = BUILD_DIR / f"lib{Path(source).stem}_{tag}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose
+                                       else []),
+               "-o", str(tmp), str(source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if verbose or res.returncode != 0:
+            print(res.stdout + res.stderr, flush=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}): "
+                               f"{' '.join(cmd)}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of `ring_reduce` and `ring_slots`."""
+    lib.ring_reduce.argtypes = [_VP, _VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP]
+    lib.ring_reduce.restype = _CI
+    lib.ring_slots.argtypes = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP,
+                               _VP, _VP, _VP, _VP, _VP]
+    lib.ring_slots.restype = _CI
+    return lib
+
+
 def build(verbose: bool = False) -> ctypes.CDLL:
-    """Compile `ring_mailbox.cu` (once per source hash) and load it. With
-    `verbose`, nvcc runs with `-Xptxas -v` and its output is printed."""
+    """The package's library: `ring_mailbox.cu`, compiled and bound once."""
     global _lib
     with _build_lock:
-        if _lib is not None:
-            return _lib
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
-            .hexdigest()[:16]
-        so = BUILD_DIR / f"libring_mailbox_{tag}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose
-                                           else []),
-                   "-o", str(tmp), str(SOURCE)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if verbose or res.returncode != 0:
-                print(res.stdout + res.stderr, flush=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}): "
-                                   f"{' '.join(cmd)}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ring_reduce.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp]
-        lib.ring_reduce.restype = ci
-        lib.ring_slots.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp,
-                                   vp, vp, vp, vp, vp, vp]
-        lib.ring_slots.restype = ci
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = bind(compile_library(SOURCE, verbose))
+        return _lib
 
 
 # ------------------------------------------------------------ validation
@@ -225,64 +243,95 @@ def ring_slots_plain(dst, mtype, payload, valid, n_actors: int, slots: int):
 
 # ------------------------------------------------------------ the kernels
 
-def ring_reduce(dst, payload, valid, n_actors: int):
-    """K1: (counts [n] int32, sums [n, P] float32). Launches
-    `ring_count_sum` on a CUDA tensor, runs `ring_reduce_plain` on a CPU
-    one. Sums accumulate by float atomics, in no fixed order."""
-    if not dst.is_cuda:
-        return ring_reduce_plain(dst, payload, valid, n_actors)
-    m, p = _check(dst, payload, valid)
-    lib = build()
-    counts = torch.zeros((n_actors,), dtype=torch.int32, device=dst.device)
-    sums = torch.zeros((n_actors, p), dtype=torch.float32, device=dst.device)
+def reduce_outputs(n_actors: int, p: int, device) -> Tuple[torch.Tensor,
+                                                           torch.Tensor]:
+    """Uninitialised (counts [n] int32, sums [n, P] float32) for
+    `launch_reduce`, which zeroes them."""
+    return (torch.empty((n_actors,), dtype=torch.int32, device=device),
+            torch.empty((n_actors, p), dtype=torch.float32, device=device))
+
+
+def slots_outputs(n_actors: int, p: int, slots: int, device):
+    """Uninitialised (scratch, sums, buf_t, buf_p, buf_v) for
+    `launch_slots`, which zeroes scratch and sums and writes every ring
+    cell. scratch is int32 [n + n * slots + 1]: counts, the claim levels
+    [n, slots], dropped."""
+    return (torch.empty((n_actors * (1 + slots) + 1,), dtype=torch.int32,
+                        device=device),
+            torch.empty((n_actors, p), dtype=torch.float32, device=device),
+            torch.empty((n_actors, slots), dtype=torch.int32, device=device),
+            torch.empty((n_actors, slots, p), dtype=torch.float32,
+                        device=device),
+            torch.empty((n_actors, slots), dtype=torch.bool, device=device))
+
+
+def launch_reduce(lib, dst, payload, valid, n_actors: int, counts,
+                  sums) -> None:
+    """Call the C entry `ring_reduce` of `lib` on checked inputs and the
+    outputs of `reduce_outputs`; raises on a launch error."""
+    m, p = payload.shape
     with torch.cuda.device(dst.device):
         err = lib.ring_reduce(
             dst.data_ptr(), payload.data_ptr(), valid.data_ptr(), m,
             n_actors, p, counts.data_ptr(), sums.data_ptr(), _stream(dst))
     _raise_on(err, "ring_reduce")
+
+
+def launch_slots(lib, dst, mtype, payload, valid, n_actors: int, slots: int,
+                 scratch, sums, buf_t, buf_p, buf_v) -> None:
+    """Call the C entry `ring_slots` of `lib` on checked inputs and the
+    outputs of `slots_outputs`; raises on a launch error."""
+    m, p = payload.shape
+    with torch.cuda.device(dst.device):
+        err = lib.ring_slots(
+            dst.data_ptr(), mtype.data_ptr(), payload.data_ptr(),
+            valid.data_ptr(), m, n_actors, p, slots, scratch.data_ptr(),
+            sums.data_ptr(), buf_t.data_ptr(), buf_p.data_ptr(),
+            buf_v.data_ptr(), _stream(dst))
+    _raise_on(err, "ring_slots")
+
+
+def ring_reduce(dst, payload, valid, n_actors: int):
+    """K1: (counts [n] int32, sums [n, P] float32). Launches
+    `ring_sweep` on a CUDA tensor, runs `ring_reduce_plain` on a CPU
+    one. Sums accumulate by float atomics, in no fixed order."""
+    if not dst.is_cuda:
+        return ring_reduce_plain(dst, payload, valid, n_actors)
+    _, p = _check(dst, payload, valid)
+    counts, sums = reduce_outputs(n_actors, p, dst.device)
+    launch_reduce(build(), dst, payload, valid, n_actors, counts, sums)
     LAUNCHES["ring_reduce"] += 1
     return counts, sums
 
 
 def ring_slots(dst, mtype, payload, valid, n_actors: int, slots: int):
-    """K2: the tuple of `ring_slots_plain`. Launches `ring_count_sum`, S
-    `ring_claim` passes and `ring_gather` on a CUDA tensor; runs
-    `ring_slots_plain` on a CPU one."""
+    """K2: the tuple of `ring_slots_plain`. Launches the claiming
+    `ring_sweep` and `ring_fill` on a CUDA tensor; runs `ring_slots_plain`
+    on a CPU one."""
     if not dst.is_cuda:
         return ring_slots_plain(dst, mtype, payload, valid, n_actors, slots)
-    m, p = _check(dst, payload, valid, mtype)
-    lib = build()
-    dev = dst.device
-    counts = torch.zeros((n_actors,), dtype=torch.int32, device=dev)
-    sums = torch.zeros((n_actors, p), dtype=torch.float32, device=dev)
-    first = torch.full((slots, n_actors), _INT_MAX, dtype=torch.int32,
-                       device=dev)
-    buf_t = torch.empty((n_actors, slots), dtype=torch.int32, device=dev)
-    buf_p = torch.empty((n_actors, slots, p), dtype=torch.float32,
-                        device=dev)
-    buf_v = torch.empty((n_actors, slots), dtype=torch.bool, device=dev)
-    dropped = torch.zeros((1,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.ring_slots(
-            dst.data_ptr(), mtype.data_ptr(), payload.data_ptr(),
-            valid.data_ptr(), m, n_actors, p, slots, counts.data_ptr(),
-            sums.data_ptr(), first.data_ptr(), buf_t.data_ptr(),
-            buf_p.data_ptr(), buf_v.data_ptr(), dropped.data_ptr(),
-            _stream(dst))
-    _raise_on(err, "ring_slots")
+    _, p = _check(dst, payload, valid, mtype)
+    if n_actors * slots >= _INT_MAX:
+        raise ValueError(f"{n_actors} x {slots} ring cells exceed the int32 "
+                         f"cell index")
+    scratch, sums, buf_t, buf_p, buf_v = slots_outputs(n_actors, p, slots,
+                                                       dst.device)
+    launch_slots(build(), dst, mtype, payload, valid, n_actors, slots,
+                 scratch, sums, buf_t, buf_p, buf_v)
     LAUNCHES["ring_slots"] += 1
-    return buf_t, buf_p, buf_v, counts, sums, dropped[0]
+    return buf_t, buf_p, buf_v, scratch[:n_actors], sums, scratch[-1]
 
 
 # ------------------------------------------------------- segment entries
 
-def _merge_style_max(dst, payload, ok, n_actors: int, need_max: bool):
+def _merge_style_max(dst, payload, valid, n_actors: int, need_max: bool):
     """The reference's max convention around its kernel (plain torch, as in
     the reference): invalid rows contribute -inf, recipients with no rows
     read back 0."""
     p = payload.shape[1]
     if not need_max:
         return payload.new_zeros((n_actors, p))
+    ok = valid & (dst >= 0) & (dst < n_actors)
     key = torch.where(ok, dst, n_actors).long()
     maxs = _segment_max(torch.where(ok[:, None], payload, float("-inf"))
                         .to(payload.dtype), key, n_actors + 1)[:n_actors]
@@ -294,9 +343,8 @@ def deliver_reduce(dst, payload, valid, n_actors: int,
     """`deliver` semantics via the ring mailbox (K1): no sort, no rank
     pass."""
     counts, sums = ring_reduce(dst, payload, valid, n_actors)
-    ok = valid & (dst >= 0) & (dst < n_actors)
     return Delivery(sum=sums,
-                    max=_merge_style_max(dst, payload, ok, n_actors,
+                    max=_merge_style_max(dst, payload, valid, n_actors,
                                          need_max),
                     count=counts)
 
@@ -306,18 +354,17 @@ def deliver_slots_ring(dst, mtype, payload, valid, n_actors: int,
     """Bounded-mailbox `deliver_slots` semantics (spill_cap == 0) via the
     ring mailbox (K2): each recipient's first `slots` messages land in
     arrival order, the rest count as dropped, and the aggregation consumes
-    every valid row."""
+    every valid row. The spill region is empty (no fill launches)."""
     p = payload.shape[1]
     buf_t, buf_p, buf_v, counts, sums, dropped = ring_slots(
         dst, mtype, payload, valid, n_actors, slots)
-    ok = valid & (dst >= 0) & (dst < n_actors)
     dev = dst.device
     return SlotDelivery(
         types=buf_t, payload=buf_p, valid=buf_v, count=counts, sum=sums,
-        max=_merge_style_max(dst, payload, ok, n_actors, need_max),
+        max=_merge_style_max(dst, payload, valid, n_actors, need_max),
         dropped=dropped,
-        spill_dst=torch.full((0,), -1, dtype=torch.int32, device=dev),
-        spill_type=torch.zeros((0,), dtype=torch.int32, device=dev),
-        spill_payload=payload.new_zeros((0, p)),
-        spill_valid=torch.zeros((0,), dtype=torch.bool, device=dev),
+        spill_dst=torch.empty((0,), dtype=torch.int32, device=dev),
+        spill_type=torch.empty((0,), dtype=torch.int32, device=dev),
+        spill_payload=payload.new_empty((0, p)),
+        spill_valid=torch.empty((0,), dtype=torch.bool, device=dev),
     )

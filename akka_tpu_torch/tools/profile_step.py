@@ -30,7 +30,7 @@ from ..models.baseline_benches import (build_fan_in, build_ring,
                                        build_ring_slots, seed_ring_full)
 
 
-def _device_us(event) -> float:
+def device_us(event) -> float:
     """Self device time of a profiler event, in µs, across torch versions."""
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, attr):
@@ -67,7 +67,7 @@ def profile_cell(label: str, sys_, steps: int, top: int) -> None:
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and not e.key.startswith("akka.")]
-    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3 / steps
     traced_ms = wall_ms / steps
     print(f"{label} ms_per_step_traced {traced_ms}")
     print(f"{label} device_busy_ms_per_step {busy_ms}")
@@ -75,9 +75,9 @@ def profile_cell(label: str, sys_, steps: int, top: int) -> None:
     print(f"{label} device_busy_share_traced {busy_ms / traced_ms}")
     print(f"{label} kernel_launches_per_step "
           f"{sum(e.count for e in kernels) / steps}")
-    ranked = sorted(kernels, key=_device_us, reverse=True)[:top]
+    ranked = sorted(kernels, key=device_us, reverse=True)[:top]
     for e in ranked:
-        print(f"{label}   {_device_us(e) / 1e3 / steps:.4f} ms/step  "
+        print(f"{label}   {device_us(e) / 1e3 / steps:.4f} ms/step  "
               f"{e.count / steps:.0f}x/step  {e.key[:90]}")
 
 

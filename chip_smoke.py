@@ -5,12 +5,16 @@
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the
    ring-mailbox kernels from akka_tpu_torch/csrc (nvcc, sm_90a).
-2. Holds each kernel against its plain PyTorch version on the card, at the
-   main path's shape (m = 2^20 + 8 rows, n = 2^20 actors, P = 4, S = 2) and
-   at a small ragged shape: integer outputs bit-equal, sums within rtol 1e-4
-   / atol 1e-3 (float atomics add in a run-dependent order). Times the
-   kernel, the plain version and, for K1, one `index_add_` call, and
-   computes the memory-bytes bound at 3.35 TB/s.
+2. Holds each kernel against its plain PyTorch version on the card, at a
+   small ragged shape and at the main path's shape (m = 2^20 + 8 rows,
+   n = 2^20 actors, P = 4, S = 2) under three traffic patterns (random,
+   ring, 1000-collector fan-in; akka_tpu_torch/tools/bench_mailbox.py):
+   integer outputs bit-equal, sums within rtol 1e-4 / atol 1e-3 (float
+   atomics add in a run-dependent order). For each pattern it times the C
+   entry on the card's clock (CUDA events around 200 launches on outputs
+   allocated once, zeroing included: `ms`), the Python wrapper
+   (`wrapper_ms`), the plain version and, for K1, one `index_add_` call,
+   and computes the memory-bytes bound at 3.35 TB/s.
 3. Drives the main path through BatchedSystem on the card at 1M actors:
    the ring in reduce mode, the 1M -> 1k fan-in, the ring with 2-slot
    bounded mailboxes (and its twin on the ranked kernels, which must agree
@@ -19,13 +23,14 @@
    counts are zeroed just before the path and read just after).
 
 Any failure raises and the exit code is non-zero. The last two lines are
-the kernel report (JSON) and {"ok": true, "device": {...}}.
+the kernel report (JSON; `ms` and the other top-level numbers are the
+random pattern's, `patterns` holds all three) and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -36,12 +41,13 @@ from akka_tpu_torch.models.baseline_benches import (PAYLOAD_W, build_fan_in,
                                                     build_ring_slots,
                                                     seed_ring_full)
 from akka_tpu_torch.ops import cuda_mailbox as cm
+from akka_tpu_torch.tools import bench_mailbox as bm
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
-RTOL, ATOL = 1e-4, 1e-3     # sums: float atomics add in no fixed order
+RTOL, ATOL = bm.RTOL, bm.ATOL
 N = 1 << 20                 # actors on the main path
-M = N + 8                   # inbox rows: n * K emissions + host_inbox
-SLOTS = 2
+M = N + bm.HOST_ROWS        # inbox rows: n * K emissions + host_inbox
+SLOTS = bm.SLOTS
+KERNEL_ITERS = 200          # C-entry launches per device timing
 
 
 def check(cond, what: str) -> None:
@@ -49,99 +55,67 @@ def check(cond, what: str) -> None:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call of fn on the card (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def make_inputs(m: int, n: int, p: int, seed: int):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    dst = torch.randint(-1, n + 1, (m,), generator=g, device="cuda",
-                        dtype=torch.int32)              # -1 and n: dropped
-    mtype = torch.randint(1, 5, (m,), generator=g, device="cuda",
-                          dtype=torch.int32)
-    payload = torch.randn((m, p), generator=g, device="cuda")
-    valid = torch.rand((m,), generator=g, device="cuda") > 0.1
-    return dst, mtype, payload, valid
-
-
-def compare(name: str, got, want) -> float:
-    """Integer fields bit-equal, float fields allclose; returns the max
-    absolute float error."""
-    err = 0.0
-    for i, (a, b) in enumerate(zip(got, want)):
-        if a.is_floating_point():
-            check(torch.allclose(a, b, rtol=RTOL, atol=ATOL),
-                  f"{name} field {i} within rtol {RTOL} / atol {ATOL}")
-            err = max(err, float((a - b).abs().max()))
-        else:
-            check(torch.equal(a, b), f"{name} field {i} bit-equal")
-    return err
-
-
 def kernel_phase():
-    """K1 and K2 against their plain versions; returns the report rows
-    (without launches) for the main-path shape."""
+    """K1 and K2 against their plain versions at a small ragged shape and,
+    at the main path's shape, at each traffic pattern; returns the timed
+    report rows by pattern and kernel (without launches)."""
+    dst, mtype, payload, valid = bm.make_pattern("random", 37, 11, 3, 37)
+    err = bm.compare("K1 m=37", cm.ring_reduce(dst, payload, valid, 11),
+                     cm.ring_reduce_plain(dst, payload, valid, 11))
+    err = max(err, bm.compare(
+        "K2 m=37", cm.ring_slots(dst, mtype, payload, valid, 11, SLOTS),
+        cm.ring_slots_plain(dst, mtype, payload, valid, 11, SLOTS)))
+    torch.cuda.synchronize()
+    print(f"kernel_check m=37 n=11 p=3 S={SLOTS}: max_abs_err={err}")
+
+    lib = cm.build()
+    b1, b2 = bm.bound_bytes(M, N, PAYLOAD_W, SLOTS)
     rows = {}
-    for m, n, p in ((37, 11, 3), (M, N, PAYLOAD_W)):
-        dst, mtype, payload, valid = make_inputs(m, n, p, seed=m)
-        k1 = cm.ring_reduce(dst, payload, valid, n)
-        err1 = compare(f"K1 m={m}", k1, cm.ring_reduce_plain(dst, payload,
-                                                             valid, n))
-        k2 = cm.ring_slots(dst, mtype, payload, valid, n, SLOTS)
-        err2 = compare(f"K2 m={m}", k2, cm.ring_slots_plain(
-            dst, mtype, payload, valid, n, SLOTS))
+    for seed, pattern in enumerate(bm.PATTERNS):
+        inputs = bm.make_pattern(pattern, M, N, PAYLOAD_W, seed)
+        dst, mtype, payload, valid = inputs
+        err1 = bm.compare(f"K1 {pattern}",
+                          cm.ring_reduce(dst, payload, valid, N),
+                          cm.ring_reduce_plain(dst, payload, valid, N))
+        err2 = bm.compare(f"K2 {pattern}",
+                          cm.ring_slots(*inputs, N, SLOTS),
+                          cm.ring_slots_plain(*inputs, N, SLOTS))
         torch.cuda.synchronize()
-        print(f"kernel_check m={m} n={n} p={p} S={SLOTS}: "
-              f"K1 max_abs_err={err1} K2 max_abs_err={err2}")
-        if m != M:
-            continue
-        ok = valid & (dst >= 0) & (dst < n)
-        key = torch.where(ok, dst, n).long()
+        e1, e2, _ = bm.package_entries(lib, inputs, N, SLOTS)
+        ok = valid & (dst >= 0) & (dst < N)
+        key = torch.where(ok, dst, N).long()
         src = torch.cat([torch.where(ok[:, None], payload, 0),
                          ok[:, None].float()], dim=1)
-        k1_bytes = m * (4 + 1 + 4 * p) + n * (4 + 4 * p)
-        k2_bytes = k1_bytes + m * 4 + n * SLOTS * (4 + 4 * p + 1) + 4
-        timings = {
-            "K1": (cuda_ms(lambda: cm.ring_reduce(dst, payload, valid, n)),
-                   cuda_ms(lambda: cm.ring_reduce_plain(dst, payload, valid,
-                                                        n)),
-                   cuda_ms(lambda: torch.zeros((n + 1, p + 1),
-                                               device="cuda")
-                           .index_add_(0, key, src)),
-                   k1_bytes, err1),
-            "K2": (cuda_ms(lambda: cm.ring_slots(dst, mtype, payload, valid,
-                                                 n, SLOTS)),
-                   cuda_ms(lambda: cm.ring_slots_plain(dst, mtype, payload,
-                                                       valid, n, SLOTS)),
-                   None, k2_bytes, err2),
+        rows[pattern] = {
+            "K1": {"ms": bm.cuda_ms(e1, KERNEL_ITERS, 5),
+                   "wrapper_ms": bm.cuda_ms(
+                       lambda: cm.ring_reduce(dst, payload, valid, N)),
+                   "plain_ms": bm.cuda_ms(
+                       lambda: cm.ring_reduce_plain(dst, payload, valid, N)),
+                   "library_ms": bm.cuda_ms(
+                       lambda: torch.zeros((N + 1, PAYLOAD_W + 1),
+                                           device="cuda")
+                       .index_add_(0, key, src)),
+                   "bound_ms": bm.bound_ms(b1), "max_abs_err": err1},
+            "K2": {"ms": bm.cuda_ms(e2, KERNEL_ITERS, 5),
+                   "wrapper_ms": bm.cuda_ms(
+                       lambda: cm.ring_slots(*inputs, N, SLOTS)),
+                   "plain_ms": bm.cuda_ms(
+                       lambda: cm.ring_slots_plain(*inputs, N, SLOTS)),
+                   "library_ms": None,
+                   "bound_ms": bm.bound_ms(b2), "max_abs_err": err2},
         }
-        for k, (ms, plain_ms, lib_ms, nbytes, err) in timings.items():
-            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            print(f"{k} kernel_ms {ms}")
-            print(f"{k} plain_ms {plain_ms}")
-            print(f"{k} library_ms {lib_ms}")
-            print(f"{k} bound_us {bound_ms * 1e3} ({nbytes} bytes)")
-            rows[k] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": "bytes", "library_ms": lib_ms,
-                       "max_abs_err": err}
+        for k, row in rows[pattern].items():
+            print(f"{pattern} {k} " + " ".join(f"{f} {v}"
+                                               for f, v in row.items()))
+        del inputs, dst, mtype, payload, valid, ok, key, src, e1, e2
     return rows
 
 
 def timed_run(sys_, steps: int, msgs_per_step: int, label: str) -> None:
     """Warm run(steps), then a timed run(steps) between CUDA events."""
     sys_.run(steps)
-    ms = cuda_ms(lambda: sys_.run(steps), iters=1, warmup=0) / steps
+    ms = bm.cuda_ms(lambda: sys_.run(steps), iters=1, warmup=0) / steps
     print(f"{label} ms_per_step {ms}")
     print(f"{label} msgs_per_s {msgs_per_step / (ms * 1e-3)}")
 
@@ -230,10 +204,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = bm.card_line()
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -248,11 +219,16 @@ def main() -> int:
              "K2": ("ring_slots", "_run(with_slots=True)")}
     kernels = []
     for k, (cname, mode) in entry.items():
+        by_pattern = {pat: rows[pat][k] for pat in bm.PATTERNS}
         kernels.append({
             "name": f"{k} {cname}", "route": "cuda",
             "source": "akka_tpu_torch/csrc/ring_mailbox.cu",
             "replaces": f"akka_tpu/ops/pallas_mailbox.py:137 {mode}",
-            "launches": launches[cname], **rows[k]})
+            "launches": launches[cname], "bound_by": "bytes",
+            **rows["random"][k],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in by_pattern.values()),
+            "patterns": by_pattern})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

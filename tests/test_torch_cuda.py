@@ -12,6 +12,7 @@ import torch
 
 from akka_tpu_torch.ops import cuda_mailbox as cm
 from akka_tpu_torch.ops import segment as tsg
+from akka_tpu_torch.tools import bench_mailbox as bm
 
 pytestmark = pytest.mark.cuda
 
@@ -39,7 +40,11 @@ def _inputs(m, n, p, device, seed=0):
 @pytest.mark.parametrize("m,n,p,slots", [(300, 13, 3, 2), (4099, 64, 4, 3),
                                          (1, 1, 1, 1)])
 def test_kernels_match_plain_versions(card, m, n, p, slots):
-    dst, mtype, payload, valid = _inputs(m, n, p, card, seed=m)
+    _assert_kernels_match(*_inputs(m, n, p, card, seed=m), n, slots)
+    assert cm.LAUNCHES == {"ring_reduce": 1, "ring_slots": 1}
+
+
+def _assert_kernels_match(dst, mtype, payload, valid, n, slots):
     got = cm.ring_reduce(dst, payload, valid, n)
     want = cm.ring_reduce_plain(dst, payload, valid, n)
     assert torch.equal(got[0], want[0])
@@ -49,7 +54,47 @@ def test_kernels_match_plain_versions(card, m, n, p, slots):
     for i in (0, 1, 2, 3, 5):
         assert torch.equal(got[i], want[i]), i
     torch.testing.assert_close(got[4], want[4], rtol=RTOL, atol=ATOL)
+
+
+# P = 4 and 8 take the float4 path (one vector atomic per 4 columns), P = 1
+# and 3 the scalar one. The fan-in's ~4 rows per collector overflow S <= 3
+# and cascade through every level of S = 5.
+@pytest.mark.parametrize("slots", [1, 2, 3, 5])
+@pytest.mark.parametrize("p", [1, 3, 4, 8])
+@pytest.mark.parametrize("pattern", bm.PATTERNS)
+def test_kernels_match_plain_versions_by_pattern(card, pattern, p, slots):
+    n = 4096
+    inputs = bm.make_pattern(pattern, n + bm.HOST_ROWS, n, p, seed=p,
+                             device=card)
+    _assert_kernels_match(*inputs, n, slots)
     assert cm.LAUNCHES == {"ring_reduce": 1, "ring_slots": 1}
+
+
+def test_misaligned_payload_takes_the_scalar_path(card):
+    m, n, p = 3001, 500, 4
+    dst, mtype, payload, valid = _inputs(m, n, p, card, seed=11)
+    # a contiguous [m, 4] view 4 bytes past a 16-byte boundary
+    shifted = torch.empty(m * p + 1, device=card)[1:].view(m, p)
+    shifted.copy_(payload)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    _assert_kernels_match(dst, mtype, shifted, valid, n, 3)
+
+
+def test_repeated_launches_give_identical_integers(card):
+    n = 1 << 14
+    for pattern in bm.PATTERNS:
+        inputs = bm.make_pattern(pattern, n + bm.HOST_ROWS, n, 4, seed=5,
+                                 device=card)
+        first = cm.ring_slots(*inputs, n, 2)
+        counts = cm.ring_reduce(inputs[0], inputs[2], inputs[3], n)[0]
+        for _ in range(5):
+            again = cm.ring_slots(*inputs, n, 2)
+            for i in (0, 2, 3, 5):
+                assert torch.equal(again[i], first[i]), (pattern, i)
+            assert torch.equal(again[1], first[1]), pattern  # copied rows
+            assert torch.equal(cm.ring_reduce(inputs[0], inputs[2],
+                                              inputs[3], n)[0], counts)
+    assert cm.LAUNCHES == {"ring_reduce": 18, "ring_slots": 18}
 
 
 def test_auto_backend_launches_the_ring_kernel(card):

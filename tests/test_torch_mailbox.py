@@ -93,6 +93,16 @@ def test_support_matrix_has_no_state_cap():
         assert why in cm.unsupported_reason(4, 2, slots=2, **kwargs)
 
 
+def test_support_matrix_caps_ring_cells_at_int32():
+    # the ring kernel indexes its n x S cells with 32-bit ints
+    assert cm.supported((1 << 30) - 1, 4, slots=2)
+    assert "cell index" in cm.unsupported_reason(1 << 30, 4, slots=2)
+    with pytest.raises(ValueError, match="cell index"):
+        tsg.deliver_slots(*[torch.zeros(1, dtype=t) for t in (
+            torch.int32, torch.int32)], torch.zeros((1, 4)),
+            torch.zeros(1, dtype=torch.bool), 1 << 30, 2, backend="cuda")
+
+
 def test_explicit_cuda_backend_outside_support_raises():
     dst, mtype, payload, valid = _inputs(64, 8, 2, seed=7)
     args = (torch.from_numpy(dst), torch.from_numpy(mtype),
