@@ -35,24 +35,35 @@ ASK_ARM_SPEC = ((), torch.int32)
 
 
 def bucket_of(v: torch.Tensor) -> torch.Tensor:
-    """[m] int32 values -> [m] int32 bucket indices."""
+    """int32 values -> int32 bucket indices of the same shape."""
     b = torch.tensor(BOUNDARIES, dtype=torch.int32, device=v.device)
-    return (v[:, None] >= b[None, :]).sum(dim=1, dtype=torch.int32)
+    return (v[..., None] >= b).sum(dim=-1, dtype=torch.int32)
 
 
 def masked_hist(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """[N_BUCKETS] int32 histogram of values where mask holds; masked-out
-    rows go to a sacrificial bucket that is sliced off."""
-    safe = torch.where(mask, bucket_of(values.to(torch.int32)), N_BUCKETS)
-    out = torch.zeros((N_BUCKETS + 1,), dtype=torch.int32,
+    """[N_BUCKETS] int32 histogram of values where mask holds, or for
+    [D, L] values one histogram per row ([D, N_BUCKETS]); masked-out
+    values go to a sacrificial bucket that is sliced off."""
+    lead = values.shape[:-1]
+    rows = values.reshape(-1, values.shape[-1])
+    d = rows.shape[0]
+    safe = torch.where(mask.reshape(d, -1), bucket_of(rows.to(torch.int32)),
+                       N_BUCKETS).long()
+    safe = safe + torch.arange(d, device=values.device)[:, None] \
+        * (N_BUCKETS + 1)
+    out = torch.zeros((d * (N_BUCKETS + 1),), dtype=torch.int32,
                       device=values.device)
-    return out.index_add_(0, safe.long(), mask.to(torch.int32))[:N_BUCKETS]
+    out.index_add_(0, safe.reshape(-1), mask.reshape(-1).to(torch.int32))
+    return out.reshape(lead + (N_BUCKETS + 1,))[..., :N_BUCKETS]
 
 
 def accumulate_step(metrics: torch.Tensor, old_state, new_state, old_alive,
                     delivered_count, inbox_valid, inbox_enq, step_count,
-                    latch_col=None) -> torch.Tensor:
-    """One step's histogram accumulation over an [N_HIST, N_BUCKETS] slab.
+                    latch_col=None, n_shards=None) -> torch.Tensor:
+    """One step's histogram accumulation over an [N_HIST, N_BUCKETS] slab,
+    or, with `n_shards`, over a [D, N_HIST, N_BUCKETS] slab where each of D
+    equal contiguous blocks of rows (and of inbox rows) accumulates into
+    its own row, gated by its own quiet predicate.
 
     Lanes:
       HIST_OCCUPANCY  per-row delivered count at step entry, alive rows
@@ -63,27 +74,36 @@ def accumulate_step(metrics: torch.Tensor, old_state, new_state, old_alive,
     """
     i32 = torch.int32
     dev = metrics.device
-    zeros = torch.zeros((N_BUCKETS,), dtype=i32, device=dev)
-    busy = inbox_valid.any()
+    d = 1 if n_shards is None else n_shards
+
+    def blocks(x):
+        return x.reshape(d, -1)
+
+    zeros = torch.zeros((d, N_BUCKETS), dtype=i32, device=dev)
+    valid = blocks(inbox_valid)
+    busy = valid.any(1)
     step = torch.as_tensor(step_count).to(i32)
-    age = (step - inbox_enq).clamp(min=0)
-    lanes = [masked_hist(delivered_count.to(i32), old_alive),
-             masked_hist(age, inbox_valid)]
+    age = (step - blocks(inbox_enq)).clamp(min=0)
+    lanes = [masked_hist(blocks(delivered_count.to(i32)), blocks(old_alive)),
+             masked_hist(age, valid)]
     if "_retries" in new_state:
-        retry_mask = new_state["_retries"] > old_state["_retries"]
-        busy = busy | retry_mask.any()
-        lanes.append(masked_hist(new_state["_retries"].to(i32), retry_mask))
+        retry_mask = blocks(new_state["_retries"] > old_state["_retries"])
+        busy = busy | retry_mask.any(1)
+        lanes.append(masked_hist(blocks(new_state["_retries"].to(i32)),
+                                 retry_mask))
     else:
         lanes.append(zeros)
     if latch_col is not None and latch_col in new_state \
             and ASK_ARM_COL in old_state:
-        newly = (new_state[latch_col] != 0) & (old_state[latch_col] == 0)
-        busy = busy | newly.any()
-        lat = (step + 1 - old_state[ASK_ARM_COL]).clamp(min=0)
+        newly = blocks((new_state[latch_col] != 0)
+                       & (old_state[latch_col] == 0))
+        busy = busy | newly.any(1)
+        lat = (step + 1 - blocks(old_state[ASK_ARM_COL])).clamp(min=0)
         lanes.append(masked_hist(lat, newly))
     else:
         lanes.append(zeros)
-    return metrics + torch.stack(lanes) * busy.to(i32)
+    add = torch.stack(lanes, 1) * busy.to(i32)[:, None, None]
+    return metrics + (add if n_shards is not None else add[0])
 
 
 def empty_slab(n_shards: int = 0, device=None) -> torch.Tensor:

@@ -1,0 +1,577 @@
+"""ShardedBatchedSystem: the actor space split into shards on one card.
+
+Port of `akka_tpu/batched/sharded.py`. The reference shards the actor rows
+over a device mesh (`shard_map`) and moves every cross-shard tell through a
+per-step `lax.all_to_all` of a [D, C] exchange buffer. Here the D shards
+are a leading axis of the same tensors on one card, and each step runs over
+all shards at once (one launch per op, not one per shard):
+
+1. Deliver: ONE `deliver`/`deliver_slots` call over the flat
+   [D * m_local] inbox with global recipient ids. Rows addressed outside
+   their own shard's id range are masked invalid first: the reference's
+   per-shard call ignores (and does not count) such rows, and every row for
+   a recipient lies in its own shard's block in the same relative order, so
+   arrival order and every integer output equal those of D local calls.
+   This call launches the ring-mailbox kernels (K1 in reduce mode, K2 with
+   bounded slots). Spill is compacted per shard (`spill_cap` rows each).
+2. Behaviors run over all rows with global actor ids (`StepCore`); the
+   counters the step keeps (mailbox drops, supervision counts, the metric
+   slab, the attention word) are per shard.
+3. Bucketing: one stable rank (`stable_ranks`; `exchange_uses_ranked`)
+   over src_shard * (D + 1) + dest_shard, invalid rows at dest = D, so each
+   (source, destination) pair keeps its rows in emission order; rows past
+   the per-pair capacity C are dropped and counted per source shard.
+4. Exchange: scatter into buf[D_src, D_dst, C]; `buf.transpose(0, 1)`
+   hands each destination its chunks in source-shard order, as
+   `lax.all_to_all(..., tiled=False)` does, landing at offset spill_cap of
+   the destination's inbox block. Per-sender FIFO survives.
+
+Every carry field keeps the reference's flat global layout, so one numpy
+carry loads into either package (`utils/carry.py`): state columns
+[capacity, ...]; the inbox [D * m_local] with each shard's block laid out
+[spill | D * pair_cap | host]; dropped and mail_dropped [D]; sup_counts
+[D, N_COUNTERS]; metrics [D, N_HIST, N_BUCKETS]; attention [D, ATT_WORDS].
+
+The inbox is updated in place each step (the reference donates it to its
+jitted program). Not ported yet: `checkpoint`/`restore` (ROADMAP A8),
+`metrics_epoch_value`/`drain_metrics`, and a mesh of several cards
+(`mesh=`, ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.segment import exchange_uses_ranked, stable_ranks
+from ..utils.device import resolve_device
+from .behavior import BatchedBehavior
+from .core import _numpy_dtype, drive_pipelined
+from .metrics_slab import (ASK_ARM_COL, ASK_ARM_SPEC, accumulate_step,
+                           empty_slab, slab_dict)
+from .step import (StepCore, fault_any_failed, fault_clear_failed,
+                   fault_failed_rows, fault_restart_rows)
+from .supervision import (ATT_WORDS, N_COUNTERS, SUP_COLUMNS, counts_dict,
+                          decode_attention, reserved_fill)
+
+
+class ShardedBatchedSystem:
+    """Batched actor space over `n_devices` shards on one card.
+
+    capacity rounds up to a multiple of the shard count; shard s owns rows
+    [s * local_n, (s + 1) * local_n). remote_capacity_per_pair C bounds
+    the rows one shard sends another per step (default: lossless,
+    local_n * out_degree); host_inbox_per_shard rows per shard take host
+    tells. mailbox_slots, spill_capacity, delivery, delivery_backend,
+    attention_latch_col and metrics_enabled are BatchedSystem's.
+    reroute_strays allows the hand-off step (`enter_stray_mode`), which
+    forwards inbox rows addressed outside their shard one more hop.
+    n_devices keeps the reference's name: here it is the shard count on
+    one card (default 1). device defaults to CUDA and raises without a
+    card unless device="cpu" is passed; mesh must be None.
+    """
+
+    def __init__(self, capacity: int, behaviors: Sequence[BatchedBehavior],
+                 mesh: Any = None, n_devices: Optional[int] = None,
+                 payload_width: int = 4, out_degree: int = 1,
+                 host_inbox_per_shard: int = 256,
+                 remote_capacity_per_pair: Optional[int] = None,
+                 payload_dtype=torch.float32, axis_name: str = "shards",
+                 mailbox_slots: int = 0, reroute_strays: bool = False,
+                 spill_capacity: Optional[int] = None,
+                 delivery: str = "auto",
+                 delivery_backend: Optional[str] = None,
+                 attention_latch_col: Optional[str] = None,
+                 metrics_enabled: bool = False, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a mesh of several cards is not ported yet (ROADMAP A10); "
+                "pass n_devices for shards on one card")
+        self.device = dev = resolve_device(device)
+        exchange_uses_ranked(dev.type, delivery_backend)  # validates it
+        self.mesh = None
+        self.axis = axis_name
+        self.n_shards = d = int(n_devices) if n_devices is not None else 1
+        if d < 1:
+            raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+        if capacity % d != 0:
+            capacity += d - capacity % d
+        self.capacity = n = int(capacity)
+        self.local_n = n // d
+        self.behaviors = list(behaviors)
+        self.payload_width = int(payload_width)
+        self.out_degree = int(out_degree)
+        self.host_inbox = int(host_inbox_per_shard)
+        self.payload_dtype = payload_dtype
+        self.mailbox_slots = int(mailbox_slots)
+        if self.mailbox_slots == 0 and any(b.inbox == "slots"
+                                           for b in behaviors):
+            self.mailbox_slots = max(2, self.out_degree)
+        # per-shard spill region (slots mode): overflow and suspended-row
+        # mail are retained and redelivered ahead of fresh traffic
+        if self.mailbox_slots > 0:
+            self.spill_cap = (int(spill_capacity)
+                              if spill_capacity is not None
+                              else max(self.host_inbox,
+                                       4 * self.mailbox_slots))
+        else:
+            self.spill_cap = 0
+        self.reroute_strays = bool(reroute_strays)
+        self.stray_mode = False
+        self.delivery_backend = delivery_backend
+        # lossless by default; stray mode doubles the pair capacity unless
+        # the caller fixed it (overflow is counted in `dropped` either way)
+        if remote_capacity_per_pair:
+            self.pair_cap_base = int(remote_capacity_per_pair)
+            self.pair_cap_stray = int(remote_capacity_per_pair)
+        else:
+            self.pair_cap_base = self.local_n * self.out_degree
+            self.pair_cap_stray = 2 * self.pair_cap_base
+        self.pair_cap = self.pair_cap_base
+
+        self.state_spec: Dict[str, Tuple[Tuple[int, ...], Any]] = {}
+        for b in self.behaviors:
+            for col, spec in b.state_spec.items():
+                spec = (tuple(spec[0]), spec[1])
+                if col in self.state_spec and self.state_spec[col] != spec:
+                    raise ValueError(f"conflicting column {col!r}")
+                self.state_spec[col] = spec
+        if any(getattr(b, "supervisor", None) is not None for b in behaviors):
+            for col, spec in SUP_COLUMNS.items():
+                self.state_spec.setdefault(col, spec)
+        elif any(getattr(b, "nonfinite_guard", False) for b in behaviors):
+            self.state_spec.setdefault("_failed", SUP_COLUMNS["_failed"])
+        self.metrics_on = bool(metrics_enabled)
+        if self.metrics_on and attention_latch_col is not None:
+            self.state_spec.setdefault(ASK_ARM_COL, ASK_ARM_SPEC)
+
+        i32 = torch.int32
+        self.state: Dict[str, torch.Tensor] = {
+            k: torch.full((n,) + shape, reserved_fill(k), dtype=dtype,
+                          device=dev)
+            for k, (shape, dtype) in self.state_spec.items()}
+        self.behavior_id = torch.zeros((n,), dtype=i32, device=dev)
+        self.alive = torch.zeros((n,), dtype=torch.bool, device=dev)
+        self.step_count = torch.zeros((), dtype=i32, device=dev)
+
+        # inbox per shard: spill first (older mail outranks fresh in the
+        # stable delivery), then D * C exchange rows, then host rows
+        self.m_local = self.spill_cap + d * self.pair_cap + self.host_inbox
+        m = self.m_local * d
+        self.inbox_dst = torch.full((m,), -1, dtype=i32, device=dev)
+        self.inbox_type = torch.zeros((m,), dtype=i32, device=dev)
+        self.inbox_payload = torch.zeros((m, self.payload_width),
+                                         dtype=payload_dtype, device=dev)
+        self.inbox_valid = torch.zeros((m,), dtype=torch.bool, device=dev)
+        self.inbox_enq = torch.zeros((m,) if self.metrics_on else (0,),
+                                     dtype=i32, device=dev)
+        self.dropped = torch.zeros((d,), dtype=i32, device=dev)
+        self.mail_dropped = torch.zeros((d,), dtype=i32, device=dev)
+        self.sup_counts = torch.zeros((d, N_COUNTERS), dtype=i32, device=dev)
+        self.metrics = empty_slab(d, device=dev)
+        self.attention = torch.zeros((d, ATT_WORDS), dtype=i32, device=dev)
+        # cumulative per-shard overflow already reported through the
+        # flight recorder's shard_overflow warning (read_attention)
+        self._overflow_reported = np.zeros((d, 2), np.int64)
+        # optional flight recorder (shard_overflow(...)); None = no cost
+        self.flight_recorder = None
+
+        self._next_row = 0
+        self._lock = threading.Lock()
+        self._host_staged: List[Tuple[int, int, np.ndarray]] = []
+        self._host_step = 0
+        self._np_payload_dtype = _numpy_dtype(payload_dtype)
+        # small lookup tables behaviors see as ctx.tables
+        self.tables: Dict[str, torch.Tensor] = {}
+
+        self._core = StepCore(self.behaviors, n_local=n,
+                              payload_width=self.payload_width,
+                              out_degree=self.out_degree,
+                              payload_dtype=payload_dtype,
+                              slots=self.mailbox_slots, n_global=n,
+                              delivery=delivery,
+                              delivery_backend=delivery_backend,
+                              spill_cap=self.spill_cap,
+                              attention_latch_col=attention_latch_col,
+                              device=dev, n_shards=d)
+        shard_ids = torch.arange(d, dtype=i32, device=dev)[:, None]
+        self._bases = shard_ids * self.local_n          # [D, 1] first ids
+        self._src_key = shard_ids * (d + 1)             # [D, 1] rank keys
+        self._src_pair = shard_ids.long() * d           # [D, 1] buf rows
+
+    # ------------------------------------------------------------- lifecycle
+    def spawn_block(self, behavior: BatchedBehavior | int, n: int,
+                    init_state: Optional[Dict[str, Any]] = None
+                    ) -> np.ndarray:
+        """Allocate n contiguous rows with the given behavior (no free
+        list: rebalancing owns row placement). init_state values are
+        per-row ([n, ...]) or broadcast. Returns the global ids."""
+        b_idx = behavior if isinstance(behavior, int) \
+            else self.behaviors.index(behavior)
+        with self._lock:
+            start = self._next_row
+            if start + n > self.capacity:
+                raise RuntimeError("actor capacity exhausted")
+            self._next_row = start + n
+        rows = slice(start, start + n)
+        self.behavior_id[rows] = b_idx
+        self.alive[rows] = True
+        for col, value in (init_state or {}).items():
+            cur = self.state[col]
+            cur[rows] = torch.as_tensor(value, dtype=cur.dtype,
+                                        device=self.device)
+        return np.arange(start, start + n, dtype=np.int32)
+
+    def tell(self, dst: int, payload, mtype: int = 0) -> None:
+        """Host-side tell to one actor: staged, flushed into its shard's
+        host rows by the next run()."""
+        pl = np.zeros(self.payload_width, dtype=self._np_payload_dtype)
+        arr = np.asarray(payload).reshape(-1)
+        pl[: arr.shape[0]] = arr
+        with self._lock:
+            self._host_staged.append((int(dst), int(mtype), pl))
+
+    def _flush_staged(self) -> None:
+        """Write staged tells into each destination shard's host rows, in
+        staging order. Tells past a shard's host_inbox are skipped (not
+        counted), as in the reference; so are tells addressed outside
+        [0, capacity)."""
+        with self._lock:
+            staged, self._host_staged = self._host_staged, []
+        if not staged:
+            return
+        used: Dict[int, int] = {}
+        host0 = self.spill_cap + self.n_shards * self.pair_cap
+        idxs, dsts, mts, pls = [], [], [], []
+        for d, t, p in staged:
+            if not 0 <= d < self.capacity:
+                continue
+            s = d // self.local_n
+            u = used.get(s, 0)
+            if u >= self.host_inbox:
+                continue
+            used[s] = u + 1
+            idxs.append(s * self.m_local + host0 + u)
+            dsts.append(d)
+            mts.append(t)
+            pls.append(p)
+        if not idxs:
+            return
+        dev = self.device
+        idx = torch.as_tensor(idxs, dtype=torch.int64, device=dev)
+        self.inbox_dst[idx] = torch.as_tensor(dsts, dtype=torch.int32,
+                                              device=dev)
+        self.inbox_type[idx] = torch.as_tensor(mts, dtype=torch.int32,
+                                               device=dev)
+        self.inbox_payload[idx] = torch.from_numpy(np.stack(pls)).to(
+            dev, self.payload_dtype)
+        self.inbox_valid[idx] = True
+        if self.metrics_on:
+            # stamped with the dispatched-step mirror: the next step
+            # delivers them (sojourn age 0)
+            self.inbox_enq[idx] = self._host_step
+
+    def set_tables(self, tables: Dict[str, Any]) -> None:
+        """Install or replace the lookup tables behaviors see via
+        ctx.tables."""
+        self.tables = {k: torch.as_tensor(v, device=self.device)
+                       for k, v in tables.items()}
+
+    # ------------------------------------------------------- stray handoff
+    def _relayout_inbox(self, new_pair_cap: int) -> None:
+        """Re-grid the inbox for another per-pair capacity. Each shard's
+        block is [spill | D * pair_cap | host]; received rows sit packed
+        at the start of their pair chunk, so growing pads each chunk's
+        tail and shrinking slices it (the caller has checked the tail is
+        empty)."""
+        if new_pair_cap == self.pair_cap:
+            return
+        d, sc = self.n_shards, self.spill_cap
+        old_pc, old_ml = self.pair_cap, self.m_local
+        new_ml = sc + d * new_pair_cap + self.host_inbox
+
+        def regrid(arr, fill):
+            tail = tuple(arr.shape[1:])
+            v = arr.reshape((d, old_ml) + tail)
+            pairs = v[:, sc:sc + d * old_pc].reshape((d, d, old_pc) + tail)
+            if new_pair_cap > old_pc:
+                pad = torch.full((d, d, new_pair_cap - old_pc) + tail, fill,
+                                 dtype=arr.dtype, device=arr.device)
+                pairs = torch.cat([pairs, pad], 2)
+            else:
+                pairs = pairs[:, :, :new_pair_cap]
+            out = torch.cat([v[:, :sc],
+                             pairs.reshape((d, d * new_pair_cap) + tail),
+                             v[:, sc + d * old_pc:]], 1)
+            return out.reshape((d * new_ml,) + tail).contiguous()
+
+        self.inbox_dst = regrid(self.inbox_dst, -1)
+        self.inbox_type = regrid(self.inbox_type, 0)
+        self.inbox_payload = regrid(self.inbox_payload, 0)
+        self.inbox_valid = regrid(self.inbox_valid, False)
+        if self.metrics_on:
+            self.inbox_enq = regrid(self.inbox_enq, 0)
+        self.pair_cap = new_pair_cap
+        self.m_local = new_ml
+
+    def enter_stray_mode(self) -> None:
+        """Switch to the hand-off step: the stray-pair capacity, and inbox
+        rows addressed outside their shard ride the next exchange. Call at
+        rebalance; exit once drained."""
+        if not self.reroute_strays:
+            raise RuntimeError(
+                "system built with reroute_strays=False has no stray step")
+        if self.stray_mode:
+            return
+        self._relayout_inbox(self.pair_cap_stray)
+        self.stray_mode = True
+
+    def exit_stray_mode(self) -> bool:
+        """Back to the steady-state step once it is safe: no stray row is
+        left in the inbox, and no pair chunk holds rows past the base
+        capacity. Both reduce on the device; two booleans come back.
+        Returns False, staying in stray mode, while either holds."""
+        if not self.stray_mode:
+            return True
+        d, sc, pc = self.n_shards, self.spill_cap, self.pair_cap
+        valid = self.inbox_valid.reshape(d, self.m_local)
+        dst = self.inbox_dst.reshape(d, self.m_local)
+        has_stray = (valid & ((dst < self._bases)
+                              | (dst >= self._bases + self.local_n))).any()
+        tail_occupied = self.pair_cap_base < pc and bool(
+            valid[:, sc:sc + d * pc].reshape(d, d, pc)[
+                :, :, self.pair_cap_base:].any())
+        if bool(has_stray) or tail_occupied:
+            return False
+        self._relayout_inbox(self.pair_cap_base)
+        self.stray_mode = False
+        return True
+
+    # ------------------------------------------------------------------ step
+    def _step_impl(self) -> None:
+        """One step over every shard: deliver, behaviors, bucket, exchange,
+        and the new inbox written in place."""
+        d, ln, sc = self.n_shards, self.local_n, self.spill_cap
+        c, ml, p = self.pair_cap, self.m_local, self.payload_width
+        core = self._core
+        state, old_alive, step = self.state, self.alive, self.step_count
+        ib_dst = self.inbox_dst.view(d, ml)
+        ib_valid = self.inbox_valid.view(d, ml)
+        home = (ib_dst >= self._bases) & (ib_dst < self._bases + ln)
+        own = (ib_valid & home).reshape(-1)
+        (new_state, behavior_id, alive, emits, mdrop, spill, sup_delta,
+         dcount) = core.run_local(
+            state, self.behavior_id, self.alive, self.inbox_dst,
+            self.inbox_type, self.inbox_payload, own, step,
+            tables=self.tables)
+        if self.metrics_on:
+            # this step's inputs: the inbox just delivered (strays
+            # included) and its enqueue stamps
+            self.metrics = accumulate_step(
+                self.metrics, state, new_state, old_alive, dcount,
+                self.inbox_valid, self.inbox_enq, step,
+                latch_col=core.attention_latch_col, n_shards=d)
+
+        # ---- bucket by destination shard, per source shard -------------
+        out_dst = emits.dst.reshape(d, -1)
+        out_pl = emits.payload.reshape(d, -1, p).to(self.payload_dtype)
+        out_type = emits.type.reshape(d, -1)
+        out_valid = emits.valid.reshape(d, -1) & (out_dst >= 0) \
+            & (out_dst < self.capacity)
+        if self.stray_mode:
+            # inbox rows addressed outside their shard ride first (they
+            # are older; the rank is stable)
+            stray = ib_valid & (ib_dst >= 0) & ~home
+            out_dst = torch.cat([torch.where(stray, ib_dst, -1), out_dst], 1)
+            out_pl = torch.cat([self.inbox_payload.view(d, ml, p), out_pl],
+                               1)
+            out_type = torch.cat([self.inbox_type.view(d, ml), out_type], 1)
+            out_valid = torch.cat([stray, out_valid], 1)
+        dest = torch.where(
+            out_valid, torch.div(out_dst, ln, rounding_mode="floor")
+            .clamp(max=d), d)
+        rank, _ = stable_ranks((self._src_key + dest).reshape(-1),
+                               d * (d + 1))
+        rank = rank.reshape(dest.shape)
+        in_cap = out_valid & (rank < c) & (dest < d)
+        total = d * d * c
+        slot = torch.where(in_cap, (self._src_pair + dest) * c + rank,
+                           total).reshape(-1)   # overflow -> the dump row
+        self.dropped = self.dropped + (out_valid & ~in_cap).sum(
+            1, dtype=torch.int32)
+
+        def exchange(target, fill, rows) -> None:
+            """Scatter into buf[D_src, D_dst, C], then the all_to_all: the
+            transpose hands destination t its chunks in source order, one
+            copy into target [D_dst, D_src, C] (its exchange rows)."""
+            tail = tuple(rows.shape[2:])
+            buf = torch.full((total + 1,) + tail, fill, dtype=target.dtype,
+                             device=self.device)
+            buf[slot] = rows.reshape((-1,) + tail)
+            target.copy_(buf[:total].view((d, d, c) + tail).transpose(0, 1))
+
+        r = d * c
+        ib_pl = self.inbox_payload.view(d, ml, p)
+        ib_type = self.inbox_type.view(d, ml)
+        exchange(ib_dst[:, sc:sc + r].view(d, d, c), -1,
+                 torch.where(in_cap, out_dst, -1))
+        exchange(ib_pl[:, sc:sc + r].view(d, d, c, p), 0,
+                 torch.where(in_cap[..., None], out_pl, 0))
+        exchange(ib_valid[:, sc:sc + r].view(d, d, c), False, in_cap)
+        ib_dst[:, sc + r:] = -1
+        ib_pl[:, sc + r:] = 0
+        ib_valid[:, sc + r:] = False
+        if self.mailbox_slots > 0:  # the type column is read in slots only
+            exchange(ib_type[:, sc:sc + r].view(d, d, c), 0,
+                     torch.where(in_cap, out_type, 0))
+            ib_type[:, sc + r:] = 0
+        if spill is not None:  # spill is None iff sc == 0
+            sp_dst, sp_type, sp_pl, sp_v = spill
+            ib_dst[:, :sc] = sp_dst.view(d, sc)
+            ib_type[:, :sc] = sp_type.view(d, sc)
+            ib_pl[:, :sc] = sp_pl.view(d, sc, p)
+            ib_valid[:, :sc] = sp_v.view(d, sc)
+        if self.metrics_on:
+            # received rows are re-stamped with this step's counter, and
+            # so is retained spill
+            enq = self.inbox_enq.view(d, ml)
+            enq[:, :sc + r] = step
+            enq[:, sc + r:] = 0
+        self.state, self.behavior_id, self.alive = new_state, behavior_id, \
+            alive
+        self.mail_dropped = self.mail_dropped + mdrop
+        self.sup_counts = self.sup_counts + sup_delta
+        self.step_count = step + 1
+
+    def _attend(self) -> None:
+        self.attention = self._core.attention_word(
+            self.state, self.mail_dropped, self.sup_counts, self.step_count,
+            exch_dropped=self.dropped)
+
+    def run(self, n_steps: int = 1) -> None:
+        """Flush staged tells, then n steps on the device without host
+        syncs; the attention words come from the final carry."""
+        self._flush_staged()
+        with torch.profiler.record_function(
+                f"akka.device.sharded.run[{n_steps}]"):
+            for _ in range(n_steps):
+                self._step_impl()
+            self._attend()
+        self._host_step += int(n_steps)
+
+    step = run
+
+    def run_pipelined(self, n_steps: int, depth: int = 2,
+                      on_attention=None) -> None:
+        """Single-step runs with up to `depth` in flight, synchronising on
+        the attention words; with `on_attention`, every retired step's
+        decoded words are delivered in order and the tail is drained."""
+        cb = None
+        if on_attention is not None:
+            cb = lambda w: on_attention(decode_attention(w))  # noqa: E731
+        drive_pipelined(lambda: self.run(1), lambda: self.attention,
+                        n_steps, depth, on_drain=cb)
+
+    def read_attention(self) -> Dict[str, Any]:
+        """Decode the newest attention words (one small read that syncs the
+        newest run), with per-shard columns (`*_per_shard`). A shard whose
+        overflow counters grew since the last read raises one
+        shard_overflow warning on the flight recorder, if one is set."""
+        word = decode_attention(self.attention)
+        self._note_shard_overflow(word)
+        return word
+
+    def _note_shard_overflow(self, word: Dict[str, Any]) -> None:
+        fr = self.flight_recorder
+        if fr is None:
+            return
+        mail = np.asarray(word.get("mail_dropped_per_shard", ()), np.int64)
+        exch = np.asarray(word.get("dropped_per_shard", ()), np.int64)
+        if mail.shape[0] != self.n_shards:
+            return
+        for s in range(self.n_shards):
+            seen_mail, seen_exch = self._overflow_reported[s]
+            if mail[s] > seen_mail or exch[s] > seen_exch:
+                fr.shard_overflow("sharded", shard=s,
+                                  mailbox_overflow=int(mail[s]),
+                                  dropped=int(exch[s]))
+                self._overflow_reported[s] = (int(mail[s]), int(exch[s]))
+
+    # ------------------------------------------------------------------ read
+    def read_state(self, col: str, ids=None) -> np.ndarray:
+        """Host copy of one state column (rows `ids`, or all)."""
+        self.block_until_ready()
+        arr = self.state[col]
+        if ids is not None:
+            arr = arr[torch.as_tensor(np.asarray(ids, np.int64),
+                                      device=self.device)]
+        return arr.cpu().numpy()
+
+    def any_failed(self) -> bool:
+        return fault_any_failed(self.state)
+
+    def failed_rows(self) -> np.ndarray:
+        """Rows whose behavior raised the `_failed` flag."""
+        self.block_until_ready()
+        return fault_failed_rows(self.state)
+
+    def restart_rows(self, ids,
+                     init_state: Optional[Dict[str, Any]] = None) -> None:
+        """Host-mediated restart-with-reset-state (see BatchedSystem)."""
+        self.state = fault_restart_rows(self.state, ids, init_state)
+
+    def clear_failed(self, ids) -> None:
+        self.state = fault_clear_failed(self.state, ids)
+
+    @property
+    def supervision_counts(self) -> Dict[str, int]:
+        """In-step supervision counters summed over shards."""
+        return counts_dict(self.sup_counts)
+
+    def any_escalated(self) -> bool:
+        if "_escalated" not in self.state:
+            return False
+        return bool(self.state["_escalated"].any().item())
+
+    def escalated_rows(self) -> np.ndarray:
+        """Global ids of escalated rows awaiting host resolution."""
+        if "_escalated" not in self.state:
+            return np.empty((0,), np.int32)
+        flags = self.state["_escalated"].cpu().numpy()
+        return np.nonzero(flags)[0].astype(np.int32)
+
+    def stop_block(self, ids) -> None:
+        """Mark rows dead (no free list on the sharded runtime)."""
+        arr = np.unique(np.atleast_1d(np.asarray(ids, np.int64)))
+        self.alive[torch.as_tensor(arr, device=self.device)] = False
+
+    @property
+    def total_dropped(self) -> int:
+        """Exchange-overflow drops, all shards."""
+        return int(self.dropped.sum().item())
+
+    @property
+    def mailbox_overflow(self) -> int:
+        return int(self.mail_dropped.sum().item())
+
+    @property
+    def dropped_per_shard(self) -> np.ndarray:
+        """[n_shards] cumulative exchange-overflow counts."""
+        return self.dropped.cpu().numpy().astype(np.int64)
+
+    @property
+    def mailbox_overflow_per_shard(self) -> np.ndarray:
+        """[n_shards] cumulative mailbox-overflow counts."""
+        return self.mail_dropped.cpu().numpy().astype(np.int64)
+
+    def block_until_ready(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def read_metrics(self) -> Dict[str, np.ndarray]:
+        """The metric slab as named lanes, shards summed."""
+        self.block_until_ready()
+        return slab_dict(self.metrics)

@@ -11,6 +11,11 @@ Two delivery modes:
 - slots:  ordered delivery -> per-actor Mailbox of up to S discrete
   (type, payload) messages in per-sender FIFO order.
 
+With `n_shards` the rows are that many equal contiguous shards (the
+sharded system's leading shard axis on one card): delivery and behaviors
+run once over all rows, and the counters the step returns (mailbox drops,
+supervision counts, attention words) come back per shard.
+
 `topology` (StaticTopology compiled routing) is not ported yet.
 """
 
@@ -47,7 +52,8 @@ class StepCore:
                  delivery: str = "auto", n_global: Optional[int] = None,
                  spill_cap: int = 0,
                  delivery_backend: Optional[str] = None,
-                 attention_latch_col: Optional[str] = None, device=None):
+                 attention_latch_col: Optional[str] = None, device=None,
+                 n_shards: Optional[int] = None):
         if topology is not None:
             raise NotImplementedError(
                 "StaticTopology routing (deliver_static) is not ported yet; "
@@ -67,6 +73,8 @@ class StepCore:
         self.spill_cap = int(spill_cap)
         self.attention_latch_col = attention_latch_col
         self.device = device
+        # None: one device, scalar counters; D: per-shard [D] counters
+        self.n_shards = n_shards
 
         if self.slots == 0:
             bad = [b.name for b in self.behaviors if b.inbox == "slots"]
@@ -117,18 +125,29 @@ class StepCore:
     def deliver(self, inbox_dst, inbox_type, inbox_payload, inbox_valid,
                 dst_offset=None, slots_kind_row=None, suspended=None):
         """Route this step's messages into per-actor inboxes. dst_offset
-        maps global recipient ids to local rows (None on one device)."""
+        maps global recipient ids to local rows (None when rows are global
+        ids)."""
         n = self.n_local
         dst = inbox_dst if dst_offset is None else inbox_dst - dst_offset
         if self.slots > 0:
+            # each shard compacts its own spill (spill_cap > 0 only)
+            shards = (self.n_shards or 1) if self.spill_cap > 0 else 1
             return deliver_slots(dst, inbox_type, inbox_payload, inbox_valid,
                                  n, self.slots, self.need_max,
                                  spill_cap=self.spill_cap,
                                  slots_kind=slots_kind_row,
                                  suspended=suspended,
-                                 backend=self.delivery_backend)
+                                 backend=self.delivery_backend,
+                                 shards=shards)
         return deliver(dst, inbox_payload, inbox_valid, n, self.need_max,
                        mode=self.delivery, backend=self.delivery_backend)
+
+    def _per_shard(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum an [n_local, ...] row quantity per shard ([D, ...]), or over
+        all rows on one device."""
+        if self.n_shards is None:
+            return x.sum(0)
+        return x.reshape((self.n_shards, -1) + tuple(x.shape[1:])).sum(1)
 
     # -------------------------------------------------------------- update
     def update(self, state, behavior_id, alive, delivered, step_count,
@@ -136,7 +155,8 @@ class StepCore:
         """Behavior switch over all local rows, then the supervision pass.
         Returns (new_state, new_behavior_id, new_alive, emits, sup_delta)
         with emits shaped [n_local, K(, P)] and sup_delta the
-        [N_COUNTERS] int32 counter increment. Dead rows neither update nor
+        [N_COUNTERS] int32 counter increment ([D, N_COUNTERS] with
+        n_shards). Dead rows neither update nor
         emit; STOP-directive rows come back dead in new_alive."""
         n = self.n_local
         dev = behavior_id.device
@@ -192,29 +212,33 @@ class StepCore:
             new_state["_become"] = torch.full_like(req, -1)
         # supervision: table lookups use the PRE-become behavior id
         new_alive = alive
-        sup_delta = torch.zeros((N_COUNTERS,), dtype=torch.int32,
-                                device=dev)
+        shape = (N_COUNTERS,) if self.n_shards is None else \
+            (self.n_shards, N_COUNTERS)
+        sup_delta = torch.zeros(shape, dtype=torch.int32, device=dev)
         if self.sup.active and "_failed" in new_state:
             new_state, new_alive, sup_delta = apply_supervision(
                 self.sup, new_state, behavior_id, alive,
                 old_failed=state["_failed"], delivered_count=d.count,
-                step=step_count)
+                step=step_count, n_shards=self.n_shards)
         return new_state, new_behavior_id, new_alive, emits, sup_delta
 
     def attention_word(self, state, mail_dropped, sup_counts, step_count,
                        exch_dropped=None):
         """[ATT_WORDS] int32 host-attention word for the step that produced
-        these carries."""
+        these carries ([D, ATT_WORDS], one word per shard, with
+        n_shards)."""
         return pack_attention(state, mail_dropped, sup_counts, step_count,
                               latch_col=self.attention_latch_col,
-                              exch_dropped=exch_dropped)
+                              exch_dropped=exch_dropped,
+                              n_shards=self.n_shards)
 
     def run_local(self, state, behavior_id, alive, inbox_dst, inbox_type,
                   inbox_payload, inbox_valid, step_count, dst_offset=None,
                   id_base=0, tables=()):
         """deliver + update in one call. Returns (new_state,
         new_behavior_id, new_alive, emits, dropped, spill, sup_delta,
-        delivered_count): dropped is this step's real message-loss count,
+        delivered_count): dropped is this step's real message-loss count
+        ([D] per shard with n_shards),
         spill a (dst, type, payload, valid) tuple of retained mail for the
         FRONT of the next inbox (None when spill_cap == 0), and
         delivered_count the [n_local] int32 per-row delivery count."""
@@ -238,15 +262,18 @@ class StepCore:
             if dst_offset is not None:
                 sd = torch.where(d.spill_valid, sd + dst_offset, -1)
             spill = (sd, d.spill_type, d.spill_payload, d.spill_valid)
-            dropped = d.dropped
+            dropped = d.dropped if self.n_shards is None \
+                else d.dropped.reshape(self.n_shards)
         elif self.slots > 0:
             # bounded mailbox: per-recipient overflow, masked to slots-kind
             # recipients (reduce-kind consume everything via aggregation)
             over = (d.count - self.slots).clamp(min=0)
-            dropped = torch.where(self._slots_kind[behavior_id.long()],
-                                  over, 0).sum().to(torch.int32)
+            dropped = self._per_shard(torch.where(
+                self._slots_kind[behavior_id.long()], over, 0)) \
+                .to(torch.int32)
         else:
-            dropped = torch.zeros((), dtype=torch.int32,
+            dropped = torch.zeros(() if self.n_shards is None
+                                  else (self.n_shards,), dtype=torch.int32,
                                   device=inbox_dst.device)
         return (new_state, new_behavior_id, alive, emits, dropped, spill,
                 sup_delta, d.count)

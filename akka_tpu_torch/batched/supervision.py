@@ -138,9 +138,12 @@ def apply_supervision(tables: SupervisionTables,
                       state: Dict[str, torch.Tensor],
                       behavior_id: torch.Tensor, alive: torch.Tensor,
                       old_failed: torch.Tensor,
-                      delivered_count: torch.Tensor, step: torch.Tensor):
+                      delivered_count: torch.Tensor, step: torch.Tensor,
+                      n_shards: Optional[int] = None):
     """The vectorized supervisor, right after the behavior switch. Returns
-    (new_state, new_alive, counts_delta [N_COUNTERS] int32).
+    (new_state, new_alive, counts_delta [N_COUNTERS] int32), or with
+    `n_shards` the counts of each of that many equal contiguous blocks of
+    rows ([n_shards, N_COUNTERS]).
 
     `state` is the post-switch state (failing rows already hold their
     pre-failure columns plus a sticky `_failed`); `old_failed` is the flag
@@ -156,11 +159,13 @@ def apply_supervision(tables: SupervisionTables,
     failed = st["_failed"]
     fresh = failed & ~old_failed & alive
 
-    def total(mask):
-        return mask.sum(dtype=torch.int64)
+    def total(x):
+        if n_shards is None:
+            return x.sum(dtype=torch.int64)
+        return x.reshape(n_shards, -1).sum(1, dtype=torch.int64)
 
     dead_dst = enabled & (old_failed | ~alive)
-    dead = torch.where(dead_dst, delivered_count, 0).sum(dtype=torch.int64)
+    dead = total(torch.where(dead_dst, delivered_count, 0))
 
     act = fresh & enabled
     resume = act & (code == LANE_RESUME)
@@ -216,7 +221,7 @@ def apply_supervision(tables: SupervisionTables,
     new_alive = alive & ~stop
 
     counts = torch.stack([total(fresh), total(resume), total(do_restart),
-                          total(stop), total(escalate), dead]).to(i32)
+                          total(stop), total(escalate), dead], -1).to(i32)
     return st, new_alive, counts
 
 
@@ -242,40 +247,51 @@ ATT_LATCH_BIT = 4      # some promise row latched a reply
 
 
 def attention_flags(state: Dict[str, torch.Tensor],
-                    latch_col: Optional[str] = None,
+                    latch_col: Optional[str] = None, blocks: int = 1,
                     device=None) -> torch.Tensor:
-    """[] int32 flag word over the state columns; absent columns
-    contribute zero."""
+    """[blocks] int32 flag words over the state columns, one per equal
+    contiguous block of rows; absent columns contribute zero."""
     i32 = torch.int32
-    flags = torch.zeros((), dtype=i32, device=device)
-    if "_failed" in state:
-        flags = flags | state["_failed"].any().to(i32) * ATT_FAILED_BIT
-    if "_escalated" in state:
-        flags = flags | state["_escalated"].any().to(i32) * ATT_ESCALATED_BIT
-    if latch_col is not None and latch_col in state:
-        flags = flags | (state[latch_col] != 0).any().to(i32) * ATT_LATCH_BIT
+    flags = torch.zeros((blocks,), dtype=i32, device=device)
+    for col, bit in (("_failed", ATT_FAILED_BIT),
+                     ("_escalated", ATT_ESCALATED_BIT),
+                     (latch_col, ATT_LATCH_BIT)):
+        if col is not None and col in state:
+            flags = flags | (state[col].reshape(blocks, -1) != 0).any(1) \
+                .to(i32) * bit
     return flags
 
 
 def pack_attention(state: Dict[str, torch.Tensor], mail_dropped, sup_counts,
                    step_count, latch_col: Optional[str] = None,
-                   exch_dropped=None, progress=None) -> torch.Tensor:
+                   exch_dropped=None, progress=None,
+                   n_shards: Optional[int] = None) -> torch.Tensor:
     """[ATT_WORDS] int32 attention word for one step. `mail_dropped` /
     `sup_counts` may be scalars or per-shard blocks; both reduce to
-    totals. `progress` defaults to step_count (the heartbeat lane)."""
+    totals. `progress` defaults to step_count (the heartbeat lane).
+
+    With `n_shards`, one word per equal contiguous block of rows
+    ([n_shards, ATT_WORDS]), each from its own rows and its own counters
+    (mail_dropped, exch_dropped: [D]; sup_counts: [D, N_COUNTERS]), as the
+    reference packs one word per shard of its mesh."""
     i32 = torch.int32
+    d = 1 if n_shards is None else n_shards
     step = torch.as_tensor(step_count).to(i32).reshape(())
     dev = step.device
-    dropped = torch.as_tensor(mail_dropped).sum().to(i32)
-    dead = torch.as_tensor(sup_counts).reshape(-1, N_COUNTERS)[
-        :, DEAD_LETTERS].sum().to(i32)
-    exch = (torch.as_tensor(exch_dropped).sum().to(i32)
-            if exch_dropped is not None
-            else torch.zeros((), dtype=i32, device=dev))
+
+    def per_block(x):
+        return torch.as_tensor(x).reshape(d, -1).sum(1).to(i32)
+
+    dead = torch.as_tensor(sup_counts).reshape(d, -1, N_COUNTERS)[
+        :, :, DEAD_LETTERS]
+    exch = (per_block(exch_dropped) if exch_dropped is not None
+            else torch.zeros((d,), dtype=i32, device=dev))
     prog = (torch.as_tensor(progress).to(i32).reshape(())
             if progress is not None else step)
-    return torch.stack([attention_flags(state, latch_col, dev), dropped,
-                        dead, step, exch, prog])
+    word = torch.stack([attention_flags(state, latch_col, d, dev),
+                        per_block(mail_dropped), per_block(dead),
+                        step.expand(d), exch, prog.expand(d)], 1)
+    return word if n_shards is not None else word[0]
 
 
 def decode_attention(word) -> Dict[str, Any]:

@@ -4,8 +4,12 @@ Port of `akka_tpu/models/baseline_benches.py`, dynamic delivery only (the
 path the ring-mailbox kernel is on; StaticTopology is not ported yet):
 - ring:   every actor holds one token and forwards it to the next each step
 - fan_in: 1M leaves -> 1k collectors, every leaf sending every step
-- ring_slots: the ring over ordered per-message mailboxes (a port-side
-  addition that puts the bounded slots mailbox on the main path)
+- cross_shard (bench config 5): 256 logical shards x 4096 entities on a
+  ShardedBatchedSystem, every token forwarded to the same slot of the next
+  shard, so all traffic rides the exchange
+- ring_slots, cross_shard_slots: the ring and the cross-shard ring over
+  ordered per-message mailboxes (port-side additions that put the bounded
+  slots mailbox on the main path)
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..batched import BatchedSystem, Emit, behavior
+from ..batched.sharded import ShardedBatchedSystem
 
 PAYLOAD_W = 4
 
@@ -60,14 +65,33 @@ def build_ring(n: int = 1 << 20, static: bool = False, delivery: str = "auto",
     return sys
 
 
-def seed_ring_full(sys: BatchedSystem) -> None:
-    """Every actor holds one token [1, 0, 0, 0]."""
+def seed_ring_full(sys) -> None:
+    """Every actor holds one token [1, 0, 0, 0] (a sharded system's tokens
+    go through `seed_sharded_ring`)."""
+    if isinstance(sys, ShardedBatchedSystem):
+        seed_sharded_ring(sys)
+        return
     n = sys.capacity
     dst = torch.arange(n, dtype=torch.int32, device=sys.device)
     payload = torch.zeros((n, PAYLOAD_W), dtype=torch.float32,
                           device=sys.device)
     payload[:, 0] = 1.0
     sys.seed_inbox(dst, payload)
+
+
+def seed_sharded_ring(sys: ShardedBatchedSystem) -> None:
+    """One token [1, 0, 0, 0] per actor, written straight into each shard's
+    self-chunk of the exchange region: shard s's row r at inbox row
+    s * m_local + spill_cap + s * pair_cap + r."""
+    d, ln, ml = sys.n_shards, sys.local_n, sys.m_local
+    r = min(ln, sys.pair_cap)
+    shard = torch.arange(d, dtype=torch.int64, device=sys.device)[:, None]
+    rows = torch.arange(r, dtype=torch.int64, device=sys.device)[None, :]
+    idx = (shard * ml + sys.spill_cap + shard * sys.pair_cap + rows) \
+        .reshape(-1)
+    sys.inbox_dst[idx] = (shard * ln + rows).reshape(-1).to(torch.int32)
+    sys.inbox_payload[idx, 0] = 1.0
+    sys.inbox_valid[idx] = True
 
 
 @behavior("ring_slots", {"received": ((), torch.int32)}, inbox="slots")
@@ -113,3 +137,72 @@ def build_fan_in(n_leaves: int = 1 << 20, n_collectors: int = 1000,
     sys.spawn_block(fan_in_collector, n_collectors)
     sys.spawn_block(leaf, n_leaves)
     return sys
+
+
+def make_crossshard_behavior(local_n: int):
+    """Entity forwarding its token to the same slot in the next shard:
+    every message crosses the exchange."""
+
+    @behavior("xshard", {"received": ((), torch.int32)})
+    def xshard(state, inbox, ctx):
+        nxt = (ctx.actor_id + local_n) % ctx.n_actors
+        return ({"received": state["received"] + inbox.count},
+                Emit.single(nxt, inbox.sum, 1, PAYLOAD_W,
+                            when=inbox.count > 0))
+
+    return xshard
+
+
+def make_crossshard_slots_behavior(local_n: int):
+    """The cross-shard entity over ordered mailboxes: count the
+    slot-resident messages (Mailbox.fold) and forward the oldest one's
+    payload to the same slot in the next shard."""
+
+    @behavior("xshard_slots", {"received": ((), torch.int32)},
+              inbox="slots")
+    def xshard_slots(state, mailbox, ctx):
+        got = mailbox.fold(torch.zeros_like(state["received"]),
+                           lambda c, t, p: c + 1)
+        nxt = (ctx.actor_id + local_n) % ctx.n_actors
+        return ({"received": state["received"] + got},
+                Emit.single(nxt, mailbox.payload[:, 0], 1, PAYLOAD_W,
+                            when=got > 0))
+
+    return xshard_slots
+
+
+def _cross_shard(make, n_shards: int, entities_per_shard: int, n_devices,
+                 device, **kwargs) -> ShardedBatchedSystem:
+    n = n_shards * entities_per_shard
+    d = 1 if n_devices is None else n_devices
+    if n % d:
+        n += d - n % d
+    b = make(n // d)
+    sys = ShardedBatchedSystem(capacity=n, behaviors=[b], n_devices=d,
+                               payload_width=PAYLOAD_W,
+                               host_inbox_per_shard=8, device=device,
+                               **kwargs)
+    sys.spawn_block(b, n)
+    return sys
+
+
+def build_cross_shard(n_shards: int = 256, entities_per_shard: int = 4096,
+                      n_devices=None, device=None,
+                      **kwargs) -> ShardedBatchedSystem:
+    """Bench config 5: n_shards logical shards x entities_per_shard
+    entities folded onto `n_devices` shards of the shard axis (default 1,
+    one card), with cross-shard tells: every tell hops one shard, so all
+    traffic rides the exchange. `kwargs` go to ShardedBatchedSystem."""
+    return _cross_shard(make_crossshard_behavior, n_shards,
+                        entities_per_shard, n_devices, device, **kwargs)
+
+
+def build_cross_shard_slots(n_shards: int = 256,
+                            entities_per_shard: int = 4096, n_devices=None,
+                            slots: int = 2, device=None,
+                            **kwargs) -> ShardedBatchedSystem:
+    """The cross-shard ring over bounded S-slot mailboxes (spill_capacity=0,
+    the ring-mailbox kernel's mode). `kwargs` go to ShardedBatchedSystem."""
+    return _cross_shard(make_crossshard_slots_behavior, n_shards,
+                        entities_per_shard, n_devices, device,
+                        mailbox_slots=slots, spill_capacity=0, **kwargs)

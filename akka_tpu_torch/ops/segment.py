@@ -23,7 +23,8 @@ brackets):
   resolves on its CPU.
 
 An explicit backend="cuda" outside the ring kernel's support matrix raises
-ValueError naming the option: it never falls back silently. The
+ValueError naming the option: it never falls back silently. The sharded
+exchange's bucketing always ranks (`exchange_uses_ranked`). The
 reference's wide "reference" family, its counting/packed rank strategies,
 `StaticTopology`/`deliver_static`, `route_one_hop` and `compact_messages`
 are not ported yet.
@@ -84,14 +85,21 @@ REDUCE_MODES = ("auto", "scatter", "merge", "sort")
 SCATTER_MAX_M = 1024
 
 
-def _use_ring(backend: Optional[str], platform: str,
-              unsupported: Optional[str]) -> bool:
-    """Resolve the backend seam for one call: True runs the ring mailbox
-    (kernel on a CUDA tensor, plain version on a CPU tensor)."""
+def _check_backend(backend: Optional[str]) -> str:
+    """The backend's name (None -> "auto"); ValueError for any other name,
+    the reference's "xla"/"reference"/"pallas" included."""
     backend = backend or "auto"
     if backend not in DELIVERY_BACKENDS:
         raise ValueError(f"unknown delivery backend {backend!r}; "
                          f"expected one of {DELIVERY_BACKENDS}")
+    return backend
+
+
+def _use_ring(backend: Optional[str], platform: str,
+              unsupported: Optional[str]) -> bool:
+    """Resolve the backend seam for one call: True runs the ring mailbox
+    (kernel on a CUDA tensor, plain version on a CPU tensor)."""
+    backend = _check_backend(backend)
     if backend == "cuda":
         if unsupported is not None:
             raise ValueError(
@@ -181,6 +189,19 @@ def stable_ranks(key: torch.Tensor,
     return rank.to(torch.int32), counts
 
 
+def exchange_uses_ranked(platform: str,
+                         backend: Optional[str] = None) -> bool:
+    """Kernel choice for the sharded exchange's bucketing (rank within
+    each (source, destination) shard pair, then a scatter into the
+    [D, D, C] exchange buffer). Every port backend ranks with
+    `stable_ranks`: the ring mailbox has no exchange kernel, so "cuda"
+    rides the ranked path, as the reference's "pallas" does. Raises
+    ValueError for a backend the port does not have."""
+    del platform  # kept in the signature, as in the reference
+    _check_backend(backend)
+    return True
+
+
 def _sorted_sums(inv: torch.Tensor, incl: torch.Tensor, excl: torch.Tensor,
                  masked: torch.Tensor, n_actors: int) -> torch.Tensor:
     """Per-segment sums by cumsum over the (recipient, arrival) layout:
@@ -263,7 +284,8 @@ def deliver_slots(dst: torch.Tensor, mtype: torch.Tensor,
                   slots: int, need_max: bool = False, spill_cap: int = 0,
                   slots_kind: Optional[torch.Tensor] = None,
                   suspended: Optional[torch.Tensor] = None,
-                  backend: Optional[str] = None) -> SlotDelivery:
+                  backend: Optional[str] = None,
+                  shards: int = 1) -> SlotDelivery:
     """Ordered per-message delivery into per-actor mailbox slots.
 
     dst: [M] int32; mtype: [M] int32; payload: [M, P]; valid: [M] bool.
@@ -280,9 +302,18 @@ def deliver_slots(dst: torch.Tensor, mtype: torch.Tensor,
     writes it at the FRONT of the next step's inbox. Only spill-region
     overflow is a real (counted) drop.
 
+    shards > 1 (spill_cap > 0 only) splits the recipients into that many
+    equal contiguous blocks, each compacting its own spill into its own
+    spill_cap rows and counting its own overflow, exactly as one call per
+    block over that block's rows would: the spill outputs are then
+    [shards * spill_cap] (block-major) and `dropped` is [shards].
+
     The ring-mailbox kernel covers spill_cap == 0 only; "auto" sends the
     other calls to "ranked", and an explicit backend="cuda" raises.
     """
+    if shards > 1 and (spill_cap == 0 or n_actors % shards):
+        raise ValueError(f"shards={shards} needs spill_cap > 0 and n_actors "
+                         f"({n_actors}) divisible by it")
     from . import cuda_mailbox  # deferred: cuda_mailbox imports this module
     why = cuda_mailbox.unsupported_reason(
         n_actors, payload.shape[1], slots=slots, spill_cap=spill_cap,
@@ -291,12 +322,14 @@ def deliver_slots(dst: torch.Tensor, mtype: torch.Tensor,
         return cuda_mailbox.deliver_slots_ring(dst, mtype, payload, valid,
                                                n_actors, slots, need_max)
     return _deliver_slots_ranked(dst, mtype, payload, valid, n_actors, slots,
-                                 need_max, spill_cap, slots_kind, suspended)
+                                 need_max, spill_cap, slots_kind, suspended,
+                                 shards)
 
 
 def _deliver_slots_ranked(dst, mtype, payload, valid, n_actors: int,
                           slots: int, need_max: bool, spill_cap: int,
-                          slots_kind, suspended) -> SlotDelivery:
+                          slots_kind, suspended,
+                          shards: int = 1) -> SlotDelivery:
     """Rank-then-scatter slots delivery, in the original row order: the
     stable key sort gives (rank, counts), one int64 scatter inverts the
     sort permutation, and every mailbox and spill row is then a gather at a
@@ -331,27 +364,35 @@ def _deliver_slots_ranked(dst, mtype, payload, valid, n_actors: int,
     buf_t = torch.where(buf_v, mtype[row], 0).to(torch.int32)
     buf_p = torch.where(buf_v[:, None], payload[row], 0).to(payload.dtype)
 
-    # spill compaction: per-key spill counts prefix-summed across keys
-    # invert back to (key, within-rank) per spill slot with one binary
-    # search over [spill_cap]
+    # spill compaction, per block of recipients: per-key spill counts
+    # prefix-summed across the block's keys invert back to (key,
+    # within-rank) per spill slot with one binary search over [spill_cap]
     if spill_cap > 0:
         spc = torch.where(susp_n, counts,
                           torch.where(kind_n, (counts - slots).clamp(min=0),
-                                      0)).to(torch.int32)
-        sp_excl = torch.cat([torch.zeros((1,), dtype=i64, device=dev),
-                             torch.cumsum(spc, 0)])           # [n+1]
-        ss = torch.arange(spill_cap, dtype=i64, device=dev)
+                                      0)).to(i64)
+        per = n_actors // shards
+        sp_incl = torch.cumsum(spc.reshape(shards, per), 1)
+        sp_excl = torch.cat([sp_incl.new_zeros((shards, 1)), sp_incl], 1)
+        ss = torch.arange(spill_cap, dtype=i64, device=dev) \
+            .expand(shards, spill_cap).contiguous()
         k_s = torch.searchsorted(sp_excl, ss, right=True) - 1
-        k_c = k_s.clamp(max=n_actors - 1)
-        r_s = ss - sp_excl[k_c] + torch.where(susp_n[k_c], 0, slots)
-        srow = s2o[torch.clamp(excl[k_c] + r_s, max=m - 1)]
-        sp_v = ss < torch.clamp(sp_excl[n_actors], max=spill_cap)
-        spill_out = (torch.where(sp_v, k_c, -1).to(torch.int32),
+        k_c = k_s.clamp(max=per - 1)                   # [shards, cap] local
+        k_g = k_c + torch.arange(shards, dtype=i64, device=dev)[:, None] * per
+        r_s = ss - sp_excl.gather(1, k_c) + torch.where(susp_n[k_g], 0,
+                                                        slots)
+        srow = s2o[torch.clamp(excl[k_g] + r_s, max=m - 1)].reshape(-1)
+        total = sp_excl[:, per:]                       # [shards, 1]
+        sp_v = (ss < torch.clamp(total, max=spill_cap)).reshape(-1)
+        k_g = k_g.reshape(-1)
+        spill_out = (torch.where(sp_v, k_g, -1).to(torch.int32),
                      torch.where(sp_v, mtype[srow], 0).to(torch.int32),
                      torch.where(sp_v[:, None], payload[srow], 0)
                      .to(payload.dtype),
                      sp_v)
-        dropped = (sp_excl[n_actors] - spill_cap).clamp(min=0)
+        dropped = (total[:, 0] - spill_cap).clamp(min=0)
+        if shards == 1:
+            dropped = dropped[0]
         a_counts = counts - spc
     else:
         dropped = (ok & (rank >= slots)).sum()

@@ -34,6 +34,7 @@ import json
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import torch
 from torch.autograd import DeviceType
@@ -96,12 +97,15 @@ def make_pattern(name: str, m: int, n: int, p: int, seed: int,
     return dst, mtype, payload, valid
 
 
-def bound_bytes(m: int, n: int, p: int, slots: int):
-    """Bytes K1 and K2 must move: each input read once (dst, valid,
-    payload; K2 also mtype), each output written once (counts, sums; K2
+def bound_bytes(m: int, n: int, p: int, slots: int,
+                live: Optional[int] = None):
+    """Bytes K1 and K2 must move: each input read once (dst and valid of
+    every row; payload, and for K2 mtype, of the `live` rows the kernels
+    accept, default all m), each output written once (counts, sums; K2
     also the ring cells and dropped)."""
-    k1 = m * (4 + 1 + 4 * p) + n * (4 + 4 * p)
-    return k1, k1 + m * 4 + n * slots * (4 + 4 * p + 1) + 4
+    live = m if live is None else live
+    k1 = m * (4 + 1) + live * 4 * p + n * (4 + 4 * p)
+    return k1, k1 + live * 4 + n * slots * (4 + 4 * p + 1) + 4
 
 
 def bound_ms(nbytes: int) -> float:

@@ -1,7 +1,8 @@
-"""Carry a BatchedSystem's state across packages, as numpy arrays.
+"""Carry a BatchedSystem's or a ShardedBatchedSystem's state across
+packages, as numpy arrays.
 
 The carry is everything a step reads and writes plus the host allocation
-mirrors. Keys:
+mirrors. Keys of a BatchedSystem:
 
   "state/<col>"       each state column
   "behavior_id", "alive", "inbox_dst", "inbox_type", "inbox_payload",
@@ -9,6 +10,14 @@ mirrors. Keys:
   "step_count"        the device carry
   "host/next_row", "host/free_rows", "host/generation", "host/step"
                       the host free-list, generation and step mirrors
+
+Keys of a ShardedBatchedSystem (every field in the reference's flat
+global layout, per-shard counters with a leading [n_shards] axis):
+
+  "state/<col>", "behavior_id", "alive", "inbox_dst", "inbox_type",
+  "inbox_payload", "inbox_valid", "inbox_enq", "dropped", "mail_dropped",
+  "sup_counts", "metrics", "step_count", "attention", "host/next_row",
+  "host/step"
 
 The JAX reference's carry, fetched to numpy under the same keys, loads into
 a port system with `load_numpy_carry`, so both packages can start from one
@@ -25,17 +34,27 @@ import torch
 DEVICE_FIELDS = ("behavior_id", "alive", "inbox_dst", "inbox_type",
                  "inbox_payload", "inbox_valid", "inbox_enq", "mail_dropped",
                  "sup_counts", "metrics", "step_count")
+SHARDED_FIELDS = ("behavior_id", "alive", "inbox_dst", "inbox_type",
+                  "inbox_payload", "inbox_valid", "inbox_enq", "dropped",
+                  "mail_dropped", "sup_counts", "metrics", "step_count",
+                  "attention")
+
+
+def _sharded(system) -> bool:
+    return hasattr(system, "n_shards")
 
 
 def numpy_carry(system) -> Dict[str, np.ndarray]:
     """The port system's carry as a dict of numpy arrays."""
+    sharded = _sharded(system)
     out = {f"state/{c}": v.cpu().numpy() for c, v in system.state.items()}
-    for f in DEVICE_FIELDS:
+    for f in SHARDED_FIELDS if sharded else DEVICE_FIELDS:
         out[f] = getattr(system, f).cpu().numpy()
     with system._lock:
         out["host/next_row"] = np.asarray(system._next_row, np.int64)
-        out["host/free_rows"] = np.asarray(system._free_rows, np.int64)
-        out["host/generation"] = system._generation.copy()
+        if not sharded:
+            out["host/free_rows"] = np.asarray(system._free_rows, np.int64)
+            out["host/generation"] = system._generation.copy()
     out["host/step"] = np.asarray(system._host_step, np.int64)
     return out
 
@@ -50,24 +69,28 @@ def _load(current: torch.Tensor, value, key: str) -> torch.Tensor:
 
 
 def load_numpy_carry(system, arrays: Dict[str, np.ndarray]) -> None:
-    """Fill a port BatchedSystem's carry from `arrays` (every key of the
-    module docstring; state columns must match the system's schema).
-    Values are cast to the system's dtypes and copied to its device."""
+    """Fill a port system's carry from `arrays` (every key of the module
+    docstring for its kind; state columns must match the system's
+    schema, and every field its shape). Values are cast to the system's
+    dtypes and copied to its device."""
     cols = {k[len("state/"):] for k in arrays if k.startswith("state/")}
     if cols != set(system.state):
         raise ValueError(f"carry state columns {sorted(cols)} do not match "
                          f"the system's {sorted(system.state)}")
     system.state = {c: _load(v, arrays[f"state/{c}"], f"state/{c}")
                     for c, v in system.state.items()}
-    for f in DEVICE_FIELDS:
+    sharded = _sharded(system)
+    for f in SHARDED_FIELDS if sharded else DEVICE_FIELDS:
         setattr(system, f, _load(getattr(system, f), arrays[f], f))
-    generation = np.asarray(arrays["host/generation"], np.int64)
-    if generation.shape != system._generation.shape:
-        raise ValueError("carry field 'host/generation' does not match the "
-                         "system's capacity")
+    if not sharded:
+        generation = np.asarray(arrays["host/generation"], np.int64)
+        if generation.shape != system._generation.shape:
+            raise ValueError("carry field 'host/generation' does not match "
+                             "the system's capacity")
     with system._lock:
         system._next_row = int(arrays["host/next_row"])
-        system._free_rows = [int(i) for i in
-                             np.asarray(arrays["host/free_rows"]).ravel()]
-        system._generation = generation.copy()
+        if not sharded:
+            system._free_rows = [int(i) for i in
+                                 np.asarray(arrays["host/free_rows"]).ravel()]
+            system._generation = generation.copy()
     system._host_step = int(arrays["host/step"])

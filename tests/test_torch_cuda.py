@@ -1,5 +1,6 @@
 """Card-only tests of the PyTorch port: the ring-mailbox CUDA kernels
-against their plain versions, and the delivery seam on CUDA tensors.
+against their plain versions, the delivery seam on CUDA tensors, and the
+sharded system and the region's ask path through the kernels.
 
 They skip without a CUDA device. On a machine with a card (and no JAX),
 run them without the JAX test configuration:
@@ -7,12 +8,17 @@ run them without the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
+from akka_tpu_torch.gateway import counter_behavior
+from akka_tpu_torch.models import baseline_benches as tbb
 from akka_tpu_torch.ops import cuda_mailbox as cm
 from akka_tpu_torch.ops import segment as tsg
+from akka_tpu_torch.sharding import DeviceEntity, DeviceShardRegion
 from akka_tpu_torch.tools import bench_mailbox as bm
+from akka_tpu_torch.utils.carry import numpy_carry
 
 pytestmark = pytest.mark.cuda
 
@@ -115,3 +121,63 @@ def test_wrapper_raises_on_wrong_dtype(card):
     dst, _, payload, valid = _inputs(64, 8, 2, card)
     with pytest.raises(ValueError, match="float32"):
         cm.ring_reduce(dst, payload.double(), valid, 8)
+
+
+@pytest.mark.parametrize("slots", [0, 2])
+def test_sharded_step_launches_one_kernel_per_step(card, slots):
+    """The 8-shard cross-shard ring delivers through ONE kernel launch per
+    step for all shards, and its carry equals its twin's on the CPU (the
+    kernel's plain version): integers bit for bit, payloads within the
+    tolerance."""
+    build = tbb.build_cross_shard_slots if slots else tbb.build_cross_shard
+    kernel = "ring_slots" if slots else "ring_reduce"
+    a, b = (build(8, 256, n_devices=8, device=dev) for dev in (card, "cpu"))
+    for s in (a, b):
+        tbb.seed_ring_full(s)
+    cm.reset_launches()
+    a.run(5)
+    b.run(5)
+    assert cm.LAUNCHES[kernel] == 5 and sum(cm.LAUNCHES.values()) == 5
+    assert (a.read_state("received") == 5).all()
+    ca, cb = numpy_carry(a), numpy_carry(b)
+    for k in ca:
+        if ca[k].dtype.kind == "f":
+            np.testing.assert_allclose(ca[k], cb[k], rtol=RTOL, atol=ATOL)
+        else:
+            np.testing.assert_array_equal(ca[k], cb[k], err_msg=k)
+
+
+@pytest.mark.parametrize("slots", [0, 2])
+def test_region_answers_asks_through_the_ring_kernels(card, slots):
+    """A counter region with delivery_backend="cuda" (bounded mailboxes
+    when slots > 0) answers a batch with repeated entities and a solo
+    ask, before and after a rebalance, as its twin on the CPU does; every
+    step launched K1 (reduce) or K2 (slots) once."""
+    spec = dict(n_shards=4, entities_per_shard=256, n_devices=2,
+                mailbox_slots=slots, spill_capacity=0 if slots else None,
+                spare_blocks=2)
+    on_card = DeviceShardRegion(DeviceEntity(
+        "c", counter_behavior(4), delivery_backend="cuda", **spec),
+        device=card)
+    twin = DeviceShardRegion(DeviceEntity("c", counter_behavior(4), **spec),
+                             device="cpu")
+    names = [f"e{i}" for i in range(12)]
+    picks = [0, 1, 2, 0, 3, 4, 5, 1, 6, 7, 8, 9, 10, 11, 0]
+    cm.reset_launches()
+    outs = []
+    for r in (on_card, twin):
+        refs = [r.entity_ref(n) for n in names]
+        reqs = [(refs[i].shard, refs[i].index, [float(i + 1)])
+                for i in picks]
+        got = r.ask_many(reqs)
+        got.append(r.ask(refs[3].shard, refs[3].index, [2.0]))
+        r.rebalance(refs[0].shard)
+        got += r.ask_many(reqs[:5])
+        outs.append(got)
+        assert r.ask_pool_stats()["in_flight"] == 0
+    for x, y in zip(*outs):
+        np.testing.assert_array_equal(x, y)
+    kernel = "ring_slots" if slots else "ring_reduce"
+    steps = on_card.system._host_step
+    assert cm.LAUNCHES[kernel] == steps and sum(cm.LAUNCHES.values()) == steps
+

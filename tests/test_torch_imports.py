@@ -32,8 +32,13 @@ def test_port_imports_no_jax_and_no_reference_module():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "akka_tpu_torch.batched.core" in MODULES
-    assert "akka_tpu_torch.ops.cuda_mailbox" in MODULES
+    for name in ("akka_tpu_torch.batched.core",
+                 "akka_tpu_torch.ops.cuda_mailbox",
+                 "akka_tpu_torch.batched.sharded",
+                 "akka_tpu_torch.sharding.device",
+                 "akka_tpu_torch.sharding.ask_batch",
+                 "akka_tpu_torch.gateway.ingress"):
+        assert name in MODULES, name
 
 
 def _imports(tree):
@@ -58,14 +63,26 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
     import torch
 
     from akka_tpu_torch import BatchedSystem
-    from akka_tpu_torch.models.baseline_benches import (build_ring,
+    from akka_tpu_torch.batched.sharded import ShardedBatchedSystem
+    from akka_tpu_torch.gateway import counter_behavior
+    from akka_tpu_torch.models.baseline_benches import (build_cross_shard,
+                                                        build_ring,
                                                         ring_behavior)
+    from akka_tpu_torch.sharding import DeviceEntity, DeviceShardRegion
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        BatchedSystem(capacity=8, behaviors=[ring_behavior])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        build_ring(8)
-    sys_ = BatchedSystem(capacity=8, behaviors=[ring_behavior],
-                         device="cpu")
-    assert sys_.device.type == "cpu"
+    spec = DeviceEntity("c", counter_behavior(4), n_shards=2,
+                        entities_per_shard=4)
+    for build in (lambda **kw: BatchedSystem(capacity=8,
+                                             behaviors=[ring_behavior], **kw),
+                  lambda **kw: build_ring(8, **kw),
+                  lambda **kw: ShardedBatchedSystem(
+                      capacity=8, behaviors=[ring_behavior], n_devices=2,
+                      **kw),
+                  lambda **kw: build_cross_shard(2, 4, n_devices=2, **kw),
+                  lambda **kw: DeviceShardRegion(spec, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+        built = build(device="cpu")
+        sys_ = getattr(built, "system", built)
+        assert sys_.device.type == "cpu"
