@@ -119,3 +119,26 @@ def slab_dict(slab) -> Dict[str, np.ndarray]:
     totals = np.asarray(torch.as_tensor(slab).cpu(), np.int64) \
         .reshape((-1, N_HIST, N_BUCKETS)).sum(axis=0)
     return {name: totals[i] for i, name in enumerate(HIST_NAMES)}
+
+
+def bucket_upper_bounds() -> tuple:
+    """Inclusive upper bounds per bucket for Prometheus-style `le` labels
+    (the last bucket is unbounded -> +Inf)."""
+    return tuple(b - 1 for b in BOUNDARIES) + (float("inf"),)
+
+
+def bucket_percentile(lane: np.ndarray, q: float) -> float:
+    """Nearest-rank percentile over one [N_BUCKETS] histogram lane,
+    reported as the bucket's inclusive upper bound (conservative: the true
+    value is <= the returned bound). Empty lane -> 0. The occupancy signal
+    of event/pressure.py reads p90 of the mailbox-occupancy lane through
+    this."""
+    counts = np.asarray(lane, np.int64)
+    total = int(counts.sum())
+    if total == 0:
+        return 0.0
+    rank = max(1, int(np.ceil(q * total)))
+    cum = np.cumsum(counts)
+    i = int(np.searchsorted(cum, rank))
+    ub = bucket_upper_bounds()[i]
+    return float(ub) if np.isfinite(ub) else float(BOUNDARIES[-1])

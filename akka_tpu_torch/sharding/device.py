@@ -17,9 +17,10 @@ touch them. One spare block becomes the promise block, whose rows answer
 asks (batched/bridge.py's convention).
 
 Not ported yet: the durability and failover half of the reference module
-(`attach_journal` ... `failover`, ROADMAP A8/A10), the remember-entities
-store, and the tracer hooks (ROADMAP A9; the ask engine runs the
-reference's no-tracer path).
+(`attach_journal` ... `failover`, ROADMAP A8/A10: `checkpoint`, `restore`
+and `failover` raise NotImplementedError naming their item), the
+remember-entities store, and `attach_tracer` (ROADMAP A9: `tracer` stays
+None, so the ask engine runs the reference's no-tracer path).
 """
 
 from __future__ import annotations
@@ -152,7 +153,11 @@ class DeviceShardRegion:
         self._promise_retired: List[int] = []
         self._promise_spawned = False
         self._stat_ask_exhausted = 0  # typed AskPoolExhausted fast-fails
-        self._wave_seq = 0            # execute_ask_batch invocations
+        # the ask engine reads these: a None tracer keeps it on its
+        # one-predicate quiet path (no tracer is wired in yet, ROADMAP
+        # A9); _wave_seq numbers every wave
+        self.tracer = None
+        self._wave_seq = 0
         self._lock = threading.Lock()
         # asks and maintenance (rebalance) serialize: both step or rewrite
         # the shared runtime. The lock order is _ask_lock, then _lock.
@@ -216,7 +221,8 @@ class DeviceShardRegion:
         return out
 
     def ask_many(self, requests: Sequence[Any], steps: int = 2,
-                 max_extra_steps: int = 8) -> List[Any]:
+                 max_extra_steps: int = 8,
+                 ctxs: Optional[Sequence[Any]] = None) -> List[Any]:
         """Coalesced asks: `requests` is a sequence of
         `(shard, index, message)`; every member gets its own promise row,
         all the tells go out in one flush, and the batch shares one step
@@ -224,10 +230,14 @@ class DeviceShardRegion:
         (np.ndarray), or the member's exception instance
         (AskPoolExhausted / TimeoutError / ValueError). Asks to the SAME
         entity serialize across waves within the batch (linearized
-        per-entity totals)."""
+        per-entity totals). `ctxs`: optional aligned per-member span
+        contexts (one window carries many traces)."""
         from .ask_batch import BatchAsk, execute_ask_batch
         batch = [BatchAsk(int(s), int(i), m, int(steps),
                           int(max_extra_steps)) for s, i, m in requests]
+        if ctxs is not None:
+            for a, c in zip(batch, ctxs):
+                a.trace = c
         with self._ask_lock:
             execute_ask_batch(self, batch)
         return [a.outcome for a in batch]
@@ -378,6 +388,28 @@ class DeviceShardRegion:
                 for d, t, p in sys._host_staged]
         self._sync_tables()
         return new_block
+
+    # ------------------------------------------------- durability, failover
+    def checkpoint(self, keep: int = 3) -> str:
+        """Not ported yet: slab snapshots and the journals are ROADMAP
+        A8. The gateway's admin channel replies `admin_fault:` with this
+        error."""
+        raise NotImplementedError(
+            "DeviceShardRegion.checkpoint is not ported yet (ROADMAP A8: "
+            "slab snapshot, tell journal, entity journal)")
+
+    def restore(self) -> int:
+        """Not ported yet (ROADMAP A8)."""
+        raise NotImplementedError(
+            "DeviceShardRegion.restore is not ported yet (ROADMAP A8: "
+            "slab snapshot, tell journal, entity journal)")
+
+    def failover(self, survivors: Sequence[Any]) -> int:
+        """Not ported yet: rebuilding the region on surviving cards is
+        ROADMAP A10."""
+        raise NotImplementedError(
+            "DeviceShardRegion.failover is not ported yet (ROADMAP A10: "
+            "more than one device)")
 
     # ----------------------------------------------------------------- stats
     def stats(self) -> Dict[str, Any]:

@@ -7,8 +7,13 @@ For each main-path cell (BatchedSystem: ring in reduce mode, 1M -> 1k
 fan-in, ring over 2-slot bounded mailboxes; ShardedBatchedSystem: the
 cross-shard bench, 256 shards x 4096 entities, on one shard of the axis
 and on eight; region_serve: waves of 256 asks to a full-width counter
-region, per wave instead of per step, with the host's time by op) it
-prints, per step:
+region, per wave instead of per step, with the host's time by op;
+gateway_serve: the served path of chip_smoke.py, 16 clients sending
+pipelined binary adds through the evloop gateway to a continuous
+RegionBackend, per 256 requests, with the client threads in this process;
+gateway_serve_remote: the same with the clients in a load process of
+their own, so only the server's Python shares its interpreter lock) it
+prints, per step (or unit):
 - ms/step with tracing off (CUDA events around run(steps), after a warm run),
   and the host's time to enqueue those steps (run() never waits for the
   card, so an enqueue time near the step time means the host bounds it);
@@ -17,14 +22,24 @@ prints, per step:
 - the busy share against each step time (1 - busy share is the device's
   idle share; the eager step is launched from the host, so tracing, which
   slows the host, lowers the traced share);
-- the kernels with the most device time.
+- the kernels with the most device time;
+- for the per-wave and per-request cells, the host's time inside CUDA
+  synchronize and copy calls (the runtime calls in which the host can
+  wait for the card; the profiler sees them on every thread) and the
+  host ops with the most CPU time (on the profiling thread only: the
+  served path's steps run on its scheduler thread, so gateway_serve
+  times its steps' `run` calls itself, one `host_split` line per run).
 The card's name and power limit come first (nvidia-smi).
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
+import itertools
+import json
 import subprocess
+import sys
 import time
 from typing import Callable
 
@@ -38,6 +53,12 @@ from ..models.baseline_benches import (build_cross_shard, build_fan_in,
                                        build_ring, build_ring_slots,
                                        seed_ring_full)
 from ..sharding import DeviceEntity, DeviceShardRegion
+from .gateway_load import client_traces, drive, serve_stack
+
+# CUDA runtime calls in which the host waits for the card (a D2H copy to
+# pageable memory synchronises too)
+SYNC_CALLS = ("cudaEventSynchronize", "cudaStreamSynchronize",
+              "cudaDeviceSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
 
 
 def device_us(event) -> float:
@@ -96,6 +117,9 @@ def profile_cell(label: str, work: Callable[[], None], units: int,
         # host side: the steps' enqueue span and the host ops (the reads
         # that wait for the card among them), by CPU time per unit
         host = [e for e in events if e.device_type == DeviceType.CPU]
+        wait_ms = sum(e.cpu_time_total for e in host
+                      if e.key in SYNC_CALLS) / 1e3 / units
+        print(f"{label} host_sync_and_copy_calls_ms_per_{unit} {wait_ms}")
         for e in sorted(host, key=lambda e: e.cpu_time_total,
                         reverse=True)[:top]:
             print(f"{label}   host {e.cpu_time_total / 1e3 / units:.4f} "
@@ -134,6 +158,107 @@ def region_waves(n: int):
     return make
 
 
+def gateway_region(n: int):
+    """A full-width counter region whose steps' `run` calls are timed;
+    returns (region, a reader of the seconds spent in them since the
+    last read)."""
+    region = DeviceShardRegion(DeviceEntity(
+        "counter", counter_behavior(4), n_shards=256,
+        entities_per_shard=n // 256, n_devices=1, spare_blocks=2))
+    sys_ = region.system
+    run = sys_.run
+    in_run = [0.0]
+
+    def timed_run(n_steps=1):
+        t0 = time.perf_counter()
+        run(n_steps)
+        in_run[0] += time.perf_counter() - t0
+
+    def read_run():
+        s, in_run[0] = in_run[0], 0.0
+        return s
+
+    sys_.run = timed_run
+    return region, read_run
+
+
+def host_split(label, run_no, units, wall, in_run, steps, extra="") -> None:
+    print(f"{label} host_split run {run_no}: wall_ms_per_req256 "
+          f"{wall * 1e3 / units} run_calls_ms_per_req256 "
+          f"{in_run * 1e3 / units} steps_per_req256 {steps / units}{extra}")
+
+
+def gateway_requests(n: int):
+    """The gateway_serve phase of chip_smoke.py: a full-width counter
+    region behind a continuous RegionBackend and the evloop gateway; one
+    unit is 256 requests (16 clients x 16 adds, two pipelined binary
+    windows of 8 each). work() returns when every reply is in, and prints
+    the run's host split per 256 requests: wall time, the time inside the
+    steps' `run` calls on the scheduler thread (Python and launch calls
+    enqueueing the steps) and the steps run."""
+    region, read_run = gateway_region(n)
+    _, srv = serve_stack(region, continuous=True)
+    seeds = itertools.count()
+
+    def make(units):
+        def work():
+            seed = next(seeds)
+            read_run()
+            step0 = region.system._host_step
+            t0 = time.perf_counter()
+            res = drive(srv.host, srv.port,
+                        client_traces(seed, 16, 64, 16 * units))
+            wall = time.perf_counter() - t0
+            if res.errors or res.sheds:
+                raise RuntimeError(f"gateway load: {res.errors[:3]}, "
+                                   f"{res.sheds} sheds")
+            host_split("gateway_serve", seed, units, wall, read_run(),
+                       region.system._host_step - step0)
+        return work, units, "req256"
+    return make
+
+
+def gateway_requests_remote(n: int):
+    """gateway_serve with the 16 clients in a load process of their own
+    (`python -m akka_tpu_torch.tools.gateway_load`, started once and
+    stopped at exit); work() returns when that process reports every
+    reply in."""
+    region, read_run = gateway_region(n)
+    _, srv = serve_stack(region, continuous=True)
+    load = subprocess.Popen(
+        [sys.executable, "-m", "akka_tpu_torch.tools.gateway_load",
+         "--host", srv.host, "--port", str(srv.port)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+
+    def stop():
+        load.stdin.close()
+        load.wait(60)
+
+    atexit.register(stop)
+    seeds = itertools.count()
+
+    def make(units):
+        def work():
+            seed = next(seeds)
+            read_run()
+            step0 = region.system._host_step
+            t0 = time.perf_counter()
+            load.stdin.write(f"{seed} {16 * units}\n")
+            load.stdin.flush()
+            res = json.loads(load.stdout.readline())
+            wall = time.perf_counter() - t0
+            if res["errors"] or res["sheds"] or \
+                    not res["running_totals_hold"]:
+                raise RuntimeError(f"gateway load: {res}")
+            host_split("gateway_serve_remote", seed, units, wall,
+                       read_run(), region.system._host_step - step0,
+                       f" client_seconds {res['seconds']} reply_ms_p50 "
+                       f"{res['reply_ms_p50']} reply_ms_p99 "
+                       f"{res['reply_ms_p99']}")
+        return work, units, "req256"
+    return make
+
+
 # cell name -> builder at n actors of: steps -> (work, units, unit)
 CELLS = {
     "ring_reduce": lambda n: steps_of(build_ring(n)),
@@ -143,6 +268,8 @@ CELLS = {
     "cross_shard_d8": lambda n: steps_of(build_cross_shard(
         256, n // 256, n_devices=8)),
     "region_serve": region_waves,
+    "gateway_serve": gateway_requests,
+    "gateway_serve_remote": gateway_requests_remote,
 }
 
 
@@ -150,7 +277,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--steps", type=int, default=10,
-                    help="steps (ask waves for region_serve) per run")
+                    help="steps (ask waves for region_serve, blocks of "
+                         "256 requests for gateway_serve) per run")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--cells", default=",".join(CELLS),
                     help="comma-separated cells, of: " + ", ".join(CELLS))

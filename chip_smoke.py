@@ -39,9 +39,26 @@
    be left in flight, and K1 must launch (region_serve). The same trace
    on a region with 2-slot bounded mailboxes (region_serve_slots) must
    give bit-equal replies and launch K2.
-6. Holds both kernels against their plain versions once more at the
-   shapes these paths gave them: the 8-shard flat inboxes (sharded_d8)
-   and the region's inbox as a wave's tells land (region).
+6. Serves the gateway on the card (akka_tpu_torch.tools.gateway_load):
+   a full-width counter region (256 shards x 4096 entities, one shard of
+   the axis, two spare blocks) behind RegionBackend(continuous=True,
+   pipeline_depth=4) and GatewayServer(transport="evloop",
+   aggregate=True) on 127.0.0.1, admission shedding only on ask-pool
+   occupancy > 0.9. 16 client threads, each with its own GatewayClient
+   and 64 entities of its own, send 512 integer-valued adds each as
+   pipelined binary windows of 8 (depth 4); sheds are retried and
+   counted (gateway_serve). Every ok reply must equal its client's
+   running total, sum_all the acked sum (plus the warm-up), no reply may
+   be an error, no ask may be in flight after quiesce, and K1 must launch
+   once per region step. The same trace with continuous=False
+   (gateway_serve_serialized) must give the same replies and totals, and
+   the first 128 adds of each client on a region with 2-slot bounded
+   mailboxes (gateway_serve_slots, K2 once per step) the replies
+   gateway_serve gave them.
+7. Holds both kernels against their plain versions once more at the
+   shapes these paths gave them: the 8-shard flat inboxes (sharded_d8),
+   the region's inbox as a wave's tells land (region) and the gateway
+   region's (gateway).
 
 Any failure raises and the exit code is non-zero. The last lines are the
 kernel report (JSON; `ms` and the other top-level numbers are the random
@@ -71,6 +88,7 @@ from akka_tpu_torch.models.baseline_benches import (PAYLOAD_W,
 from akka_tpu_torch.ops import cuda_mailbox as cm
 from akka_tpu_torch.sharding import DeviceEntity, DeviceShardRegion
 from akka_tpu_torch.tools import bench_mailbox as bm
+from akka_tpu_torch.tools import gateway_load as gl
 
 RTOL, ATOL = bm.RTOL, bm.ATOL
 N = 1 << 20                 # actors on the main path
@@ -79,6 +97,9 @@ SLOTS = bm.SLOTS
 KERNEL_ITERS = 200          # C-entry launches per device timing
 STEPS = 20                  # timed steps per main-path system
 WAVES, WAVE_ASKS = 32, 256  # timed ask waves of the region phases
+GW_CLIENTS, GW_ENTS, GW_ADDS = 16, 64, 512  # gateway_serve's trace
+GW_SLOTS_ADDS = 128        # adds per client of gateway_serve_slots
+GW_WARM = 64               # warm-up adds (one each) before the clients
 
 
 def check(cond, what: str) -> None:
@@ -445,6 +466,96 @@ def region_paths(launches: dict) -> dict:
     return flat
 
 
+def gateway_region(slots: int) -> DeviceShardRegion:
+    return DeviceShardRegion(DeviceEntity(
+        "counter", counter_behavior(PAYLOAD_W), n_shards=256,
+        entities_per_shard=4096, n_devices=1, spare_blocks=2,
+        mailbox_slots=slots, spill_capacity=0 if slots else None),
+        device="cuda")
+
+
+def gateway_serve(label: str, slots: int, continuous: bool, traces):
+    """One gateway phase on a fresh region: a warm-up wave, then the
+    clients' trace over TCP. Returns (LoadResult, the region's steps,
+    the region's delivery inputs as a window's tells land)."""
+    region = gateway_region(slots)
+    backend, srv = gl.serve_stack(region, continuous=continuous)
+    try:
+        warm = backend.ask_many([f"warm-{i}" for i in range(GW_WARM)],
+                                [1.0] * GW_WARM)
+        check(warm == [1.0] * GW_WARM, f"{label}: warm-up replies")
+        res = gl.drive(srv.host, srv.port, traces)
+        check(not res.errors, f"{label}: no error replies "
+              f"({res.errors[:3]})")
+        want = sum(len(w) for t in traces for w in t)
+        check(res.requests == want, f"{label}: {res.requests} acked "
+              f"of {want} adds")
+        check(gl.running_totals_hold(res), f"{label}: every reply equals "
+              "its client's running total")
+        check(backend.batcher.quiesce(60.0), f"{label}: quiesce")
+        total = backend.sum_all()
+        check(total == res.acked + GW_WARM, f"{label}: sum_all {total} == "
+              f"acked {res.acked} + warm-up {GW_WARM}")
+        check(region.ask_pool_stats()["in_flight"] == 0,
+              f"{label}: no ask in flight after quiesce")
+        st = backend.batcher.stats()
+        agg = srv.aggregator.stats()
+        lat = np.asarray(res.latencies) * 1e3
+        print(f"{label} requests {res.requests} seconds {res.seconds}")
+        print(f"{label} requests_per_s {res.requests / res.seconds}")
+        print(f"{label} reply_ms_p50 {np.percentile(lat, 50)} "
+              f"reply_ms_p99 {np.percentile(lat, 99)} "
+              f"(per window of 8, client side)")
+        print(f"{label} waves {st['batches']} mean_wave "
+              f"{st['mean_batch_size']} overlap_ratio {st['overlap_ratio']}")
+        print(f"{label} ingest_windows {agg['windows']} mean_window "
+              f"{agg['mean_window_size']} sheds {res.sheds}")
+        steps = region.system._host_step
+        print(f"{label} steps {steps}")
+        # a window's tells as they land: the delivery call's inputs
+        sys_ = region.system
+        for i in range(64):
+            sys_.tell(i * 4099 % sys_.capacity,
+                      [1.0, 0.0, 0.0, float(sys_.capacity - 1)])
+        sys_._flush_staged()
+        flat = flat_inputs(sys_)
+    finally:
+        srv.stop()
+        backend.close()
+    return res, steps, flat
+
+
+def gateway_paths(launches: dict) -> dict:
+    """gateway_serve, its serialized twin and gateway_serve_slots;
+    returns the gateway region's delivery inputs by kernel."""
+    traces = gl.client_traces(1, GW_CLIENTS, GW_ENTS, GW_ADDS)
+    runs, flat = {}, {}
+    short = [t[:GW_SLOTS_ADDS // 8] for t in traces]
+    for label, slots, continuous, trace, kernel in (
+            ("gateway_serve", 0, True, traces, "ring_reduce"),
+            ("gateway_serve_serialized", 0, False, traces, "ring_reduce"),
+            ("gateway_serve_slots", SLOTS, True, short, "ring_slots")):
+        res, steps, inputs = path(
+            label, kernel, launches,
+            lambda: gateway_serve(label, slots, continuous, trace))
+        n = launches[label][kernel]
+        print(f"{label} launches_per_step {n / steps}")
+        check(n == steps, f"{label}: {n} {kernel} launches, one per region "
+              f"step ({steps})")
+        runs[label] = res
+        flat["K2" if slots else "K1"] = inputs
+    main = runs["gateway_serve"].replies
+    check(runs["gateway_serve_serialized"].replies == main,
+          "gateway_serve_serialized: the same replies as gateway_serve")
+    check(runs["gateway_serve_serialized"].acked ==
+          runs["gateway_serve"].acked, "gateway_serve_serialized: totals")
+    slots_replies = runs["gateway_serve_slots"].replies
+    check(all(s == m[:len(s)] for s, m in zip(slots_replies, main)),
+          "gateway_serve_slots: the replies gateway_serve gave the same "
+          "requests")
+    return flat
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -463,13 +574,15 @@ def main() -> int:
     single_device_paths(launches)
     sharded = sharded_paths(launches)
     region = region_paths(launches)
+    gateway = gateway_paths(launches)
     # both kernels at the shapes the new paths gave them
     t0 = time.perf_counter()
-    for label, flat in (("sharded_d8", sharded), ("region", region)):
+    for label, flat in (("sharded_d8", sharded), ("region", region),
+                        ("gateway", gateway)):
         for k, (inputs, n) in flat.items():
             rows.setdefault(label, {})[k] = kernel_rows(
                 label, inputs, n, lib, kernels=(k,))[k]
-    del sharded, region
+    del sharded, region, gateway
     print(f"path_kernels_s {time.perf_counter() - t0}")
 
     entry = {"K1": ("ring_reduce", "_run(with_slots=False)"),

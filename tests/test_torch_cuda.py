@@ -181,3 +181,30 @@ def test_region_answers_asks_through_the_ring_kernels(card, slots):
     steps = on_card.system._host_step
     assert cm.LAUNCHES[kernel] == steps and sum(cm.LAUNCHES.values()) == steps
 
+
+
+def test_continuous_gateway_serves_through_k1(card):
+    """A continuous RegionBackend on the card behind the evloop gateway:
+    4 clients, each on its own entities, send pipelined binary adds; every
+    reply is its client's running total, the totals are conserved, and
+    the region's every step launched K1 once."""
+    from akka_tpu_torch.tools import gateway_load as gl
+    region = DeviceShardRegion(DeviceEntity(
+        "gw", counter_behavior(4), n_shards=4, entities_per_shard=256,
+        n_devices=1, spare_blocks=2), device=card)
+    backend, srv = gl.serve_stack(region, continuous=True)
+    try:
+        res = gl.drive(srv.host, srv.port, gl.client_traces(3, 4, 8, 96))
+        assert not res.errors, res.errors[:3]
+        assert res.requests == 4 * 96
+        assert gl.running_totals_hold(res)
+        assert backend.batcher.quiesce(60.0)
+        assert backend.sum_all() == res.acked
+        assert region.ask_pool_stats()["in_flight"] == 0
+    finally:
+        srv.stop()
+        backend.close()
+    steps = region.system._host_step
+    assert steps > 0
+    assert cm.LAUNCHES["ring_reduce"] == steps
+    assert sum(cm.LAUNCHES.values()) == steps

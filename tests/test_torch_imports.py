@@ -37,7 +37,18 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "akka_tpu_torch.batched.sharded",
                  "akka_tpu_torch.sharding.device",
                  "akka_tpu_torch.sharding.ask_batch",
-                 "akka_tpu_torch.gateway.ingress"):
+                 "akka_tpu_torch.gateway.ingress",
+                 "akka_tpu_torch.gateway.admission",
+                 "akka_tpu_torch.gateway.aggregator",
+                 "akka_tpu_torch.gateway.dedup",
+                 "akka_tpu_torch.gateway.evloop",
+                 "akka_tpu_torch.gateway.replica",
+                 "akka_tpu_torch.gateway.slo",
+                 "akka_tpu_torch.event.tracing",
+                 "akka_tpu_torch.event.pressure",
+                 "akka_tpu_torch.serialization.frames",
+                 "akka_tpu_torch.pattern.backoff",
+                 "akka_tpu_torch.tools.serving_gateway"):
         assert name in MODULES, name
 
 
