@@ -15,7 +15,12 @@ State columns are replaced by each step's new tensors.
 `run_pipelined` keeps up to `depth` steps in flight, synchronising on each
 step's attention word. Host tells stage in a Python list (the reference's
 C++ NativeStager is not ported yet) and ride into the next `step()` with
-its flush. `checkpoint`/`restore` are not ported yet.
+its flush.
+
+Durability: with a `TellJournal` in `tell_journal`, every staged batch is
+journaled before it is staged; `checkpoint` snapshots the slabs
+(persistence/slab_snapshot.py) and compacts the journal, and `restore`
+loads a snapshot in place and replays the journal to the crash frontier.
 """
 
 from __future__ import annotations
@@ -181,6 +186,9 @@ class BatchedSystem:
         self.on_dropped: Optional[Callable[[int], None]] = None
         # host mirror of the dispatched-step counter
         self._host_step = 0
+        # write-ahead tell journal (persistence/tell_journal.py): staged
+        # batches are journaled BEFORE staging; None = no WAL
+        self.tell_journal = None
         self._np_payload_dtype = _numpy_dtype(payload_dtype)
 
         # reusable host pads for the flush (one fixed [host_inbox] shape)
@@ -310,6 +318,11 @@ class BatchedSystem:
             pl = np.pad(pl, [(0, 0)] * (pl.ndim - 1) + [(0, pad)])
         mt = np.broadcast_to(np.atleast_1d(np.asarray(mtype, np.int32)),
                              (dst_arr.shape[0],))
+        if self.tell_journal is not None:
+            # WAL: the normalized, generation-filtered batch, before it is
+            # staged; recovery re-stages exactly this batch at this step
+            # counter, with no expect_gen re-check
+            self.tell_journal.append(self._host_step, "tell", dst_arr, pl, mt)
         with self._lock:
             for d, t, p in zip(dst_arr, mt, pl):
                 self._host_staged.append((int(d), int(t), p))
@@ -317,6 +330,12 @@ class BatchedSystem:
     def seed_inbox(self, dst, payload, mtype=0) -> None:
         """Bulk device-side injection: overwrite the first len(dst) inbox
         rows (the fast path for benches and bulk tells)."""
+        if self.tell_journal is not None:
+            # seeds write inbox rows directly, so a seed record at the
+            # snapshot's own step may already be in the snapshot: replay
+            # writes the same rows with the same values
+            self.tell_journal.append(self._host_step, "seed", dst, payload,
+                                     mtype)
         dst = torch.as_tensor(dst, dtype=torch.int32, device=self.device)
         payload = torch.as_tensor(payload, dtype=self.payload_dtype,
                                   device=self.device)
@@ -461,6 +480,47 @@ class BatchedSystem:
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------- checkpoint / recovery
+    def checkpoint(self, directory: str, keep: Optional[int] = None) -> str:
+        """Checkpoint barrier: synchronize the card, then snapshot the
+        schema-v3 slab tree (state columns with the supervision columns,
+        the inbox, the aggregate counters, the attention word and the
+        metric slab) as `<directory>/slab-<step>.npz`. With a tell journal
+        attached, the journal is compacted to the records at or after the
+        snapshot's step; `keep` bounds the snapshots kept (oldest
+        removed). Returns the snapshot's path."""
+        from ..persistence.slab_snapshot import gc_slabs, save_slabs
+        self.block_until_ready()
+        path = save_slabs(self, directory)
+        if self.tell_journal is not None:
+            self.tell_journal.compact(self._host_step)
+        if keep is not None:
+            gc_slabs(directory, keep)
+        return path
+
+    def restore(self, path: str, journal=None) -> int:
+        """Crash recovery: load a snapshot (schema v1-v3) into this system,
+        writing each slab into its existing tensor, and reset the host step
+        counter from its step_count. The caller builds a same-config
+        system and re-runs its spawns first: behaviors are code, not
+        snapshot data, so the host allocation state (free rows,
+        generations) comes from the spawns. The host staging list is
+        dropped: whatever was staged but not flushed at the crash replays
+        from the journal. With `journal`, the journaled batches past the
+        snapshot's step are replayed to the crash frontier. Returns the
+        restored host step counter. (The reference also re-arms its
+        metrics epoch here; the port has no epoch yet, ROADMAP A4.4.)"""
+        from ..persistence.slab_snapshot import restore_slabs
+        from ..persistence.tell_journal import replay_journal
+        self.block_until_ready()
+        restore_slabs(self, path)
+        self._host_step = int(self.step_count.item())
+        with self._lock:
+            self._host_staged = []
+        if journal is not None:
+            replay_journal(self, journal)
+        return self._host_step
 
     def read_attention(self) -> Dict[str, Any]:
         """Decode the newest host-attention word (a tiny read that syncs

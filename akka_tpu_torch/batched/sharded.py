@@ -33,9 +33,13 @@ carry loads into either package (`utils/carry.py`): state columns
 [D, N_COUNTERS]; metrics [D, N_HIST, N_BUCKETS]; attention [D, ATT_WORDS].
 
 The inbox is updated in place each step (the reference donates it to its
-jitted program). Not ported yet: `checkpoint`/`restore` (ROADMAP A8),
-`metrics_epoch_value`/`drain_metrics`, and a mesh of several cards
-(`mesh=`, ROADMAP A10).
+jitted program). Durability is the reference's: a `tell_journal` WAL,
+`checkpoint`, and `restore`/`restore_tree`, which write a snapshot of the
+same layout into the live tensors and re-shard one taken at another shard
+count (or in the hand-off window's wider inbox) through
+`_restore_resharded`. Not ported yet: `metrics_epoch_value`/
+`drain_metrics` (ROADMAP A4.4) and a mesh of several cards (`mesh=`,
+ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -183,6 +187,8 @@ class ShardedBatchedSystem:
         self._lock = threading.Lock()
         self._host_staged: List[Tuple[int, int, np.ndarray]] = []
         self._host_step = 0
+        # write-ahead tell journal (persistence/tell_journal.py); None = off
+        self.tell_journal = None
         self._np_payload_dtype = _numpy_dtype(payload_dtype)
         # small lookup tables behaviors see as ctx.tables
         self.tables: Dict[str, torch.Tensor] = {}
@@ -231,8 +237,13 @@ class ShardedBatchedSystem:
         pl = np.zeros(self.payload_width, dtype=self._np_payload_dtype)
         arr = np.asarray(payload).reshape(-1)
         pl[: arr.shape[0]] = arr
+        # an int, or the one-row array a replayed WAL record holds
+        dst, mtype = int(np.asarray(dst).item()), int(np.asarray(mtype).item())
+        if self.tell_journal is not None:
+            # WAL: the normalized row, before it is staged
+            self.tell_journal.append(self._host_step, "tell", dst, pl, mtype)
         with self._lock:
-            self._host_staged.append((int(dst), int(mtype), pl))
+            self._host_staged.append((dst, mtype, pl))
 
     def _flush_staged(self) -> None:
         """Write staged tells into each destination shard's host rows, in
@@ -575,3 +586,147 @@ class ShardedBatchedSystem:
         """The metric slab as named lanes, shards summed."""
         self.block_until_ready()
         return slab_dict(self.metrics)
+
+    # ------------------------------------------------- checkpoint / recovery
+    def checkpoint(self, directory: str, keep: Optional[int] = None,
+                   compact: bool = True) -> str:
+        """Checkpoint barrier (see BatchedSystem.checkpoint): synchronize
+        the card, snapshot the schema-v3 slab tree, compact the attached
+        tell journal (unless `compact=False`), remove snapshots past the
+        `keep` newest. Returns the snapshot's path."""
+        from ..persistence.slab_snapshot import gc_slabs, save_slabs
+        self.block_until_ready()
+        path = save_slabs(self, directory)
+        if self.tell_journal is not None and compact:
+            self.tell_journal.compact(self._host_step)
+        if keep is not None:
+            gc_slabs(directory, keep)
+        return path
+
+    def restore(self, path: str, journal=None) -> int:
+        """Crash recovery, also across shard counts: a snapshot of this
+        system's layout restores in place; one taken at another shard
+        count, or in the hand-off window's wider inbox, is re-sharded
+        (`_restore_resharded`). The caller builds a same-capacity system
+        and re-runs its spawns first. With `journal`, the journaled
+        batches past the snapshot's step replay to the crash frontier.
+        Returns the restored host step counter."""
+        from ..persistence.slab_snapshot import load_slab_tree
+        return self.restore_tree(load_slab_tree(path), journal=journal)
+
+    def restore_tree(self, tree: Dict[str, Any], journal=None) -> int:
+        """Restore from an already-loaded slab tree (`slab_pytree` host
+        copies). The host staging list is dropped (its tells replay from
+        the journal). (The reference also re-arms its metrics epoch here;
+        the port has no epoch yet, ROADMAP A4.4.)"""
+        from ..persistence.slab_snapshot import restore_slab_pytree
+        from ..persistence.tell_journal import replay_journal
+        snap_rows = int(np.shape(tree["behavior_id"])[0])
+        if snap_rows != self.capacity:
+            raise ValueError(f"snapshot capacity {snap_rows} != "
+                             f"system capacity {self.capacity}")
+        self.block_until_ready()
+        if tuple(np.shape(tree["inbox_dst"])) == \
+                tuple(self.inbox_dst.shape):
+            restore_slab_pytree(self, tree)
+        else:
+            self._restore_resharded(tree)
+        self._host_step = int(self.step_count.item())
+        with self._lock:
+            self._host_staged = []
+        if journal is not None:
+            replay_journal(self, journal)
+        return self._host_step
+
+    def _restore_resharded(self, tree: Dict[str, Any]) -> None:
+        """Re-shard a snapshot whose inbox layout differs from this
+        system's: another shard count, or a pair capacity of the hand-off
+        window. Row slabs ([capacity, ...]) are layout independent and are
+        written in place. Per-shard aggregates ([old D, ...]) are
+        conserved by summing into shard 0 (only totals are read); the
+        attention words keep their flags (OR), counters (sum) and step
+        (max) in row 0. In-flight inbox rows are gathered and re-placed
+        into their destination shard's block from the exchange region on,
+        in their original order, so the stable delivery delivers them in
+        that order on the first restored step."""
+        from ..persistence.slab_snapshot import (check_schema,
+                                                 restore_state_columns,
+                                                 write_slab)
+        check_schema(tree)
+        restore_state_columns(self, tree)
+        write_slab(self.behavior_id,
+                   np.asarray(tree["behavior_id"], np.int32))
+        write_slab(self.alive, np.asarray(tree["alive"], np.bool_))
+        restored = int(np.asarray(tree["step_count"]).max())
+        self.step_count.fill_(restored)
+        ns = self.n_shards
+        att_rows = np.zeros((ns, ATT_WORDS), np.int32)
+        self._overflow_reported = np.zeros((ns, 2), np.int64)
+        att = tree.get("attention")
+        if att is not None:
+            old = decode_attention(np.asarray(att))
+            att_rows[0] = (old["flags"], old["mail_dropped"],
+                           old["dead_letters"], old["step"],
+                           old["exchange_dropped"], old["step"])
+            self._overflow_reported[0] = (old["mail_dropped"],
+                                          old["exchange_dropped"])
+        self.attention = write_slab(self.attention, att_rows)
+
+        def conserved(key, shape):
+            out = np.zeros((ns,) + shape, np.int32)
+            if key in tree:
+                out[0] = np.asarray(tree[key]).reshape(
+                    (-1,) + shape).sum(axis=0)
+            return out
+
+        self.dropped = write_slab(self.dropped, conserved("dropped", ()))
+        self.mail_dropped = write_slab(self.mail_dropped,
+                                       conserved("mail_dropped", ()))
+        self.sup_counts = write_slab(self.sup_counts,
+                                     conserved("sup_counts", (N_COUNTERS,)))
+        self.metrics = write_slab(self.metrics, conserved(
+            "metrics", tuple(self.metrics.shape[1:])))
+
+        # in-flight mail: the valid rows in order, re-placed by
+        # destination shard
+        dst = np.asarray(tree["inbox_dst"])
+        typ = np.asarray(tree["inbox_type"])
+        pl = np.asarray(tree["inbox_payload"])
+        val = np.asarray(tree["inbox_valid"]).astype(bool)
+        if pl.shape[1] != self.payload_width:
+            raise ValueError(f"snapshot payload width {pl.shape[1]} != "
+                             f"system payload width {self.payload_width}")
+        m_global = self.m_local * ns
+        new_dst = np.full((m_global,), -1, np.int32)
+        new_typ = np.zeros((m_global,), np.int32)
+        new_pl = np.zeros((m_global, self.payload_width),
+                          self._np_payload_dtype)
+        new_val = np.zeros((m_global,), np.bool_)
+        rows = np.nonzero(val)[0]
+        shard = np.clip(dst[rows], 0, self.capacity - 1) // self.local_n
+        order = np.argsort(shard, kind="stable")  # keeps the global order
+        rows, shard = rows[order], shard[order]
+        counts = np.bincount(shard, minlength=ns)
+        region = self.m_local - self.spill_cap
+        if counts.size and int(counts.max()) > region:
+            s = int(np.argmax(counts))
+            raise RuntimeError(
+                f"in-flight mail for shard {s} ({int(counts[s])} rows) "
+                f"exceeds its inbox block on the {ns}-shard system")
+        first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        rank = np.arange(rows.shape[0]) - first[shard]
+        slot = shard * self.m_local + self.spill_cap + rank
+        new_dst[slot] = dst[rows]
+        new_typ[slot] = typ[rows]
+        new_pl[slot] = pl[rows]
+        new_val[slot] = True
+        self.inbox_dst = write_slab(self.inbox_dst, new_dst)
+        self.inbox_type = write_slab(self.inbox_type, new_typ)
+        self.inbox_payload = write_slab(self.inbox_payload, new_pl)
+        self.inbox_valid = write_slab(self.inbox_valid, new_val)
+        if self.metrics_on:
+            # enqueue stamps do not survive re-placement: every re-placed
+            # row is stamped with the restored step
+            self.inbox_enq = write_slab(
+                self.inbox_enq,
+                np.where(new_val, restored, 0).astype(np.int32))

@@ -1,7 +1,8 @@
 """Journaled reply-cache dedup: exactly-once effects for retried asks.
 
-A copy of `akka_tpu/gateway/dedup.py` (host code). `load(entries)` works
-alone; rehydrating the table from the entity journal waits for ROADMAP A8.
+A copy of `akka_tpu/gateway/dedup.py` (host code). `GatewayServer`
+rehydrates the table with `load(entries)` from a restored region's entity
+journal (`EntityJournal.replies()`).
 
 The serving path is durable (entity journal, commit-before-ack) and
 retry-capable (`GatewayClient.request_retry`), but the two composed

@@ -6,8 +6,11 @@ Port of `akka_tpu/gateway/ingress.py`. Two transports in the reference:
 `ActorSystem` and stream layer, so `start()` raises NotImplementedError
 for it (ROADMAP A12), while in-proc use (`handle_frame`,
 `handle_frame_batch`, `submit_frames`) works with either setting. The
-admin ops `checkpoint` and `failover` reply `admin_fault:` while the
-region's durability and failover are not ported (ROADMAP A8, A10).
+admin op `checkpoint` snapshots the region (it needs the region's
+`attach_journal`), and a region restored before the gateway comes up
+rehydrates the dedup table and the replica cache from its entity
+journal; `failover` replies `admin_fault:` while failover is not ported
+(ROADMAP A10).
 `counter_behavior` is written over the batch in torch.
 
 Wire protocol — `simpleFramingProtocol` (stream/framing.py): every frame
@@ -1344,7 +1347,8 @@ class GatewayServer:
                 n = int(req.get("value", 1))
                 region = self.backend.region
                 # survivors as card indices; the port's region raises
-                # NotImplementedError until failover lands (ROADMAP A10)
+                # NotImplementedError naming ROADMAP A10 (one card), so
+                # this replies admin_fault until failover is ported
                 step = region.failover(list(range(n)))
                 replayed = getattr(region, "_durable_replayed_totals",
                                    None)

@@ -37,8 +37,8 @@ per-entity totals.
 
 The tracer hooks are the reference's; the port's region carries
 `tracer = None` until one is wired in (ROADMAP A9). The entity-journal
-commit sites stay behind `getattr(region, "_entity_journal", None)`: the
-port's region has no journal yet (ROADMAP A8).
+commit sites stay behind `getattr(region, "_entity_journal", None)`: a
+region without `attach_entity_journal` pays one attribute read.
 """
 
 from __future__ import annotations

@@ -16,16 +16,28 @@ shard), so behaviors address any entity as
 touch them. One spare block becomes the promise block, whose rows answer
 asks (batched/bridge.py's convention).
 
-Not ported yet: the durability and failover half of the reference module
-(`attach_journal` ... `failover`, ROADMAP A8/A10: `checkpoint`, `restore`
-and `failover` raise NotImplementedError naming their item), the
-remember-entities store, and `attach_tracer` (ROADMAP A9: `tracer` stays
-None, so the ask engine runs the reference's no-tracer path).
+Durability is the reference's: `attach_journal` arms the tell WAL, the
+checkpoint directory and the `entities.log` of first allocations;
+`attach_entity_journal` arms the per-entity event journal the ask engine
+group-commits each ok wave into before its acks; `checkpoint` writes the
+slab snapshot, the placement sidecar (`region.json`) and compacts the
+journals; `restore`, in a fresh process, loads the sidecar, respawns the
+remembered entities (`DeviceEntity.remember_store`, the entity journal),
+writes the snapshot into the live tensors, replays the WAL and pins the
+durable column to the entity journal's acked frontier.
+
+Not ported yet: `failover` (more than one card, ROADMAP A10: it raises
+NotImplementedError naming its item) and `attach_tracer` (ROADMAP A9:
+`tracer` stays None, so the ask engine runs the reference's no-tracer
+path).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -44,10 +56,13 @@ class DeviceEntity:
 
     delivery_backend: None/"auto", "ranked" or "cuda" (ops/segment.py).
     lease: optional coordination lease (`acquire()`, `settings.lease_name`);
-    rebalance must acquire it first. spill_capacity (a port addition,
-    default None = the system's default) is forwarded to the sharded
-    system: with mailbox_slots > 0 and spill_capacity=0 the mailboxes are
-    bounded, the ring-slots kernel's mode."""
+    rebalance must acquire it first. remember_store: optional durable
+    remember-entities store (sharding/remember.py): first allocations are
+    add()ed, and restore() respawns every remembered id before the
+    replay. spill_capacity (a port addition, default None = the system's
+    default) is forwarded to the sharded system: with mailbox_slots > 0
+    and spill_capacity=0 the mailboxes are bounded, the ring-slots
+    kernel's mode."""
 
     type_name: str
     behavior: BatchedBehavior
@@ -62,6 +77,7 @@ class DeviceEntity:
     extra_behaviors: Sequence[BatchedBehavior] = field(default_factory=tuple)
     delivery_backend: Optional[str] = None
     lease: Optional[Any] = None
+    remember_store: Optional[Any] = None
     spill_capacity: Optional[int] = None
 
 
@@ -159,14 +175,33 @@ class DeviceShardRegion:
         self.tracer = None
         self._wave_seq = 0
         self._lock = threading.Lock()
-        # asks and maintenance (rebalance) serialize: both step or rewrite
-        # the shared runtime. The lock order is _ask_lock, then _lock.
+        # asks and maintenance (checkpoint, rebalance, restore) serialize:
+        # all of them step or rewrite the shared runtime. Reentrant,
+        # because rebalance checkpoints under its own hold. The lock order
+        # is _ask_lock, then _lock, then the system's _lock.
         self._ask_lock = threading.RLock()
         self._stray_steps_left = 0         # hand-off drain window
+        # durability (attach_journal): the WAL, the slab snapshots and the
+        # placement sidecar make the region restorable in a fresh process
+        self.checkpoint_dir: Optional[str] = None
+        self._journal = None
+        self._ents_fh = None
+        # durable entity layer (attach_entity_journal): per-entity events
+        # group-committed at the ask-wave boundary; restore replays them
+        # into the durable state column
+        self._entity_journal = None
+        self._durable_col = "total"
+        self._per_event_fsync = False
+        self._durable_replayed_totals: Optional[Dict[str, float]] = None
+        # wall ms of the last restore(): load, h2d, replay (and steps)
+        self.restore_timings: Dict[str, float] = {}
 
-        # entity registry: per-shard entity_id -> index
+        # entity registry: per-shard entity_id -> index, and the reverse
+        # view the wave-boundary event commit names entities by
         self._entities: List[Dict[str, int]] = [dict()
                                                 for _ in range(spec.n_shards)]
+        self._rev: List[Dict[int, str]] = [dict()
+                                           for _ in range(spec.n_shards)]
         self._spawned = np.zeros((spec.n_shards,), np.int32)
 
         self._sync_tables()
@@ -286,14 +321,25 @@ class DeviceShardRegion:
         """Resolve the device entity for an id, allocating its row on first
         use (StartEntity semantics)."""
         shard = self.shard_of(entity_id)
+        new = False
         with self._lock:
             idx = self._entities[shard].get(entity_id)
             if idx is None:
+                new = True
                 idx = len(self._entities[shard])
                 if idx >= self.eps:
                     raise RuntimeError(
                         f"shard {shard} full ({self.eps} entities)")
                 self._entities[shard][entity_id] = idx
+                self._rev[shard][idx] = entity_id
+                if self._ents_fh is not None:
+                    # a tell journaled to an entity allocated after the
+                    # last snapshot must find its row alive on replay
+                    self._ents_fh.write(f"{shard}\t{idx}\t{entity_id}\n")
+                    self._ents_fh.flush()
+        if new and self.spec.remember_store is not None:
+            self.spec.remember_store.add(self.type_name, str(shard),
+                                         entity_id)
         self._ensure_spawned(shard, idx)
         return DeviceEntityRef(self, shard, idx, entity_id)
 
@@ -387,22 +433,320 @@ class DeviceShardRegion:
                 (d + delta if old.start <= d < old.stop else d, t, p)
                 for d, t, p in sys._host_staged]
         self._sync_tables()
+        if self.checkpoint_dir is not None:
+            # the WAL records tells, not placement moves: drain the
+            # hand-off window and snapshot now, so recovery never replays
+            # post-move traffic onto pre-move block homes
+            guard = 64  # bounded: each pass forwards strays one hop
+            while self._stray_steps_left > 0 and guard > 0:
+                guard -= self._stray_steps_left
+                self.run(self._stray_steps_left)
+            self.checkpoint()
         return new_block
 
-    # ------------------------------------------------- durability, failover
+    # ------------------------------------------------------------ durability
+    def attach_journal(self, directory: str, fsync_every_n: int = 1):
+        """Arm the write-ahead tell journal and the checkpoint directory:
+        every staged tell is journaled before it is staged (appends flush
+        per record, so kill -9 loses no staged tell; fsync every
+        `fsync_every_n` appends), and every first allocation is a line of
+        `entities.log`. checkpoint() and restore() need this. Returns the
+        TellJournal."""
+        from ..persistence.tell_journal import TellJournal
+        os.makedirs(directory, exist_ok=True)
+        self.checkpoint_dir = directory
+        self._journal = TellJournal(
+            os.path.join(directory, "tells.wal"),
+            flight_recorder=self.system.flight_recorder,
+            fsync_every_n=fsync_every_n)
+        self.system.tell_journal = self._journal
+        with self._lock:
+            self._ents_fh = open(os.path.join(directory, "entities.log"),
+                                 "a")
+        return self._journal
+
+    def attach_entity_journal(self, directory: Optional[str] = None,
+                              fsync_every_n: int = 1,
+                              snapshot_every: int = 64,
+                              compact_every: int = 8192,
+                              state_col: str = "total",
+                              registry=None,
+                              per_event_fsync: bool = False):
+        """Arm the durable entity layer: every ok ask wave's events
+        (entity_id, op, value) land as ONE group-committed record in
+        `entities.journal` before the wave's outcomes reach the caller.
+        `fsync_every_n` counts waves (1 = one fsync per wave; appends
+        always flush, so a process kill -9 loses nothing at any n).
+        restore() then pins each entity's `state_col` to the journal's
+        fold (snapshot + event tail), the acked frontier.
+        `per_event_fsync=True` is the A/B leg (one record + fsync per
+        event). `registry` may be None (the port has none yet, ROADMAP
+        A9). Returns the EntityJournal."""
+        from ..persistence.entity_journal import EntityJournal
+        directory = directory or self.checkpoint_dir
+        if directory is None:
+            raise RuntimeError(
+                "attach_entity_journal needs a directory (or "
+                "attach_journal first)")
+        os.makedirs(directory, exist_ok=True)
+        self._durable_col = state_col
+        self._per_event_fsync = per_event_fsync
+        self._entity_journal = EntityJournal(
+            os.path.join(directory, "entities.journal"),
+            flight_recorder=self.system.flight_recorder,
+            fsync_every_n=fsync_every_n, snapshot_every=snapshot_every,
+            compact_every=compact_every, registry=registry)
+        return self._entity_journal
+
+    def detach_entity_journal(self) -> None:
+        """Disarm (A/B legs): close the journal and stop the wave-boundary
+        commits; what is journaled stays on disk."""
+        ej, self._entity_journal = self._entity_journal, None
+        self._per_event_fsync = False
+        if ej is not None:
+            ej.close()
+
+    def _commit_entity_events(self, resolved) -> None:
+        """Wave-boundary group commit, called by the ask engine with the
+        wave's ok members while the caller holds `_ask_lock`: name each
+        (shard, index) through the reverse registry, drop no-op events (a
+        gateway get is add(0)), and append everything as one record. The
+        fsync (every fsync_every_n waves) happens here, before any ack
+        leaves.
+
+        Members are `(shard, index, message)` or, with the gateway's
+        idempotent-session dedup, `(shard, index, message, dedup_key,
+        outcome)`: keyed members also record their ok reply
+        `(tenant, id, status, value)` in the same record."""
+        ej = self._entity_journal
+        if ej is None:
+            return
+        from ..persistence.entity_journal import OP_ADD
+        from ..serialization.frames import ST_OK
+        events = []
+        replies = []
+        with self._lock:
+            for member in resolved:
+                shard, index, message = member[0], member[1], member[2]
+                body = np.asarray(message, np.float64).reshape(-1)
+                value = float(body[0]) if body.size else 0.0
+                if len(member) >= 5 and member[3] is not None:
+                    out = np.asarray(member[4], np.float64).reshape(-1)
+                    replies.append((member[3][0], member[3][1], ST_OK,
+                                    float(out[0]) if out.size else 0.0))
+                if value == 0.0:
+                    continue
+                eid = self._rev[shard].get(index)
+                if eid is not None:
+                    events.append((eid, OP_ADD, value))
+        if events or replies:
+            ej.append_wave(int(self.system._host_step), events,
+                           per_event_fsync=self._per_event_fsync,
+                           replies=replies)
+
+    def _respawn_remembered(self) -> None:
+        """Re-host every remembered entity with zero client traffic: the
+        union of the remember store's ids and the entity journal's fold,
+        allocating rows for ids the sidecar and entities.log missed. Runs
+        before the replay, so replayed totals find their rows alive.
+        Sorted order makes the placement deterministic."""
+        ids = set()
+        store = self.spec.remember_store
+        if store is not None:
+            for shard in range(self.spec.n_shards):
+                ids.update(store.remembered(self.type_name, str(shard)))
+        if self._entity_journal is not None:
+            ids.update(self._entity_journal.totals())
+        for eid in sorted(ids):
+            self.entity_ref(eid)
+
+    def _replay_entities(self) -> Dict[str, float]:
+        """Write the entity journal's fold (snapshot + event tail: the
+        acked frontier) into the durable state column in one scatter.
+        Runs after the slab + WAL replay: the WAL may have re-applied
+        writes that were never acked (in flight at the crash, timed-out
+        asks); overwriting with the fold pins the restored state to what
+        clients were acknowledged."""
+        ej = self._entity_journal
+        if ej is None:
+            return {}
+        totals = ej.totals()
+        self._durable_replayed_totals = totals
+        if not totals:
+            return totals
+        rows = [self.entity_ref(eid).row for eid in totals]
+        col = self.system.state[self._durable_col]
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=col.device)
+        col[idx] = torch.as_tensor(np.asarray(list(totals.values())),
+                                   dtype=col.dtype, device=col.device)
+        return totals
+
+    def _sidecar_path(self) -> str:
+        return os.path.join(self.checkpoint_dir, "region.json")
+
+    def _write_sidecar(self) -> None:
+        """Placement and entity registry beside the slab snapshot (which
+        holds state by row): which logical shard owns which block, which
+        entity id owns which row. Promise slots held by asks in flight at
+        the barrier are written as retired: their replies land in the
+        restored run (snapshot inbox or WAL), and the reclaim frees
+        them."""
+        with self._lock:
+            retired = list(self._promise_retired)
+            taken = set(range(self.eps)) - set(self._promise_free) \
+                - set(retired)
+            doc = {"shard_block": [int(b) for b in self._shard_block],
+                   "free_blocks": list(self._free_blocks),
+                   "promise_block": int(self._promise_block),
+                   "promise_spawned": bool(self._promise_spawned),
+                   "promise_free": list(self._promise_free),
+                   "promise_retired": retired + sorted(taken),
+                   "entities": [dict(d) for d in self._entities],
+                   "spawned": [int(s) for s in self._spawned]}
+        tmp = self._sidecar_path() + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self._sidecar_path())
+
     def checkpoint(self, keep: int = 3) -> str:
-        """Not ported yet: slab snapshots and the journals are ROADMAP
-        A8. The gateway's admin channel replies `admin_fault:` with this
-        error."""
-        raise NotImplementedError(
-            "DeviceShardRegion.checkpoint is not ported yet (ROADMAP A8: "
-            "slab snapshot, tell journal, entity journal)")
+        """Quiescent-barrier slab snapshot (ShardedBatchedSystem.checkpoint:
+        the card is synchronized before the slabs are read), placement
+        sidecar, WAL and entity-journal compaction; `keep` snapshots are
+        kept. Returns the snapshot's path."""
+        if self.checkpoint_dir is None:
+            raise RuntimeError("attach_journal(directory) before checkpoint")
+        with self._ask_lock:
+            path = self.system.checkpoint(self.checkpoint_dir, keep=keep)
+            self._write_sidecar()
+            if self._entity_journal is not None:
+                # every event so far is in the live fold: rewrite the log
+                # as one snap-all record (a bounded replay tail)
+                self._entity_journal.compact()
+            # allocations up to here are in the sidecar: reset the log
+            with self._lock:
+                if self._ents_fh is not None:
+                    self._ents_fh.close()
+                    self._ents_fh = open(
+                        os.path.join(self.checkpoint_dir, "entities.log"),
+                        "w")
+        return path
 
     def restore(self) -> int:
-        """Not ported yet (ROADMAP A8)."""
-        raise NotImplementedError(
-            "DeviceShardRegion.restore is not ported yet (ROADMAP A8: "
-            "slab snapshot, tell journal, entity journal)")
+        """Crash recovery in a fresh process: build an identically-spec'd
+        region, attach_journal (and attach_entity_journal) on the same
+        directory, then restore(): loads the placement sidecar, merges
+        entities.log, respawns the remembered entities, re-points the
+        device tables, writes the latest slab snapshot into the live
+        tensors, replays the WAL to the crash frontier with a 2-step
+        flush, and pins the durable column to the entity journal's fold.
+        Timings land in `restore_timings`. Returns the recovered host
+        step counter."""
+        from ..persistence.slab_snapshot import latest_slab_path
+        if self.checkpoint_dir is None:
+            raise RuntimeError("attach_journal(directory) before restore")
+        with self._ask_lock:
+            path = latest_slab_path(self.checkpoint_dir)
+            if path is None:
+                raise FileNotFoundError(
+                    f"no slab snapshot under {self.checkpoint_dir}")
+            with open(self._sidecar_path()) as f:
+                doc = json.load(f)
+            self._load_sidecar(doc)
+            self._merge_entity_log()
+            self._respawn_remembered()
+            self._sync_tables()  # the replayed steps read the tables
+            step = self._restore_and_replay(path)
+            t0 = time.perf_counter()
+            self._replay_entities()
+            self.system.block_until_ready()
+            self.restore_timings["replay_ms"] += \
+                (time.perf_counter() - t0) * 1e3
+            return step
+
+    def _merge_entity_log(self) -> None:
+        """Fold entities.log into the registry: the allocations since the
+        last sidecar write (checkpoint truncates the log once the sidecar
+        covers it, so duplicates appear only across a crash in
+        between)."""
+        path = os.path.join(self.checkpoint_dir, "entities.log")
+        if not os.path.exists(path):
+            return
+        with open(path) as f:
+            for line in f:
+                parts = line.rstrip("\n").split("\t")
+                if len(parts) != 3:
+                    continue  # torn tail of a crashed append
+                shard, idx = int(parts[0]), int(parts[1])
+                with self._lock:
+                    self._entities[shard].setdefault(parts[2], idx)
+                    self._rev[shard][self._entities[shard][parts[2]]] = \
+                        parts[2]
+                    self._spawned[shard] = max(int(self._spawned[shard]),
+                                               idx + 1)
+
+    def _restore_and_replay(self, path: str) -> int:
+        """Slab restore, host-side row re-activation, THEN the WAL replay
+        (replayed tells to entities allocated after the snapshot must find
+        their rows alive), then a 2-step flush so the crash-frontier batch
+        is applied to state, not just re-staged."""
+        from ..persistence.slab_snapshot import load_slab_tree
+        from ..persistence.tell_journal import replay_journal
+        sys = self.system
+        t0 = time.perf_counter()
+        tree = load_slab_tree(path)
+        t1 = time.perf_counter()
+        step = sys.restore_tree(tree, journal=None)
+        self._reactivate_rows()
+        sys.block_until_ready()
+        t2 = time.perf_counter()
+        if self._journal is not None:
+            step = replay_journal(sys, self._journal)
+        sys.run(2)
+        sys.block_until_ready()
+        self.restore_timings = {
+            "load_ms": (t1 - t0) * 1e3, "h2d_ms": (t2 - t1) * 1e3,
+            "replay_ms": (time.perf_counter() - t2) * 1e3,
+            "snapshot_step": float(tree["step_count"]),
+            "replayed_steps": float(sys._host_step - int(
+                tree["step_count"]))}
+        return step
+
+    def _reactivate_rows(self) -> None:
+        """Every registered entity row alive with the entity behavior, and
+        the promise block with the promise behavior if it was spawned."""
+        sys = self.system
+        rows: List[int] = []
+        with self._lock:
+            for shard in range(self.spec.n_shards):
+                base = int(self._shard_block[shard]) * self.eps
+                rows.extend(range(base, base + int(self._spawned[shard])))
+            promise = self._promise_spawned
+        if rows:
+            idx = torch.as_tensor(np.asarray(rows, np.int64),
+                                  device=sys.device)
+            sys.behavior_id[idx] = 0
+            sys.alive[idx] = True
+        if promise:
+            pbase = self._promise_block * self.eps
+            prow = slice(pbase, pbase + self.eps)
+            sys.behavior_id[prow] = len(sys.behaviors) - 1
+            sys.alive[prow] = True
+
+    def _load_sidecar(self, doc: Dict[str, Any]) -> None:
+        with self._lock:
+            self._shard_block = np.asarray(doc["shard_block"], np.int32)
+            self._free_blocks = [int(b) for b in doc["free_blocks"]]
+            self._promise_block = int(doc["promise_block"])
+            self._promise_spawned = bool(doc["promise_spawned"])
+            self._promise_free = [int(s) for s in doc["promise_free"]]
+            self._promise_retired = [int(s) for s in doc["promise_retired"]]
+            self._entities = [{str(k): int(v) for k, v in d.items()}
+                              for d in doc["entities"]]
+            self._rev = [{v: k for k, v in d.items()}
+                         for d in self._entities]
+            self._spawned = np.asarray(doc["spawned"], np.int32)
 
     def failover(self, survivors: Sequence[Any]) -> int:
         """Not ported yet: rebuilding the region on surviving cards is

@@ -7,23 +7,27 @@ Three subcommands compose into a small multi-process serving stack:
 
   serve  -- one gateway process: the evloop TCP front door, admission
             control, SLO tracker, and a continuous-wave RegionBackend
-            over a DeviceShardRegion of counter entities. Runs on the
-            card by default; `--device cpu` runs it on the CPU. Prints
-            "READY <port>" once bound.
+            over a DeviceShardRegion of counter entities with the tell
+            WAL and checkpoint directory armed (`--dir`). Runs on the
+            card by default; `--device cpu` runs it on the CPU. Without
+            `--restore` it takes a baseline checkpoint; with it, it
+            recovers from the directory and prints "RESTORED step=N"
+            (and, with `--durable`, "DURABLE respawned=N sum=X").
+            `--durable` arms the entity journal and a record-log
+            remember-entities store. Prints "READY <port>" once bound.
   load   -- one load-generator process: paced client traffic through
-            the front door. Prints a JSON result line (sent/acked sums,
-            outcome counts).
-  demo   -- the orchestrator: spawns a serve child and two load
-            children, rebalances a shard over the wire mid-run, and
-            checks the conserved-value invariant
+            the front door, reconnecting through server restarts.
+            Prints a JSON result line (sent/acked sums, outcome counts).
+  demo   -- the orchestrator: spawns a durable serve child and two load
+            children, then over the wire: rebalances a shard, SIGKILLs
+            the server and restarts it with `--restore` on the same port
+            and directory, and checks the conserved-value invariant
 
                 acked_sum <= final_total <= sent_sum
 
-            The reference's kill -9 + restore leg and its device
-            failover leg are not run: the region's checkpoint/restore is
-            ROADMAP A8 and failover A10. The demo sends both admin ops
-            and checks that each answers with its typed `admin_fault:`
-            error.
+            The reference's device failover leg is not run (failover is
+            ROADMAP A10): the demo checks that the admin op answers with
+            its typed `admin_fault:` error.
 
 Run it:   python -m akka_tpu_torch.tools.serving_gateway demo
           python -m akka_tpu_torch.tools.serving_gateway demo --device cpu
@@ -34,11 +38,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import queue
 import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -55,10 +62,37 @@ def cmd_serve(args: argparse.Namespace) -> int:
     if args.device == "cpu":
         import torch
         torch.set_num_threads(1)
-    region = DeviceShardRegion(DeviceEntity(
+    spec = DeviceEntity(
         "counter", counter_behavior(4), n_shards=args.shards,
         entities_per_shard=args.eps, n_devices=args.devices,
-        payload_width=4, spare_blocks=2), device=args.device)
+        payload_width=4, spare_blocks=2)
+    if args.durable:
+        # remembered ids in a record-log store; per-entity events
+        # group-committed at the ask-wave boundary into the entity journal
+        from akka_tpu_torch.sharding.remember import \
+            JournalRememberEntitiesStore
+        spec.remember_store = JournalRememberEntitiesStore(
+            os.path.join(args.dir, "remember_entities.journal"))
+    region = DeviceShardRegion(spec, device=args.device)
+    region.attach_journal(args.dir, fsync_every_n=args.fsync_every_n)
+    if args.durable:
+        region.attach_entity_journal(args.dir,
+                                     fsync_every_n=args.fsync_every_n)
+    if args.restore:
+        from akka_tpu_torch.ops import cuda_mailbox
+        cuda_mailbox.reset_launches()  # the replay's kernel launches
+        step = region.restore()
+        launches = json.dumps(dict(cuda_mailbox.LAUNCHES),
+                              separators=(",", ":"))
+        print(f"RESTORED step={step} " + " ".join(
+            f"{k}={v}" for k, v in region.restore_timings.items()) +
+            f" launches={launches}", flush=True)
+        if args.durable:
+            replayed = region._durable_replayed_totals or {}
+            print(f"DURABLE respawned={len(replayed)} "
+                  f"sum={sum(replayed.values()):.1f}", flush=True)
+    else:
+        region.checkpoint()  # the baseline snapshot recovery starts from
     backend = RegionBackend(region, continuous=True, pipeline_depth=4)
     admission = AdmissionController(
         rate=args.rate, burst=args.burst,
@@ -141,17 +175,37 @@ def _child(argv) -> subprocess.Popen:
                             stderr=subprocess.STDOUT, text=True)
 
 
-def _wait_ready(proc: subprocess.Popen, secs: float = 120.0) -> int:
+def _wait_ready(proc: subprocess.Popen, secs: float = 120.0,
+                seen: Optional[list] = None) -> int:
+    """Echo the serve child's lines (and append them to `seen`) until
+    "READY <port>"; returns the port. Raises if the child exits first or
+    `secs` pass. The lines are read on a thread of their own, so the wait
+    stays bounded even when the child prints nothing; the thread ends at
+    READY or end of output."""
+    lines: "queue.Queue" = queue.Queue()
+
+    def pump() -> None:
+        for line in iter(proc.stdout.readline, ""):
+            lines.put(line)
+            if line.startswith("READY "):
+                return
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
     deadline = time.monotonic() + secs
-    while time.monotonic() < deadline:
-        line = proc.stdout.readline()
-        if not line:
+    while True:
+        try:
+            line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+        except queue.Empty:
+            raise TimeoutError("serve child never printed READY") from None
+        if line is None:
             raise RuntimeError(
                 f"serve child exited rc={proc.poll()} before READY")
         sys.stdout.write(f"  [serve] {line}")
+        if seen is not None:
+            seen.append(line)
         if line.startswith("READY "):
             return int(line.split()[1])
-    raise TimeoutError("serve child never printed READY")
 
 
 def _expect_typed_fault(admin, op: str, item: str) -> None:
@@ -166,32 +220,95 @@ def _expect_typed_fault(admin, op: str, item: str) -> None:
                            f"{item}, got {rep}")
 
 
+def _wait_sum_above(admin, floor: float, secs: float = 60.0) -> float:
+    """Poll the admin `sum` until it exceeds `floor` (traffic is landing);
+    returns it. Raises after `secs`."""
+    deadline = time.monotonic() + secs
+    while time.monotonic() < deadline:
+        rep = admin.request_retry("__admin", "", "sum", deadline_s=secs)
+        if rep.get("status") == "ok" and float(rep["value"]) > floor:
+            return float(rep["value"])
+        time.sleep(0.1)
+    raise TimeoutError(f"the sum stayed at or below {floor} for {secs} s")
+
+
+def serve_argv(device: str, directory: str, port: int = 0,
+               restore: bool = False, extra=()) -> list:
+    """The argv of a durable, deduplicating `serve` child."""
+    argv = ["serve", "--device", device, "--dir", directory,
+            "--port", str(port), "--durable", "--dedup", *extra]
+    return argv + ["--restore"] if restore else argv
+
+
+def kill9_restart(serve: subprocess.Popen, argv, secs: float = 120.0,
+                  seen: Optional[list] = None) -> tuple:
+    """SIGKILL the serve child (no goodbye), restart it with `argv` (which
+    carries --restore), and wait for READY (its lines go to `seen`).
+    Returns (the new child, the seconds from the SIGKILL to READY)."""
+    t0 = time.monotonic()
+    serve.send_signal(signal.SIGKILL)
+    serve.wait(timeout=60)
+    serve.stdout.close()
+    fresh = _child(argv)
+    _wait_ready(fresh, secs, seen)
+    return fresh, time.monotonic() - t0
+
+
+def restored_fields(lines) -> dict:
+    """The `key=value` fields of a restarted serve child's RESTORED and
+    DURABLE lines (values parsed as JSON where they are)."""
+    out = {}
+    for line in lines:
+        if line.startswith(("RESTORED ", "DURABLE ")):
+            for tok in line.split()[1:]:
+                k, _, v = tok.partition("=")
+                try:
+                    out[k] = json.loads(v)
+                except ValueError:
+                    out[k] = v
+    return out
+
+
 def cmd_demo(args: argparse.Namespace) -> int:
+    import shutil
+    import tempfile
+
     from akka_tpu_torch.gateway import GatewayClient
 
-    serve = _child(["serve", "--device", args.device, "--shards", "4",
-                    "--eps", "16", "--rate", "400", "--burst", "200"])
+    directory = args.dir or tempfile.mkdtemp(prefix="gateway_demo_")
+    extra = ["--shards", "4", "--eps", "16", "--rate", "400",
+             "--burst", "200"]
+    serve = _child(serve_argv(args.device, directory, extra=extra))
     loads = []
     admin = None
     try:
         port = _wait_ready(serve)
-        print(f"[demo] gateway up on :{port} ({args.device}); starting 2 "
-              "load processes")
+        print(f"[demo] gateway up on :{port} ({args.device}, checkpoint dir "
+              f"{directory}); starting 2 load processes")
         loads = [_child(["load", "--port", str(port), "--tenant",
                          f"tenant{i}", "--seconds", str(args.seconds),
                          "--pace", "0.01"]) for i in (0, 1)]
         admin = GatewayClient("127.0.0.1", port, timeout=30.0)
 
         time.sleep(args.seconds * 0.25)
+        before = _wait_sum_above(admin, 0.0)
         print("[demo] chaos leg 1: shard rebalance (admin op over the wire)")
         rep = admin.request_retry("__admin", "", "rebalance", 0.0,
                                   deadline_s=60.0)
         print("  ->", rep)
         if rep.get("status") != "ok":
             raise RuntimeError(f"rebalance failed: {rep}")
-        print("[demo] chaos leg 2 (kill -9 + restore) waits for ROADMAP "
-              "A8: checkpoint/restore are not ported")
-        _expect_typed_fault(admin, "checkpoint", "ROADMAP A8")
+
+        time.sleep(args.seconds * 0.2)
+        _wait_sum_above(admin, before)  # acked writes since the rebalance
+        print("[demo] chaos leg 2: kill -9 the gateway, restart it with "
+              "--restore on the same port and directory")
+        admin.close()
+        serve, secs = kill9_restart(serve, serve_argv(
+            args.device, directory, port, restore=True, extra=extra))
+        print(f"[demo] SIGKILL to READY {secs:.2f} s")
+        rep = admin.request_retry("__admin", "", "durable", deadline_s=60.0)
+        print("  -> durable:", rep)
         print("[demo] chaos leg 3 (device failover) waits for ROADMAP A10: "
               "failover is not ported")
         _expect_typed_fault(admin, "failover", "ROADMAP A10")
@@ -226,6 +343,8 @@ def cmd_demo(args: argparse.Namespace) -> int:
         except subprocess.TimeoutExpired:
             serve.kill()
             serve.wait()
+        if args.dir is None:
+            shutil.rmtree(directory, ignore_errors=True)
 
     total = float(final["value"])
     ok = acked <= total + 1e-6 and total <= sent + 1e-6
@@ -257,9 +376,19 @@ def main(argv=None) -> int:
                    help="shards of the region's axis (one card)")
     s.add_argument("--rate", type=float, default=200.0)
     s.add_argument("--burst", type=float, default=100.0)
+    s.add_argument("--dir", required=True,
+                   help="checkpoint + WAL directory")
+    s.add_argument("--restore", action="store_true",
+                   help="recover from --dir instead of starting fresh")
+    s.add_argument("--durable", action="store_true",
+                   help="entity journal + remember-entities store")
+    s.add_argument("--fsync-every-n", type=int, default=1,
+                   help="group commit of both journals: fsync every n "
+                        "appends (tells) / waves (entity events)")
     s.add_argument("--dedup", action="store_true",
                    help="reply-cache dedup (exactly-once retry effects; "
-                        "in memory, the journal is ROADMAP A8)")
+                        "with --durable the replies ride the entity "
+                        "journal and survive kill -9)")
     s.add_argument("--dedup-window", type=int, default=4096,
                    help="remembered request ids per tenant")
     s.add_argument("--target-p50-ms", type=float, default=50.0)
@@ -273,10 +402,14 @@ def main(argv=None) -> int:
     ld.add_argument("--pace", type=float, default=0.01)
     ld.add_argument("--pause", type=float, default=0.2)
 
-    d = sub.add_parser("demo", help="3-process demo with a rebalance leg")
+    d = sub.add_parser("demo", help="3-process demo with a rebalance and "
+                                    "a kill -9 + restore leg")
     d.add_argument("--device", default="cuda",
                    help="the serve child's device: cuda (default) or cpu")
     d.add_argument("--seconds", type=float, default=20.0)
+    d.add_argument("--dir", default=None,
+                   help="checkpoint dir (default: a temporary one, "
+                        "removed at the end)")
 
     args = ap.parse_args(argv)
     return {"serve": cmd_serve, "load": cmd_load,

@@ -54,8 +54,31 @@
    (gateway_serve_serialized) must give the same replies and totals, and
    the first 128 adds of each client on a region with 2-slot bounded
    mailboxes (gateway_serve_slots, K2 once per step) the replies
-   gateway_serve gave them.
-7. Holds both kernels against their plain versions once more at the
+   gateway_serve gave them. gateway_serve_durable runs gateway_serve's
+   trace on a region with the tell WAL and the entity journal attached
+   (an fsync per WAL record and per entity-journal wave): the same
+   replies, the journal's fold equal to the acked totals, and its fsyncs
+   per 256 requests.
+7. Durability (akka_tpu_torch.persistence, DeviceShardRegion's
+   checkpoint/restore). region_restore: the region_serve region with
+   both journals and an uninterrupted twin take 16 ask waves of 256
+   adds, a rebalance (which drains the hand-off window and checkpoints
+   itself), the timed checkpoint(), 16 more waves and 64 tells to new
+   entities staged but not stepped; the journaled region is dropped
+   without a goodbye and a fresh one restores from the directory. Every
+   entity's total must equal the twin's and the host oracle's, the entity
+   journal's fold the acked totals, and the replay must launch K1 once
+   per replayed step (counts zeroed just before restore()). It prints
+   the snapshot's bytes, checkpoint_ms, and restore_ms split into load,
+   H2D and replay. region_restore_slots: the same with 2-slot bounded
+   mailboxes, on K2. gateway_kill9: a full-width durable, deduplicating
+   `serving_gateway serve` child on the card and two `load` children;
+   the server is SIGKILLed mid-load and restarted with --restore on the
+   same port and directory; acked_sum <= final_total <= sent_sum must
+   hold, the `durable` admin op must report the respawned entities, and
+   the restored server's replay must have launched K1 once per step (it
+   prints its counts). It prints the wall time from SIGKILL to READY.
+8. Holds both kernels against their plain versions once more at the
    shapes these paths gave them: the 8-shard flat inboxes (sharded_d8),
    the region's inbox as a wave's tells land (region) and the gateway
    region's (gateway).
@@ -70,14 +93,19 @@ and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
+import shutil
+import signal
+import subprocess
 import sys
+import tempfile
 import time
 from typing import Dict
 
 import numpy as np
 import torch
 
-from akka_tpu_torch.gateway import counter_behavior
+from akka_tpu_torch.gateway import GatewayClient, counter_behavior
 from akka_tpu_torch.models.baseline_benches import (PAYLOAD_W,
                                                     build_cross_shard,
                                                     build_cross_shard_slots,
@@ -89,6 +117,7 @@ from akka_tpu_torch.ops import cuda_mailbox as cm
 from akka_tpu_torch.sharding import DeviceEntity, DeviceShardRegion
 from akka_tpu_torch.tools import bench_mailbox as bm
 from akka_tpu_torch.tools import gateway_load as gl
+from akka_tpu_torch.tools import serving_gateway as sg
 
 RTOL, ATOL = bm.RTOL, bm.ATOL
 N = 1 << 20                 # actors on the main path
@@ -100,6 +129,9 @@ WAVES, WAVE_ASKS = 32, 256  # timed ask waves of the region phases
 GW_CLIENTS, GW_ENTS, GW_ADDS = 16, 64, 512  # gateway_serve's trace
 GW_SLOTS_ADDS = 128        # adds per client of gateway_serve_slots
 GW_WARM = 64               # warm-up adds (one each) before the clients
+RESTORE_WAVES = 16         # ask waves before and after the checkpoint
+LATE_TELLS = 64            # tells staged, not stepped, at the crash
+KILL9_SECONDS = 25.0       # the load children's run in gateway_kill9
 
 
 def check(cond, what: str) -> None:
@@ -467,6 +499,7 @@ def region_paths(launches: dict) -> dict:
 
 
 def gateway_region(slots: int) -> DeviceShardRegion:
+    """The full-width counter region of the region and gateway phases."""
     return DeviceShardRegion(DeviceEntity(
         "counter", counter_behavior(PAYLOAD_W), n_shards=256,
         entities_per_shard=4096, n_devices=1, spare_blocks=2,
@@ -474,16 +507,26 @@ def gateway_region(slots: int) -> DeviceShardRegion:
         device="cuda")
 
 
-def gateway_serve(label: str, slots: int, continuous: bool, traces):
+def gateway_serve(label: str, slots: int, continuous: bool, traces,
+                  durable: bool = False):
     """One gateway phase on a fresh region: a warm-up wave, then the
-    clients' trace over TCP. Returns (LoadResult, the region's steps,
-    the region's delivery inputs as a window's tells land)."""
+    clients' trace over TCP. With `durable`, the region has both journals
+    attached with an fsync per record (tell) and per wave (entity
+    events). Returns (LoadResult, the region's steps, the region's
+    delivery inputs as a window's tells land)."""
     region = gateway_region(slots)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_") if durable else None
+    if durable:
+        region.attach_journal(directory, fsync_every_n=1)
+        region.attach_entity_journal(directory, fsync_every_n=1)
     backend, srv = gl.serve_stack(region, continuous=continuous)
     try:
         warm = backend.ask_many([f"warm-{i}" for i in range(GW_WARM)],
                                 [1.0] * GW_WARM)
         check(warm == [1.0] * GW_WARM, f"{label}: warm-up replies")
+        if durable:
+            wal0 = sum(1 for _ in region._journal.records())
+            ej0 = region._entity_journal.stats()
         res = gl.drive(srv.host, srv.port, traces)
         check(not res.errors, f"{label}: no error replies "
               f"({res.errors[:3]})")
@@ -512,6 +555,22 @@ def gateway_serve(label: str, slots: int, continuous: bool, traces):
               f"{agg['mean_window_size']} sheds {res.sheds}")
         steps = region.system._host_step
         print(f"{label} steps {steps}")
+        if durable:
+            # one fsync per WAL record (every staged tell) and per entity
+            # journal wave
+            wal = sum(1 for _ in region._journal.records()) - wal0
+            ej = region._entity_journal.stats()
+            ej_fsyncs = ej["fsyncs"] - ej0["fsyncs"]
+            check(region._entity_journal.totals() ==
+                  {**{f"warm-{i}": 1.0 for i in range(GW_WARM)},
+                   **{e: t for rs in res.replies for e, _, t in rs}},
+                  f"{label}: the entity journal's fold == the acked "
+                  "totals")
+            print(f"{label} wal_fsyncs {wal} entity_journal_fsyncs "
+                  f"{ej_fsyncs} entity_journal_waves "
+                  f"{ej['waves'] - ej0['waves']}")
+            print(f"{label} fsyncs_per_256_requests "
+                  f"{(wal + ej_fsyncs) * 256 / res.requests}")
         # a window's tells as they land: the delivery call's inputs
         sys_ = region.system
         for i in range(64):
@@ -522,6 +581,8 @@ def gateway_serve(label: str, slots: int, continuous: bool, traces):
     finally:
         srv.stop()
         backend.close()
+        if directory is not None:
+            shutil.rmtree(directory, ignore_errors=True)
     return res, steps, flat
 
 
@@ -531,13 +592,16 @@ def gateway_paths(launches: dict) -> dict:
     traces = gl.client_traces(1, GW_CLIENTS, GW_ENTS, GW_ADDS)
     runs, flat = {}, {}
     short = [t[:GW_SLOTS_ADDS // 8] for t in traces]
-    for label, slots, continuous, trace, kernel in (
-            ("gateway_serve", 0, True, traces, "ring_reduce"),
-            ("gateway_serve_serialized", 0, False, traces, "ring_reduce"),
-            ("gateway_serve_slots", SLOTS, True, short, "ring_slots")):
+    for label, slots, continuous, trace, kernel, durable in (
+            ("gateway_serve", 0, True, traces, "ring_reduce", False),
+            ("gateway_serve_durable", 0, True, traces, "ring_reduce", True),
+            ("gateway_serve_serialized", 0, False, traces, "ring_reduce",
+             False),
+            ("gateway_serve_slots", SLOTS, True, short, "ring_slots",
+             False)):
         res, steps, inputs = path(
             label, kernel, launches,
-            lambda: gateway_serve(label, slots, continuous, trace))
+            lambda: gateway_serve(label, slots, continuous, trace, durable))
         n = launches[label][kernel]
         print(f"{label} launches_per_step {n / steps}")
         check(n == steps, f"{label}: {n} {kernel} launches, one per region "
@@ -547,6 +611,8 @@ def gateway_paths(launches: dict) -> dict:
     main = runs["gateway_serve"].replies
     check(runs["gateway_serve_serialized"].replies == main,
           "gateway_serve_serialized: the same replies as gateway_serve")
+    check(runs["gateway_serve_durable"].replies == main,
+          "gateway_serve_durable: the same replies as gateway_serve")
     check(runs["gateway_serve_serialized"].acked ==
           runs["gateway_serve"].acked, "gateway_serve_serialized: totals")
     slots_replies = runs["gateway_serve_slots"].replies
@@ -554,6 +620,188 @@ def gateway_paths(launches: dict) -> dict:
           "gateway_serve_slots: the replies gateway_serve gave the same "
           "requests")
     return flat
+
+
+def ask_waves(region, trace, oracle: dict, label: str) -> None:
+    """Each wave through `ask_many`; every reply must equal the oracle's
+    running total (which it advances)."""
+    for asks in trace:
+        refs = [region.entity_ref(n) for n, _ in asks]
+        out = region.ask_many([(r.shard, r.index, [v])
+                               for r, (_, v) in zip(refs, asks)])
+        for (n, v), o in zip(asks, out):
+            check(not isinstance(o, BaseException), f"{label}: {o!r}")
+            oracle[n] = oracle.get(n, 0.0) + v
+            check(float(o[0]) == oracle[n], f"{label}: reply {o[0]} == "
+                  f"oracle {oracle[n]} for {n}")
+
+
+def restore_phase(label: str, slots: int, kernel: str, trace,
+                  launches: dict) -> None:
+    """A journaled region (tell WAL + entity journal) and its
+    uninterrupted twin take the same traffic: RESTORE_WAVES ask waves, a
+    rebalance (which drains the hand-off window and checkpoints, as the
+    reference does), the timed checkpoint(), RESTORE_WAVES more waves,
+    and LATE_TELLS tells to entities first allocated after the
+    checkpoint, staged but not stepped. The journaled region is dropped
+    without a goodbye; a fresh region on the same directory restores
+    (launch counts zeroed just before restore(), read just after) and
+    must equal the twin (after its 2-step flush) and the host oracle,
+    entity by entity."""
+    directory = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        twin = gateway_region(slots)
+        victim = gateway_region(slots)
+        victim.attach_journal(directory)
+        victim.attach_entity_journal(directory)
+        oracles = ({}, {})
+        first, second = trace[1:1 + RESTORE_WAVES], \
+            trace[1 + RESTORE_WAVES:1 + 2 * RESTORE_WAVES]
+        for r, o in zip((twin, victim), oracles):
+            ask_waves(r, first, o, label)
+            r.rebalance(r.entity_ref(first[0][0][0]).shard)
+        t0 = time.perf_counter()
+        snap = victim.checkpoint()
+        ckpt_ms = (time.perf_counter() - t0) * 1e3
+        snap_bytes = os.path.getsize(snap)
+        late = [(f"late-{i}", float(i % 7 + 1)) for i in range(LATE_TELLS)]
+        for r, o in zip((twin, victim), oracles):
+            ask_waves(r, second, o, label)
+            for n, v in late:
+                r.entity_ref(n).tell([v, 0.0, 0.0, -1.0])
+                o[n] = o.get(n, 0.0) + v
+        twin.run(2)  # the twin applies the staged tells
+        oracle = oracles[0]
+        check(oracles[1] == oracle, f"{label}: both regions' replies")
+        crash_step = victim.system._host_step
+        del victim  # the crash: no close, no sync, no goodbye
+
+        fresh = gateway_region(slots)
+        fresh.attach_journal(directory)
+        fresh.attach_entity_journal(directory)
+        cm.reset_launches()
+        t0 = time.perf_counter()
+        step = fresh.restore()
+        fresh.block_until_ready()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(cm.LAUNCHES)
+        timing = fresh.restore_timings
+        names = sorted(oracle)
+        got = fresh.system.read_state(
+            "total", np.asarray([fresh.entity_ref(n).row for n in names]))
+        want = twin.system.read_state(
+            "total", np.asarray([twin.entity_ref(n).row for n in names]))
+        check(step == crash_step, f"{label}: restored step {step} == "
+              f"crash step {crash_step}")
+        check(all(float(g) == oracle[n] for g, n in zip(want, names)),
+              f"{label}: the twin's totals == the host oracle's")
+        check(np.array_equal(got, want), f"{label}: every restored "
+              f"total == the twin's ({len(names)} entities)")
+        check(fresh._durable_replayed_totals ==
+              {n: t for n, t in oracle.items() if not n.startswith("late-")},
+              f"{label}: the entity journal's fold == the acked totals")
+        check(bool(torch.isfinite(fresh.system.state["total"]).all()),
+              f"{label}: finite totals")
+        replayed = int(timing["replayed_steps"])
+        print(f"{label} rows {fresh.system.capacity} entities "
+              f"{len(names)} snapshot_bytes {snap_bytes} checkpoint_ms "
+              f"{ckpt_ms}")
+        print(f"{label} restore_ms {restore_ms} load_ms {timing['load_ms']} "
+              f"h2d_ms {timing['h2d_ms']} replay_ms {timing['replay_ms']} "
+              f"replayed_steps {replayed} step {step}")
+        print(f"{label} launches {counts}")
+        check(counts[kernel] == replayed > 0, f"{label}: {counts[kernel]} "
+              f"{kernel} launches, one per replayed step ({replayed})")
+        launches[label] = counts
+        del fresh, twin
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def kill9_phase(launches: dict) -> None:
+    """gateway_kill9: a durable, deduplicating `serving_gateway serve`
+    child (full width) and two `load` children; the server is SIGKILLed
+    mid-load and restarted with --restore on the same port and
+    directory. acked_sum <= final_total <= sent_sum must hold, the
+    restored child's replay must have launched K1, and the `durable`
+    admin op must report the respawned entities."""
+    directory = tempfile.mkdtemp(prefix="chip_smoke_")
+    seconds = KILL9_SECONDS
+    extra = ["--shards", "256", "--eps", "4096", "--rate", "400",
+             "--burst", "200"]
+    serve = sg._child(sg.serve_argv("cuda", directory, extra=extra))
+    loads, admin = [], None
+    try:
+        port = sg._wait_ready(serve, 300.0)
+        loads = [sg._child(["load", "--port", str(port), "--tenant",
+                            f"k9-{i}", "--seconds", str(seconds),
+                            "--pace", "0.005"]) for i in (0, 1)]
+        admin = GatewayClient("127.0.0.1", port, timeout=30.0)
+        before = sg._wait_sum_above(admin, 0.0, 120.0)
+        time.sleep(seconds * 0.3)
+        sg._wait_sum_above(admin, before, 120.0)
+        admin.close()
+        seen = []
+        serve, secs = sg.kill9_restart(serve, sg.serve_argv(
+            "cuda", directory, port, restore=True, extra=extra), 300.0,
+            seen)
+        fields = sg.restored_fields(seen)
+        print(f"gateway_kill9 sigkill_to_ready_s {secs}")
+        print(f"gateway_kill9 restored {fields}")
+        durable = admin.request_retry("__admin", "", "durable",
+                                      deadline_s=60.0)
+        check(durable.get("status") == "ok", f"gateway_kill9: {durable}")
+        respawned = durable["data"]["replayed_entities"]
+        check(respawned > 0 and respawned == fields["respawned"],
+              f"gateway_kill9: durable reports {respawned} respawned")
+        results = []
+        for p in loads:
+            out = p.communicate(timeout=seconds + 300)[0]
+            results += [json.loads(line) for line in out.splitlines()
+                        if line.startswith("{")]
+        check(len(results) == 2, "gateway_kill9: both loads reported")
+        sent = sum(r["sent_sum"] for r in results)
+        acked = sum(r["acked_sum"] for r in results)
+        total = float(admin.request_retry("__admin", "", "sum",
+                                          deadline_s=60.0)["value"])
+        print(f"gateway_kill9 sent_sum {sent} acked_sum {acked} "
+              f"final_total {total} loads {results}")
+        check(acked <= total <= sent, "gateway_kill9: acked_sum <= "
+              "final_total <= sent_sum")
+        counts = fields["launches"]
+        check(counts["ring_reduce"] > 0 and
+              counts["ring_reduce"] == fields["replayed_steps"],
+              f"gateway_kill9: the restored server's replay launched K1 "
+              f"once per step ({counts})")
+        launches["gateway_kill9_restore"] = counts
+    finally:
+        if admin is not None:
+            admin.close()
+        for p in loads:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        serve.send_signal(signal.SIGTERM)
+        try:
+            serve.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            serve.kill()
+            serve.wait()
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def durability_paths(launches: dict) -> None:
+    """region_restore, region_restore_slots and gateway_kill9."""
+    trace = make_trace(1)
+    for label, slots, kernel in (("region_restore", 0, "ring_reduce"),
+                                 ("region_restore_slots", SLOTS,
+                                  "ring_slots")):
+        t0 = time.perf_counter()
+        restore_phase(label, slots, kernel, trace, launches)
+        print(f"{label} phase_s {time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    kill9_phase(launches)
+    print(f"gateway_kill9 phase_s {time.perf_counter() - t0}")
 
 
 def main() -> int:
@@ -575,6 +823,7 @@ def main() -> int:
     sharded = sharded_paths(launches)
     region = region_paths(launches)
     gateway = gateway_paths(launches)
+    durability_paths(launches)
     # both kernels at the shapes the new paths gave them
     t0 = time.perf_counter()
     for label, flat in (("sharded_d8", sharded), ("region", region),

@@ -208,3 +208,56 @@ def test_continuous_gateway_serves_through_k1(card):
     assert steps > 0
     assert cm.LAUNCHES["ring_reduce"] == steps
     assert sum(cm.LAUNCHES.values()) == steps
+
+
+@pytest.mark.parametrize("slots", [0, 2])
+def test_restore_on_the_card_equals_restore_on_the_cpu(card, tmp_path, slots):
+    """The same journaled trace (asks, a checkpoint, more asks, a
+    rebalance, tells staged but not stepped) crashes on the card and on
+    the CPU; fresh regions restore from each directory. The restored
+    carries are equal (integers bit for bit, the integer-valued totals
+    exactly), and the card's replay launched K1 (K2 with slots)."""
+    spec = dict(n_shards=4, entities_per_shard=64, n_devices=2,
+                mailbox_slots=slots, spill_capacity=0 if slots else None,
+                spare_blocks=2)
+    names = [f"e{i}" for i in range(24)]
+
+    def crash(device, d):
+        r = DeviceShardRegion(DeviceEntity("c", counter_behavior(4),
+                                           **spec), device=device)
+        r.attach_journal(d)
+        r.attach_entity_journal(d)
+        refs = [r.entity_ref(n) for n in names]
+        for k in range(4):
+            r.ask_many([(refs[i].shard, refs[i].index, [float(i + k)])
+                        for i in range(k, 24, 3)])
+            if k == 1:
+                r.checkpoint()
+        r.rebalance(refs[0].shard)
+        for ref in refs[::5]:
+            ref.tell([2.0, 0.0, 0.0, -1.0])
+
+    def restore(device, d):
+        r = DeviceShardRegion(DeviceEntity("c", counter_behavior(4),
+                                           **spec), device=device)
+        r.attach_journal(d)
+        r.attach_entity_journal(d)
+        cm.reset_launches()
+        r.restore()
+        launches = dict(cm.LAUNCHES)
+        return r, launches
+
+    crash(card, str(tmp_path / "card"))
+    crash("cpu", str(tmp_path / "cpu"))
+    on_card, launches = restore(card, str(tmp_path / "card"))
+    on_cpu, _ = restore("cpu", str(tmp_path / "cpu"))
+    kernel = "ring_slots" if slots else "ring_reduce"
+    assert launches[kernel] >= 2  # the replay's steps and the flush
+    ca, cb = numpy_carry(on_card.system), numpy_carry(on_cpu.system)
+    for k in ca:
+        if k == "state/__promise_reply":
+            np.testing.assert_allclose(ca[k], cb[k], rtol=RTOL, atol=ATOL)
+        else:
+            np.testing.assert_array_equal(ca[k], cb[k], err_msg=k)
+    assert on_card._durable_replayed_totals == \
+        on_cpu._durable_replayed_totals

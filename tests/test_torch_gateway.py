@@ -251,25 +251,36 @@ def test_gateway_trace_replies_byte_identical(d, slots, continuous):
         assert_carries_match(jregion.system, tregion.system)
 
 
-def test_port_admin_ops_not_ported_reply_typed_errors():
-    """checkpoint and failover answer with typed admin faults naming their
-    ROADMAP item (the reference needs an attached journal, a different
-    error); the replica's ddata mode raises naming A11/A12."""
+def test_port_admin_ops_not_ported_reply_typed_errors(tmp_path):
+    """checkpoint answers ok once the region has its journal (and the
+    region's restore() returns the step); failover still answers with a
+    typed admin fault naming its ROADMAP item, A10; the replica's ddata
+    mode raises naming A11/A12."""
     clock = FakeClock()
     region, backend, srv = build("torch", 1, 0, False, clock)
     try:
-        for op, item in (("checkpoint", "ROADMAP A8"),
-                         ("failover", "ROADMAP A10")):
-            rep = json.loads(srv.handle_frame(_json(1, "__admin", "", op,
-                                                    1.0)))
-            assert rep["status"] == "error"
-            assert rep["reason"].startswith(
-                "admin_fault:NotImplementedError"), rep
-            assert item in rep["reason"]
-        for call in (region.restore, lambda: region.failover([0]),
-                     region.checkpoint):
-            with pytest.raises(NotImplementedError, match="ROADMAP A"):
-                call()
+        rep = json.loads(srv.handle_frame(_json(1, "__admin", "",
+                                                "checkpoint", 1.0)))
+        assert rep["status"] == "error"  # no journal attached yet
+        assert rep["reason"].startswith("admin_fault:RuntimeError"), rep
+        region.attach_journal(str(tmp_path))
+        json.loads(srv.handle_frame(_json(2, "t0", "e0", "add", 3.0)))
+        rep = json.loads(srv.handle_frame(_json(3, "__admin", "",
+                                                "checkpoint", 1.0)))
+        assert rep["status"] == "ok", rep
+        assert rep["data"]["path"].endswith(".npz")
+        step = region.system._host_step
+        assert region.restore() == step  # the recovered frontier
+        assert region.system._host_step == step + 2  # and the flush
+        rep = json.loads(srv.handle_frame(_json(4, "__admin", "",
+                                                "failover", 1.0)))
+        assert rep["status"] == "error"
+        assert rep["reason"].startswith(
+            "admin_fault:NotImplementedError"), rep
+        assert "ROADMAP A10" in rep["reason"]
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            region.failover([0])
+        assert backend.sum_all() == 3.0
         with pytest.raises(NotImplementedError, match="A11/A12"):
             TReplica(lambda: 0, system=object())
     finally:

@@ -139,9 +139,10 @@ def test_stream_transport_raises_naming_its_roadmap_item():
 
 
 def test_serving_gateway_demo_on_cpu():
-    """The demo's serve child and two load children run on the CPU, the
-    rebalance leg goes over the wire, the kill -9/restore and failover
-    legs answer with their typed admin faults, and the conserved-value
+    """The demo's durable serve child and two load children run on the
+    CPU, the rebalance leg goes over the wire, the server is SIGKILLed and
+    restarted with --restore on the same port and directory, the failover
+    leg answers with its typed admin fault, and the conserved-value
     invariant holds."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run(
@@ -150,5 +151,7 @@ def test_serving_gateway_demo_on_cpu():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
     assert "invariant held: acked <= final <= sent" in res.stdout
-    assert "waits for ROADMAP A8" in res.stdout
+    assert "RESTORED step=" in res.stdout
+    assert "DURABLE respawned=" in res.stdout
+    assert "SIGKILL to READY" in res.stdout
     assert "waits for ROADMAP A10" in res.stdout

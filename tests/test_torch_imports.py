@@ -48,6 +48,12 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "akka_tpu_torch.event.pressure",
                  "akka_tpu_torch.serialization.frames",
                  "akka_tpu_torch.pattern.backoff",
+                 "akka_tpu_torch.persistence",
+                 "akka_tpu_torch.persistence.journal",
+                 "akka_tpu_torch.persistence.tell_journal",
+                 "akka_tpu_torch.persistence.entity_journal",
+                 "akka_tpu_torch.persistence.slab_snapshot",
+                 "akka_tpu_torch.sharding.remember",
                  "akka_tpu_torch.tools.serving_gateway"):
         assert name in MODULES, name
 
