@@ -101,19 +101,33 @@ class Emit(NamedTuple):
     def single(dst, payload, out_degree: int, payload_width: int,
                when=True, dtype=torch.float32, mtype=0) -> "Emit":
         """One message per row in slot 0, the rest empty. dst: [n];
-        payload: [n, w] or [w] (w <= payload_width, zero-padded); when:
-        [n] bool or a Python bool; mtype: int or [n]."""
+        payload: [n, w] or [w] (w <= payload_width, zero-padded), a tensor
+        or Python numbers; when: [n] bool or a Python bool; mtype: int or
+        [n]. Python values are written with fills, never copied from host
+        memory, so the step stays capturable as a CUDA graph."""
         dst = torch.as_tensor(dst)
         n, dev = dst.shape[0], dst.device
         e = Emit.none(n, out_degree, payload_width, dtype, dev)
-        pl = torch.as_tensor(payload, dtype=dtype, device=dev)
-        pl = torch.nn.functional.pad(pl, (0, payload_width - pl.shape[-1]))
-        cond = torch.as_tensor(when, dtype=torch.bool, device=dev) \
-            .expand(n)
+        if isinstance(payload, torch.Tensor) or \
+                getattr(payload, "ndim", 0) > 1:
+            pl = torch.as_tensor(payload, dtype=dtype, device=dev)
+            e.payload[:, 0, :pl.shape[-1]] = pl
+        else:
+            for j, v in enumerate(_numbers(payload)):
+                if v:
+                    e.payload[:, 0, j].fill_(v)
+        if _is_array(when):
+            cond = torch.as_tensor(when, dtype=torch.bool,
+                                   device=dev).expand(n)
+        else:
+            cond = torch.full((n,), bool(when), dtype=torch.bool, device=dev)
         e.dst[:, 0] = torch.where(cond, dst.to(torch.int32), -1)
-        e.payload[:, 0] = pl
         e.valid[:, 0] = cond
-        e.type[:, 0] = torch.as_tensor(mtype, dtype=torch.int32, device=dev)
+        if _is_array(mtype):
+            e.type[:, 0] = torch.as_tensor(mtype, dtype=torch.int32,
+                                           device=dev)
+        elif mtype:
+            e.type[:, 0].fill_(int(mtype))
         return e
 
     def with_type(self) -> "Emit":
@@ -121,6 +135,20 @@ class Emit(NamedTuple):
         if self.type is None:
             return self._replace(type=torch.zeros_like(self.dst))
         return self
+
+
+def _is_array(x) -> bool:
+    """A tensor, or a host array with at least one dimension (a Python or
+    numpy scalar is not)."""
+    return isinstance(x, torch.Tensor) or getattr(x, "ndim", 0) > 0
+
+
+def _numbers(values) -> list:
+    """A Python number or a flat sequence of them (a numpy array too), as
+    a list."""
+    if hasattr(values, "tolist"):
+        values = values.tolist()
+    return list(values) if isinstance(values, (list, tuple)) else [values]
 
 
 class Ctx(NamedTuple):

@@ -48,9 +48,11 @@ def read_promise_block(state: Dict[str, torch.Tensor], base: int, n: int,
                        ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """One host fetch of a promise block's latch (and, optionally, reply)
     columns, rows [base, base + n). Returns `(replied, replies)` numpy
-    arrays (`replies` is None unless `reply_col` is given); the copy waits
-    for every step already enqueued."""
-    replied = state[replied_col][base:base + n].cpu().numpy()
+    arrays (`replies` is None unless `reply_col` is given), copies that
+    later steps do not change; the copy waits for every step already
+    enqueued."""
+    replied = state[replied_col][base:base + n].to("cpu", copy=True).numpy()
     if reply_col is None:
         return replied, None
-    return replied, state[reply_col][base:base + n].cpu().numpy()
+    return replied, state[reply_col][base:base + n].to(
+        "cpu", copy=True).numpy()

@@ -5,17 +5,26 @@ Port of `akka_tpu/batched/core.py` (single device). State is a dict of
 (dst, type, payload, valid) SoA blocks; one `step` delivers every in-flight
 message and runs every live actor's update on the device.
 
-Where the reference donates its carry to a jitted program, the port updates
-the inbox buffers in place: each step writes its emissions over the inbox
-it has just delivered (retained spill first, host rows cleared), and
-`spawn_block`/`stop_block`/`seed_inbox`/the host flush write rows in place.
-State columns are replaced by each step's new tensors.
+Where the reference donates its carry to a jitted program, the port keeps
+every carried tensor in place (the same storage from construction on, on
+every device): each step writes its emissions over the inbox it has just
+delivered (retained spill first, host rows cleared) and copies its new
+state columns, counters and attention word into the carried tensors;
+`spawn_block`/`stop_block`/`seed_inbox`/`restart_rows`/`clear_failed`,
+the host flush and `restore` write rows in place too.
 
-`run(n)` is a Python loop over the step (the reference's `lax.scan`), and
-`run_pipelined` keeps up to `depth` steps in flight, synchronising on each
-step's attention word. Host tells stage in a Python list (the reference's
-C++ NativeStager is not ported yet) and ride into the next `step()` with
-its flush.
+On a card the step is captured once as a CUDA graph (batched/graphs.py,
+the reference's `_step_jit`): `run(n)` flushes the staged tells and
+replays it n times (the reference's `lax.scan`), `step()` flushes and
+replays it once, and `warmup()` captures it ahead of the first step
+(otherwise the first `run`/`step` does, as `jax.jit` compiles at first
+call). On the CPU the same in-place step runs eagerly. The flush copies
+the staged tells through fresh pinned host blocks, so the pads can be
+refilled while an earlier flush's copy is still in flight.
+`run_pipelined` keeps up to `depth` steps in flight, synchronising on a
+host copy of each step's attention word. Host tells stage in a Python
+list (the reference's C++ NativeStager is not ported yet) and ride into
+the next `step()` with its flush.
 
 Durability: with a `TellJournal` in `tell_journal`, every staged batch is
 journaled before it is staged; `checkpoint` snapshots the slabs
@@ -33,13 +42,41 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from . import graphs
 from .behavior import BatchedBehavior
 from .metrics_slab import (ASK_ARM_COL, ASK_ARM_SPEC, accumulate_step,
                            empty_slab, slab_dict)
 from .step import (StepCore, fault_any_failed, fault_clear_failed,
-                   fault_failed_rows, fault_restart_rows)
+                   fault_failed_rows, fault_restart_rows, write_back)
 from .supervision import (ATT_WORDS, N_COUNTERS, SUP_COLUMNS, counts_dict,
                           decode_attention, reserved_fill)
+
+
+def snapshot_word(word: torch.Tensor):
+    """Start the host copy of a step's attention word, which the next
+    step overwrites in place: returns `(host, copied)`, where `copied` is
+    the CUDA event recorded behind the copy (wait on it before reading
+    `host`), or None on the CPU, where the copy is done on return."""
+    host = torch.empty(word.shape, dtype=word.dtype,
+                       pin_memory=word.is_cuda)
+    host.copy_(word, non_blocking=True)
+    copied = None
+    if word.is_cuda:
+        copied = torch.cuda.Event()
+        copied.record()
+    return host, copied
+
+
+def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """`arr` for a copy onto `device`, without waiting for the card: on
+    CUDA it goes through a fresh pinned block (PyTorch's caching host
+    allocator reuses a block only once the copy that reads it has
+    completed), so the caller may rewrite `arr` at once. On the CPU the
+    caller's copy reads `arr` itself."""
+    t = torch.from_numpy(arr)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def drive_pipelined(step_once: Callable[[], None],
@@ -48,22 +85,26 @@ def drive_pipelined(step_once: Callable[[], None],
                     on_drain: Optional[Callable[[np.ndarray], None]] = None,
                     ) -> None:
     """Enqueue-ahead step loop: dispatch up to `depth` steps before waiting
-    on the oldest, keyed off each step's attention-word tensor. Reading a
-    word to the host is the sync. With `on_drain`, every retired step's
-    word is handed to the callback and the tail is drained before
-    returning; without it the tail stays in flight."""
+    on the oldest. Each step's attention word is copied to the host as it
+    is dispatched (`snapshot_word`: the carried word is overwritten by the
+    next step), and waiting for the oldest copy is the sync. With
+    `on_drain`, every retired step's word is handed to the callback and
+    the tail is drained before returning; without it the tail stays in
+    flight."""
     if depth < 1:
         raise ValueError("depth must be >= 1")
-    inflight: deque = deque()  # attention-word tensors, oldest first
+    inflight: deque = deque()  # (host word, copy event), oldest first
 
     def drain_one() -> None:
-        word = inflight.popleft().cpu().numpy()
+        host, copied = inflight.popleft()
+        if copied is not None:
+            copied.synchronize()
         if on_drain is not None:
-            on_drain(word)
+            on_drain(host.numpy())
 
     for _ in range(n_steps):
         step_once()
-        inflight.append(latest_handle())
+        inflight.append(snapshot_word(latest_handle()))
         while len(inflight) >= depth:
             drain_one()
     while on_drain is not None and inflight:
@@ -77,6 +118,13 @@ def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty((0,), dtype=dtype).numpy().dtype
 
 
+# the carried tensors besides the state columns (graphs.shadow_of clones
+# them for the warm-up)
+CARRY = ("behavior_id", "alive", "step_count", "mail_dropped", "sup_counts",
+         "attention", "metrics", "inbox_dst", "inbox_type", "inbox_payload",
+         "inbox_valid", "inbox_enq")
+
+
 class BatchedSystem:
     """Single-device batched actor space.
 
@@ -87,7 +135,8 @@ class BatchedSystem:
     (type, payload) slots (required when any behavior has inbox="slots").
     delivery_backend: None/"auto", "ranked" or "cuda" (ops/segment.py).
     device: where the system runs; defaults to CUDA and raises without a
-    card unless device="cpu" is passed.
+    card unless device="cpu" is passed. On a card every step is a replay
+    of the step's CUDA graph.
     """
 
     def __init__(self, capacity: int, behaviors: Sequence[BatchedBehavior],
@@ -190,6 +239,10 @@ class BatchedSystem:
         # batches are journaled BEFORE staging; None = no WAL
         self.tell_journal = None
         self._np_payload_dtype = _numpy_dtype(payload_dtype)
+        # the step's CUDA graph on a card; the eager step on the CPU (and
+        # in a comparison's eager twin, which sets _eager itself)
+        self._eager = dev.type != "cuda"
+        self._graphs = graphs.GraphSet(dev, "BatchedSystem")
 
         # reusable host pads for the flush (one fixed [host_inbox] shape)
         self._flush_dst = np.full((self.host_inbox,), -1, np.int32)
@@ -374,16 +427,16 @@ class BatchedSystem:
         return k
 
     def _flush(self) -> None:
-        """Overwrite the host region of the inbox with the pads. With
-        metrics on, flushed rows stamp the enqueue column with the flushing
-        step's counter."""
+        """Overwrite the host region of the inbox with the pads (copied
+        through fresh pinned blocks: the next `_drain_to_pad` may rewrite
+        the pads before these copies run). With metrics on, flushed rows
+        stamp the enqueue column with the flushing step's counter."""
         base = self.spill_cap + self.capacity * self.out_degree
         dev = self.device
-        self.inbox_dst[base:] = torch.from_numpy(self._flush_dst).to(dev)
-        self.inbox_type[base:] = torch.from_numpy(self._flush_type).to(dev)
-        self.inbox_payload[base:] = torch.from_numpy(
-            self._flush_payload).to(dev, self.payload_dtype)
-        self.inbox_valid[base:] = torch.from_numpy(self._flush_valid).to(dev)
+        self.inbox_dst[base:] = host_to_device(self._flush_dst, dev)
+        self.inbox_type[base:] = host_to_device(self._flush_type, dev)
+        self.inbox_payload[base:] = host_to_device(self._flush_payload, dev)
+        self.inbox_valid[base:] = host_to_device(self._flush_valid, dev)
         if self.metrics_on:
             self.inbox_enq[base:] = self.step_count
 
@@ -393,7 +446,8 @@ class BatchedSystem:
 
     # ------------------------------------------------------------------ step
     def _step_impl(self, attend: bool = True) -> None:
-        """One delivery + update step over the carry held on `self`."""
+        """One delivery + update step over the carry held on `self`, which
+        it updates in place (the body of the step's CUDA graph)."""
         n, sc = self.capacity, self.spill_cap
         nk = n * self.out_degree
         state, old_alive, step = self.state, self.alive, self.step_count
@@ -402,10 +456,10 @@ class BatchedSystem:
             state, self.behavior_id, self.alive, self.inbox_dst,
             self.inbox_type, self.inbox_payload, self.inbox_valid, step)
         if self.metrics_on:
-            self.metrics = accumulate_step(
+            self.metrics.copy_(accumulate_step(
                 self.metrics, state, new_state, old_alive, dcount,
                 self.inbox_valid, self.inbox_enq, step,
-                latch_col=self._core.attention_latch_col)
+                latch_col=self._core.attention_latch_col))
 
         # write emissions in place over the delivered inbox: rows
         # [sc, sc+n*K) are the emission slots, retained spill goes first,
@@ -431,17 +485,46 @@ class BatchedSystem:
             self.inbox_type[:sc] = sp_type
             self.inbox_payload[:sc] = sp_pl
             self.inbox_valid[:sc] = sp_v
-        self.state, self.behavior_id, self.alive = new_state, behavior_id, \
-            alive
-        self.mail_dropped = self.mail_dropped + dropped
-        self.sup_counts = self.sup_counts + sup_delta
-        self.step_count = step + 1
+        write_back(self.state, self.behavior_id, self.alive, new_state,
+                   behavior_id, alive)
+        self.mail_dropped.add_(dropped)
+        self.sup_counts.add_(sup_delta)
+        self.step_count.add_(1)
         if attend:
             self._attend()
 
     def _attend(self) -> None:
-        self.attention = self._core.attention_word(
-            self.state, self.mail_dropped, self.sup_counts, self.step_count)
+        self.attention.copy_(self._core.attention_word(
+            self.state, self.mail_dropped, self.sup_counts,
+            self.step_count))
+
+    def _warm(self) -> None:
+        """Eager warm-up steps over clones of the carry (the live carry is
+        untouched)."""
+        graphs.warm(graphs.shadow_of(self, CARRY)._step_impl, self.device)
+
+    def _graph(self) -> graphs.StepGraph:
+        return self._graphs.get(None, self._step_impl, self._warm)
+
+    def _advance(self, n_steps: int) -> None:
+        """n steps: replays of the step's graph on a card; on the CPU the
+        eager step, the attention word packed once at the end."""
+        if not self._eager and n_steps > 0:
+            self._graph().replay(n_steps)
+            return
+        for _ in range(n_steps):
+            self._step_impl(attend=False)
+        self._attend()
+
+    def warmup(self) -> None:
+        """Capture the step's CUDA graph ahead of the first step, as the
+        reference's warmup() compiles its programs: eager warm-up steps on
+        a side stream over clones of the carry, then the capture. The live
+        carry is untouched. A no-op on the CPU and once captured. Raises
+        GraphCaptureError, naming the behavior, if a behavior cannot run
+        inside the graph."""
+        if not self._eager:
+            self._graph()
 
     def step(self) -> None:
         """One delivery+update step. Staged host tells are flushed into the
@@ -450,7 +533,7 @@ class BatchedSystem:
         with torch.profiler.record_function("akka.device.step"):
             if k > 0:
                 self._flush()
-            self._step_impl()
+            self._advance(1)
         self._host_step += 1
 
     def run(self, n_steps: int) -> None:
@@ -458,9 +541,7 @@ class BatchedSystem:
         staged tells are flushed once before the first."""
         self._flush_staged()
         with torch.profiler.record_function(f"akka.device.run[{n_steps}]"):
-            for _ in range(n_steps):
-                self._step_impl(attend=False)
-            self._attend()
+            self._advance(n_steps)
         self._host_step += int(n_steps)
 
     def run_pipelined(self, n_steps: int, depth: int = 2,
@@ -546,13 +627,13 @@ class BatchedSystem:
         (reserved columns re-armed), clear the failure flag, keep the
         behavior. A restart is a new incarnation: the rows' generation
         bumps."""
-        self.state = fault_restart_rows(self.state, ids, init_state)
+        fault_restart_rows(self.state, ids, init_state)
         arr = np.unique(np.atleast_1d(np.asarray(ids, np.int32)))
         with self._lock:
             self._generation[arr] += 1
 
     def clear_failed(self, ids) -> None:
-        self.state = fault_clear_failed(self.state, ids)
+        fault_clear_failed(self.state, ids)
 
     @property
     def supervision_counts(self) -> Dict[str, int]:
@@ -588,7 +669,7 @@ class BatchedSystem:
         arr = self.state[col]
         if ids is not None:
             arr = arr[self._index(ids)]
-        return arr.cpu().numpy()
+        return arr.to("cpu", copy=True).numpy()  # not a view of the carry
 
     @property
     def dropped_messages(self) -> int:

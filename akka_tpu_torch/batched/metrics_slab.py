@@ -34,10 +34,23 @@ ASK_ARM_COL = "_m_ask_arm"
 ASK_ARM_SPEC = ((), torch.int32)
 
 
+_BOUNDS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _bounds(device: torch.device) -> torch.Tensor:
+    """BOUNDARIES as an int32 tensor, built once per device (a step that
+    is captured as a CUDA graph may not copy host data)."""
+    b = _BOUNDS.get(device)
+    if b is None:
+        b = _BOUNDS[device] = torch.tensor(BOUNDARIES, dtype=torch.int32,
+                                           device=device)
+    return b
+
+
 def bucket_of(v: torch.Tensor) -> torch.Tensor:
     """int32 values -> int32 bucket indices of the same shape."""
-    b = torch.tensor(BOUNDARIES, dtype=torch.int32, device=v.device)
-    return (v[..., None] >= b).sum(dim=-1, dtype=torch.int32)
+    return (v[..., None] >= _bounds(v.device)).sum(dim=-1,
+                                                   dtype=torch.int32)
 
 
 def masked_hist(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

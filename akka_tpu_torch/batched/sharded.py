@@ -32,14 +32,28 @@ carry loads into either package (`utils/carry.py`): state columns
 [spill | D * pair_cap | host]; dropped and mail_dropped [D]; sup_counts
 [D, N_COUNTERS]; metrics [D, N_HIST, N_BUCKETS]; attention [D, ATT_WORDS].
 
-The inbox is updated in place each step (the reference donates it to its
-jitted program). Durability is the reference's: a `tell_journal` WAL,
-`checkpoint`, and `restore`/`restore_tree`, which write a snapshot of the
-same layout into the live tensors and re-shard one taken at another shard
-count (or in the hand-off window's wider inbox) through
-`_restore_resharded`. Not ported yet: `metrics_epoch_value`/
-`drain_metrics` (ROADMAP A4.4) and a mesh of several cards (`mesh=`,
-ROADMAP A10).
+Every carried tensor keeps its storage across steps (the reference
+donates its carry to its jitted program): the step writes the new inbox,
+state columns, counters and attention words into them, and the host-side
+mutators write in place too. The inbox has one set of tensors per pair
+capacity (the steady one and the hand-off window's wider one): entering
+and leaving stray mode copies the in-flight rows from one set into the
+other.
+
+On a card `run(n)` flushes the staged tells and replays the step's CUDA
+graph n times (batched/graphs.py; the reference's `multi_step` scan). The
+graphs are keyed on what the reference's jit is keyed on, the pair
+capacity and stray mode: the steady graph is captured at the first `run`
+(or by `warmup()`), the stray graph at the first run of a hand-off window,
+and both are kept, so a later rebalance captures nothing; a re-sharded
+restore drops both. On the CPU the same in-place step runs eagerly.
+
+Durability is the reference's: a `tell_journal` WAL, `checkpoint`, and
+`restore`/`restore_tree`, which write a snapshot of the same layout into
+the live tensors and re-shard one taken at another shard count (or in the
+hand-off window's wider inbox) through `_restore_resharded`. Not ported
+yet: `metrics_epoch_value`/`drain_metrics` (ROADMAP A4.4) and a mesh of
+several cards (`mesh=`, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -52,14 +66,23 @@ import torch
 
 from ..ops.segment import exchange_uses_ranked, stable_ranks
 from ..utils.device import resolve_device
+from . import graphs
 from .behavior import BatchedBehavior
-from .core import _numpy_dtype, drive_pipelined
+from .core import _numpy_dtype, drive_pipelined, host_to_device
 from .metrics_slab import (ASK_ARM_COL, ASK_ARM_SPEC, accumulate_step,
                            empty_slab, slab_dict)
 from .step import (StepCore, fault_any_failed, fault_clear_failed,
-                   fault_failed_rows, fault_restart_rows)
+                   fault_failed_rows, fault_restart_rows, write_back)
 from .supervision import (ATT_WORDS, N_COUNTERS, SUP_COLUMNS, counts_dict,
                           decode_attention, reserved_fill)
+
+# the inbox tensors (one set per pair capacity) and their empty-row fill
+INBOX_FILL = {"inbox_dst": -1, "inbox_type": 0, "inbox_payload": 0,
+              "inbox_valid": False, "inbox_enq": 0}
+# the carried tensors besides the state columns (graphs.shadow_of clones
+# them for the warm-up)
+CARRY = ("behavior_id", "alive", "step_count", "dropped", "mail_dropped",
+         "sup_counts", "metrics", "attention", *INBOX_FILL)
 
 
 class ShardedBatchedSystem:
@@ -75,7 +98,8 @@ class ShardedBatchedSystem:
     forwards inbox rows addressed outside their shard one more hop.
     n_devices keeps the reference's name: here it is the shard count on
     one card (default 1). device defaults to CUDA and raises without a
-    card unless device="cpu" is passed; mesh must be None.
+    card unless device="cpu" is passed; mesh must be None. On a card every
+    step is a replay of the step's CUDA graph.
     """
 
     def __init__(self, capacity: int, behaviors: Sequence[BatchedBehavior],
@@ -162,16 +186,12 @@ class ShardedBatchedSystem:
         self.step_count = torch.zeros((), dtype=i32, device=dev)
 
         # inbox per shard: spill first (older mail outranks fresh in the
-        # stable delivery), then D * C exchange rows, then host rows
+        # stable delivery), then D * C exchange rows, then host rows; one
+        # set of tensors per pair capacity, kept (the graphs hold them)
         self.m_local = self.spill_cap + d * self.pair_cap + self.host_inbox
-        m = self.m_local * d
-        self.inbox_dst = torch.full((m,), -1, dtype=i32, device=dev)
-        self.inbox_type = torch.zeros((m,), dtype=i32, device=dev)
-        self.inbox_payload = torch.zeros((m, self.payload_width),
-                                         dtype=payload_dtype, device=dev)
-        self.inbox_valid = torch.zeros((m,), dtype=torch.bool, device=dev)
-        self.inbox_enq = torch.zeros((m,) if self.metrics_on else (0,),
-                                     dtype=i32, device=dev)
+        self._inboxes: Dict[int, Dict[str, torch.Tensor]] = {}
+        for name, t in self._inbox_set(self.pair_cap).items():
+            setattr(self, name, t)
         self.dropped = torch.zeros((d,), dtype=i32, device=dev)
         self.mail_dropped = torch.zeros((d,), dtype=i32, device=dev)
         self.sup_counts = torch.zeros((d, N_COUNTERS), dtype=i32, device=dev)
@@ -187,6 +207,11 @@ class ShardedBatchedSystem:
         self._lock = threading.Lock()
         self._host_staged: List[Tuple[int, int, np.ndarray]] = []
         self._host_step = 0
+        # the step's CUDA graphs on a card, keyed (pair_cap, stray_mode);
+        # the eager step on the CPU (and in a comparison's eager twin,
+        # which sets _eager itself)
+        self._eager = dev.type != "cuda"
+        self._graphs = graphs.GraphSet(dev, "ShardedBatchedSystem")
         # write-ahead tell journal (persistence/tell_journal.py); None = off
         self.tell_journal = None
         self._np_payload_dtype = _numpy_dtype(payload_dtype)
@@ -207,6 +232,27 @@ class ShardedBatchedSystem:
         self._bases = shard_ids * self.local_n          # [D, 1] first ids
         self._src_key = shard_ids * (d + 1)             # [D, 1] rank keys
         self._src_pair = shard_ids.long() * d           # [D, 1] buf rows
+
+    def _inbox_set(self, pair_cap: int) -> Dict[str, torch.Tensor]:
+        """The inbox tensors of the layout with per-pair capacity
+        `pair_cap`, allocated (empty) at first use and kept."""
+        got = self._inboxes.get(pair_cap)
+        if got is None:
+            d, dev = self.n_shards, self.device
+            m = d * (self.spill_cap + d * pair_cap + self.host_inbox)
+            got = self._inboxes[pair_cap] = {
+                "inbox_dst": torch.full((m,), -1, dtype=torch.int32,
+                                        device=dev),
+                "inbox_type": torch.zeros((m,), dtype=torch.int32,
+                                          device=dev),
+                "inbox_payload": torch.zeros((m, self.payload_width),
+                                             dtype=self.payload_dtype,
+                                             device=dev),
+                "inbox_valid": torch.zeros((m,), dtype=torch.bool,
+                                           device=dev),
+                "inbox_enq": torch.zeros((m,) if self.metrics_on else (0,),
+                                         dtype=torch.int32, device=dev)}
+        return got
 
     # ------------------------------------------------------------- lifecycle
     def spawn_block(self, behavior: BatchedBehavior | int, n: int,
@@ -271,14 +317,13 @@ class ShardedBatchedSystem:
             pls.append(p)
         if not idxs:
             return
+        # through fresh pinned blocks: no wait for the steps in flight
         dev = self.device
-        idx = torch.as_tensor(idxs, dtype=torch.int64, device=dev)
-        self.inbox_dst[idx] = torch.as_tensor(dsts, dtype=torch.int32,
-                                              device=dev)
-        self.inbox_type[idx] = torch.as_tensor(mts, dtype=torch.int32,
-                                               device=dev)
-        self.inbox_payload[idx] = torch.from_numpy(np.stack(pls)).to(
-            dev, self.payload_dtype)
+        idx = host_to_device(np.asarray(idxs, np.int64), dev)
+        self.inbox_dst[idx] = host_to_device(np.asarray(dsts, np.int32), dev)
+        self.inbox_type[idx] = host_to_device(np.asarray(mts, np.int32), dev)
+        self.inbox_payload[idx] = host_to_device(np.stack(pls), dev).to(
+            self.payload_dtype)
         self.inbox_valid[idx] = True
         if self.metrics_on:
             # stamped with the dispatched-step mirror: the next step
@@ -287,17 +332,28 @@ class ShardedBatchedSystem:
 
     def set_tables(self, tables: Dict[str, Any]) -> None:
         """Install or replace the lookup tables behaviors see via
-        ctx.tables."""
-        self.tables = {k: torch.as_tensor(v, device=self.device)
-                       for k, v in tables.items()}
+        ctx.tables. Tables of the installed names, shapes and dtypes are
+        written in place (the step's graphs read them); any other set
+        replaces them, and the graphs with them."""
+        new = {k: torch.as_tensor(v, device=self.device)
+               for k, v in tables.items()}
+        cur = self.tables
+        if new.keys() == cur.keys() and all(
+                v.shape == cur[k].shape and v.dtype == cur[k].dtype
+                for k, v in new.items()):
+            for k, v in new.items():
+                cur[k].copy_(v)
+            return
+        self.tables = new
+        self._graphs.clear()
 
     # ------------------------------------------------------- stray handoff
     def _relayout_inbox(self, new_pair_cap: int) -> None:
-        """Re-grid the inbox for another per-pair capacity. Each shard's
-        block is [spill | D * pair_cap | host]; received rows sit packed
-        at the start of their pair chunk, so growing pads each chunk's
-        tail and shrinking slices it (the caller has checked the tail is
-        empty)."""
+        """Move the inbox into the tensors of another per-pair capacity.
+        Each shard's block is [spill | D * pair_cap | host]; received rows
+        sit packed at the start of their pair chunk, so growing pads each
+        chunk's tail and shrinking slices it (the caller has checked the
+        tail is empty)."""
         if new_pair_cap == self.pair_cap:
             return
         d, sc = self.n_shards, self.spill_cap
@@ -319,12 +375,12 @@ class ShardedBatchedSystem:
                              v[:, sc + d * old_pc:]], 1)
             return out.reshape((d * new_ml,) + tail).contiguous()
 
-        self.inbox_dst = regrid(self.inbox_dst, -1)
-        self.inbox_type = regrid(self.inbox_type, 0)
-        self.inbox_payload = regrid(self.inbox_payload, 0)
-        self.inbox_valid = regrid(self.inbox_valid, False)
-        if self.metrics_on:
-            self.inbox_enq = regrid(self.inbox_enq, 0)
+        target = self._inbox_set(new_pair_cap)
+        for name, fill in INBOX_FILL.items():
+            cur = getattr(self, name)
+            if cur.numel():  # inbox_enq is empty with metrics off
+                target[name].copy_(regrid(cur, fill))
+            setattr(self, name, target[name])
         self.pair_cap = new_pair_cap
         self.m_local = new_ml
 
@@ -364,7 +420,8 @@ class ShardedBatchedSystem:
     # ------------------------------------------------------------------ step
     def _step_impl(self) -> None:
         """One step over every shard: deliver, behaviors, bucket, exchange,
-        and the new inbox written in place."""
+        and the new carry written in place (the body of the step's CUDA
+        graph, with `_attend`)."""
         d, ln, sc = self.n_shards, self.local_n, self.spill_cap
         c, ml, p = self.pair_cap, self.m_local, self.payload_width
         core = self._core
@@ -381,10 +438,10 @@ class ShardedBatchedSystem:
         if self.metrics_on:
             # this step's inputs: the inbox just delivered (strays
             # included) and its enqueue stamps
-            self.metrics = accumulate_step(
+            self.metrics.copy_(accumulate_step(
                 self.metrics, state, new_state, old_alive, dcount,
                 self.inbox_valid, self.inbox_enq, step,
-                latch_col=core.attention_latch_col, n_shards=d)
+                latch_col=core.attention_latch_col, n_shards=d))
 
         # ---- bucket by destination shard, per source shard -------------
         out_dst = emits.dst.reshape(d, -1)
@@ -411,8 +468,7 @@ class ShardedBatchedSystem:
         total = d * d * c
         slot = torch.where(in_cap, (self._src_pair + dest) * c + rank,
                            total).reshape(-1)   # overflow -> the dump row
-        self.dropped = self.dropped + (out_valid & ~in_cap).sum(
-            1, dtype=torch.int32)
+        self.dropped.add_((out_valid & ~in_cap).sum(1, dtype=torch.int32))
 
         def exchange(target, fill, rows) -> None:
             """Scatter into buf[D_src, D_dst, C], then the all_to_all: the
@@ -451,26 +507,63 @@ class ShardedBatchedSystem:
             enq = self.inbox_enq.view(d, ml)
             enq[:, :sc + r] = step
             enq[:, sc + r:] = 0
-        self.state, self.behavior_id, self.alive = new_state, behavior_id, \
-            alive
-        self.mail_dropped = self.mail_dropped + mdrop
-        self.sup_counts = self.sup_counts + sup_delta
-        self.step_count = step + 1
+        write_back(self.state, self.behavior_id, self.alive, new_state,
+                   behavior_id, alive)
+        self.mail_dropped.add_(mdrop)
+        self.sup_counts.add_(sup_delta)
+        self.step_count.add_(1)
 
     def _attend(self) -> None:
-        self.attention = self._core.attention_word(
+        self.attention.copy_(self._core.attention_word(
             self.state, self.mail_dropped, self.sup_counts, self.step_count,
-            exch_dropped=self.dropped)
+            exch_dropped=self.dropped))
+
+    def _graph_step(self) -> None:
+        self._step_impl()
+        self._attend()
+
+    def _warm(self) -> None:
+        """Eager warm-up steps over clones of the carry (the live carry is
+        untouched): the current mode's step and, with reroute_strays, one
+        step of the other mode, so that the stray graph's capture at the
+        first rebalance finds every kernel loaded."""
+        shadow = graphs.shadow_of(self, CARRY)
+        shadow._inboxes = {self.pair_cap: {n: getattr(shadow, n)
+                                           for n in INBOX_FILL}}
+        graphs.warm(shadow._step_impl, self.device)
+        if self.reroute_strays:
+            other = not self.stray_mode
+            shadow._relayout_inbox(self.pair_cap_stray if other
+                                   else self.pair_cap_base)
+            shadow.stray_mode = other
+            graphs.warm(shadow._step_impl, self.device, steps=1)
+
+    def _graph(self) -> graphs.StepGraph:
+        return self._graphs.get((self.pair_cap, self.stray_mode),
+                                self._graph_step, self._warm)
+
+    def warmup(self) -> None:
+        """Capture the current mode's step graph ahead of the first run:
+        eager warm-up steps on a side stream over clones of the carry,
+        then the capture (the live carry is untouched). A no-op on the CPU
+        and once captured. Raises GraphCaptureError, naming the behavior,
+        if a behavior cannot run inside the graph."""
+        if not self._eager:
+            self._graph()
 
     def run(self, n_steps: int = 1) -> None:
         """Flush staged tells, then n steps on the device without host
-        syncs; the attention words come from the final carry."""
+        syncs: n replays of the step's graph on a card, the eager step on
+        the CPU; the attention words come from the final carry."""
         self._flush_staged()
         with torch.profiler.record_function(
                 f"akka.device.sharded.run[{n_steps}]"):
-            for _ in range(n_steps):
-                self._step_impl()
-            self._attend()
+            if not self._eager and n_steps > 0:
+                self._graph().replay(n_steps)
+            else:
+                for _ in range(n_steps):
+                    self._step_impl()
+                self._attend()
         self._host_step += int(n_steps)
 
     step = run
@@ -519,7 +612,7 @@ class ShardedBatchedSystem:
         if ids is not None:
             arr = arr[torch.as_tensor(np.asarray(ids, np.int64),
                                       device=self.device)]
-        return arr.cpu().numpy()
+        return arr.to("cpu", copy=True).numpy()  # not a view of the carry
 
     def any_failed(self) -> bool:
         return fault_any_failed(self.state)
@@ -532,10 +625,10 @@ class ShardedBatchedSystem:
     def restart_rows(self, ids,
                      init_state: Optional[Dict[str, Any]] = None) -> None:
         """Host-mediated restart-with-reset-state (see BatchedSystem)."""
-        self.state = fault_restart_rows(self.state, ids, init_state)
+        fault_restart_rows(self.state, ids, init_state)
 
     def clear_failed(self, ids) -> None:
-        self.state = fault_clear_failed(self.state, ids)
+        fault_clear_failed(self.state, ids)
 
     @property
     def supervision_counts(self) -> Dict[str, int]:
@@ -648,11 +741,15 @@ class ShardedBatchedSystem:
         (max) in row 0. In-flight inbox rows are gathered and re-placed
         into their destination shard's block from the exchange region on,
         in their original order, so the stable delivery delivers them in
-        that order on the first restored step."""
+        that order on the first restored step. Every slab is written in
+        place, and the step's graphs are dropped: the first restored run
+        captures again (the reference's jit retraces a re-sharded
+        carry)."""
         from ..persistence.slab_snapshot import (check_schema,
                                                  restore_state_columns,
                                                  write_slab)
         check_schema(tree)
+        self._graphs.clear()
         restore_state_columns(self, tree)
         write_slab(self.behavior_id,
                    np.asarray(tree["behavior_id"], np.int32))

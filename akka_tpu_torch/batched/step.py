@@ -28,6 +28,7 @@ import torch
 
 from ..ops.segment import deliver, deliver_slots
 from .behavior import BatchedBehavior, Ctx, Emit, Inbox, Mailbox, rows
+from .graphs import GraphCaptureError, capturing
 from .supervision import (N_COUNTERS, SupervisionTables, apply_supervision,
                           pack_attention, reserved_fill)
 
@@ -101,7 +102,15 @@ class StepCore:
         else:
             arg = delivered
             count = delivered.count
-        new_cols, emit = b.receive(dict(state), arg, ctx)
+        try:
+            new_cols, emit = b.receive(dict(state), arg, ctx)
+        except Exception as e:
+            if not capturing():
+                raise
+            raise GraphCaptureError(
+                f"behavior {b.name!r} cannot run inside the step's CUDA "
+                f"graph: it synchronises with the host or reads host "
+                f"memory ({type(e).__name__}: {e})") from e
         emit = emit.with_type()
         active = (count > 0) | b.always_on
         merged = dict(state)
@@ -280,7 +289,7 @@ class StepCore:
 
 
 # -------------------------------------------------- shared fault handling
-# Host-side error-lane helpers.
+# Host-side error-lane helpers; they write the carried state in place.
 
 def _index(ids, device) -> torch.Tensor:
     return torch.as_tensor(np.atleast_1d(np.asarray(ids, np.int64)),
@@ -301,39 +310,40 @@ def fault_failed_rows(state) -> np.ndarray:
     return np.nonzero(flags)[0].astype(np.int32)
 
 
-def fault_restart_rows(state, ids, init_state=None):
-    """Restart-with-reset-state: the rows' columns reset (reserved columns
-    re-armed) in a new state dict; mutates nothing. `_gen` is bumped, not
-    reset: a host restart is a new incarnation."""
-    out = dict(state)
-    for col, arr in out.items():
+def fault_restart_rows(state, ids, init_state=None) -> None:
+    """Restart-with-reset-state, in place: the rows' columns reset
+    (reserved columns re-armed), then `init_state` written. `_gen` is
+    bumped, not reset: a host restart is a new incarnation."""
+    for col, arr in state.items():
         idx = _index(ids, arr.device)
         if col == "_gen":
-            out[col] = arr.index_put((idx,), torch.ones_like(idx, dtype=arr
-                                                             .dtype),
-                                     accumulate=True)
-            continue
-        out[col] = arr.index_put(
-            (idx,), torch.tensor(reserved_fill(col), dtype=arr.dtype,
-                                 device=arr.device))
+            arr.index_put_((idx,), torch.ones_like(idx, dtype=arr.dtype),
+                           accumulate=True)
+        else:
+            arr[idx] = reserved_fill(col)
     for col, value in (init_state or {}).items():
-        arr = out[col]
-        out[col] = arr.index_put(
-            (_index(ids, arr.device),),
-            torch.as_tensor(value, dtype=arr.dtype, device=arr.device))
-    return out
+        arr = state[col]
+        arr[_index(ids, arr.device)] = torch.as_tensor(
+            value, dtype=arr.dtype, device=arr.device)
 
 
-def fault_clear_failed(state, ids):
+def fault_clear_failed(state, ids) -> None:
     """Clear only the failure flag (and `_escalated`: the host clearing a
-    row IS the escalation's resolution). Returns a new state dict."""
-    if "_failed" not in state:
-        return state
-    out = dict(state)
+    row IS the escalation's resolution), in place."""
     for col in ("_failed", "_escalated"):
-        if col in out:
-            arr = out[col]
-            out[col] = arr.index_put(
-                (_index(ids, arr.device),),
-                torch.zeros((), dtype=arr.dtype, device=arr.device))
-    return out
+        if col in state:
+            state[col][_index(ids, state[col].device)] = False
+
+
+def write_back(state, behavior_id, alive, new_state, new_behavior_id,
+               new_alive) -> None:
+    """Copy a step's new columns into the carried tensors, which keep
+    their storage (a captured step reads and writes fixed addresses).
+    Every new column is a fresh tensor, so no copy reads a column an
+    earlier copy of this call wrote."""
+    for col, cur in state.items():
+        cur.copy_(new_state[col])
+    if new_behavior_id is not behavior_id:
+        behavior_id.copy_(new_behavior_id)
+    if new_alive is not alive:
+        alive.copy_(new_alive)

@@ -62,11 +62,12 @@ __all__ = ["SCHEMA_VERSION", "slab_pytree", "restore_slab_pytree",
 
 
 def host_array(t: torch.Tensor) -> np.ndarray:
-    """Host numpy copy of a device tensor (bfloat16 as float32)."""
+    """Host numpy copy of a device tensor (bfloat16 as float32), never a
+    view of it (the carry is updated in place)."""
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.cpu().numpy()
+    return t.to("cpu", copy=True).numpy()
 
 
 def write_slab(cur: torch.Tensor, arr) -> torch.Tensor:

@@ -23,10 +23,13 @@ Three layers:
 
 On the card, the runner's enqueue-ahead starts a non-blocking copy of each
 round's attention word into pinned host memory and records a CUDA event
-behind it; retiring the oldest round waits on that event only, not on the
-rounds dispatched since (a plain `.cpu()` of the oldest word would wait
-for all of them, since every round runs on the default stream). On the
-CPU the same copy is synchronous.
+behind it (`batched.core.snapshot_word`); retiring the oldest round waits
+on that event only, not on the rounds dispatched since (a plain `.cpu()`
+of the oldest word would wait for all of them, since every round runs on
+the default stream). The copy is enqueued right behind the round's graph
+replays and before the next round's, so it reads that round's word,
+which the next round overwrites in place. On the CPU the same copy is
+synchronous.
 
 One scheduling rule is load-bearing: the dense inbox SUMS payloads, so
 two asks to the SAME entity row in one step round would sum their
@@ -52,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..batched.core import snapshot_word
 from ..event.tracing import NOOP_SPAN, current_ctx, reset_ctx, set_ctx
 
 __all__ = ["BatchAsk", "execute_ask_batch", "AskBatcher",
@@ -375,21 +379,6 @@ def execute_ask_batch(region, batch: Sequence[BatchAsk]) -> None:
         wspan.finish(rounds=rounds, steps=cum)
 
 
-def _snapshot_attention(word: torch.Tensor):
-    """Start the host copy of one round's attention word: returns
-    `(host, copied)`, where `copied` is the CUDA event recorded behind the
-    copy (wait on it before reading `host`), or None on the CPU, where the
-    copy is done on return."""
-    host = torch.empty(word.shape, dtype=word.dtype,
-                       pin_memory=word.is_cuda)
-    host.copy_(word, non_blocking=True)
-    copied = None
-    if word.is_cuda:
-        copied = torch.cuda.Event()
-        copied.record()
-    return host, copied
-
-
 class _WaveHandle:
     """One wave open on the continuous scheduler: completion latch,
     resolve-boundary callback, wave span, and the members' resolve
@@ -611,7 +600,7 @@ class ContinuousWaveScheduler:
                     # the enqueue-ahead deque: this round's attention
                     # word, its host copy started behind the round
                     self._att_q.append(
-                        (self._cum, *_snapshot_attention(sys.attention)))
+                        (self._cum, *snapshot_word(sys.attention)))
                     # latency policy: once some in-flight ask has
                     # run its full step budget, its reply may already be
                     # latched — resolution beats enqueue-ahead, so drain

@@ -375,8 +375,8 @@ class DeviceShardRegion:
                 pbase = self._promise_block * self.eps
                 alive[pbase:pbase + self.eps] = True
                 behavior_id[pbase:pbase + self.eps] = len(sys.behaviors) - 1
-        sys.alive = torch.from_numpy(alive).to(sys.device)
-        sys.behavior_id = torch.from_numpy(behavior_id).to(sys.device)
+        sys.alive.copy_(torch.from_numpy(alive))
+        sys.behavior_id.copy_(torch.from_numpy(behavior_id))
 
     # ------------------------------------------------------------- rebalance
     def rebalance(self, shard: int, to_device: Optional[int] = None) -> int:

@@ -102,7 +102,10 @@ def serve_stack(region, continuous: bool = True, pipeline_depth: int = 4,
                 host: str = "127.0.0.1"):
     """RegionBackend + GatewayServer (evloop transport, ingest windows)
     over `region`, admission wide open but for the ask-pool pressure
-    signal; started. Returns (backend, server)."""
+    signal; started, after the region's step graph is captured (a no-op
+    on the CPU or once captured), so that no capture runs beside the
+    front end's threads. Returns (backend, server)."""
+    region.system.warmup()
     backend = RegionBackend(region, continuous=continuous,
                             pipeline_depth=pipeline_depth)
     adm = AdmissionController(

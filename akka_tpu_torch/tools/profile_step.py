@@ -1,7 +1,7 @@
 """Where a step's time goes on the card.
 
     python3 -m akka_tpu_torch.tools.profile_step [--n 1048576] [--steps 10]
-        [--cells ring_reduce,fan_in,...]
+        [--cells ring_reduce,fan_in,...] [--modes graph,eager]
 
 For each main-path cell (BatchedSystem: ring in reduce mode, 1M -> 1k
 fan-in, ring over 2-slot bounded mailboxes; ShardedBatchedSystem: the
@@ -13,6 +13,9 @@ pipelined binary adds through the evloop gateway to a continuous
 RegionBackend, per 256 requests, with the client threads in this process;
 gateway_serve_remote: the same with the clients in a load process of
 their own, so only the server's Python shares its interpreter lock) it
+profiles each mode of `--modes` in turn on the same system: `graph`, the
+step's CUDA graph replayed (what the system does on a card), and `eager`,
+the eager step loop (the system's private `_eager` twin switch), and
 prints, per step (or unit):
 - ms/step with tracing off (CUDA events around run(steps), after a warm run),
   and the host's time to enqueue those steps (run() never waits for the
@@ -22,6 +25,9 @@ prints, per step (or unit):
 - the busy share against each step time (1 - busy share is the device's
   idle share; the eager step is launched from the host, so tracing, which
   slows the host, lowers the traced share);
+- the host's CUDA launch calls (kernel and graph launches, async copies
+  and memsets, on every thread): one graph launch a step under replay,
+  plus the flush's copies when tells are staged;
 - the kernels with the most device time;
 - for the per-wave and per-request cells, the host's time inside CUDA
   synchronize and copy calls (the runtime calls in which the host can
@@ -59,6 +65,43 @@ from .gateway_load import client_traces, drive, serve_stack
 # pageable memory synchronises too)
 SYNC_CALLS = ("cudaEventSynchronize", "cudaStreamSynchronize",
               "cudaDeviceSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
+# the host's CUDA calls that put work on the card (`cuda*` runtime and
+# `cu*` low-level entries)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy")
+MODES = ("graph", "eager")
+
+
+def device_events(events):
+    """Device-side kernels and copies only: host ops carry the device time
+    of the kernels they launched, and the step's record_function span
+    ("akka.device.*") has a device-side range over the whole run; either
+    would count the same time twice."""
+    return [e for e in events
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("akka.")]
+
+
+def host_launch_calls(events) -> int:
+    """The host's CUDA launch calls among profiler events (every thread's:
+    the profiler traces the runtime calls of the whole process)."""
+    return sum(e.count for e in events
+               if e.device_type == DeviceType.CPU and e.key in LAUNCH_CALLS)
+
+
+def launch_profile(work: Callable[[], None]):
+    """Run `work()` under torch.profiler; returns (host launch calls,
+    {kernel name: launches on the card}, device-busy ms)."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        work()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = device_events(events)
+    return (host_launch_calls(events), {e.key: e.count for e in kernels},
+            sum(device_us(e) for e in kernels) / 1e3)
 
 
 def device_us(event) -> float:
@@ -93,14 +136,7 @@ def profile_cell(label: str, work: Callable[[], None], units: int,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    # device-side kernels and copies only: host ops carry the device time
-    # of the kernels they launched, and the step's record_function span
-    # ("akka.device.*") has a device-side range over the whole run; either
-    # would count the same time twice
-    kernels = [e for e in events
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith("akka.")]
+    kernels = device_events(events)
     busy_ms = sum(device_us(e) for e in kernels) / 1e3 / units
     traced_ms = wall_ms / units
     print(f"{label} ms_per_{unit}_traced {traced_ms}")
@@ -109,6 +145,8 @@ def profile_cell(label: str, work: Callable[[], None], units: int,
     print(f"{label} device_busy_share_traced {busy_ms / traced_ms}")
     print(f"{label} kernel_launches_per_{unit} "
           f"{sum(e.count for e in kernels) / units}")
+    print(f"{label} host_launch_calls_per_{unit} "
+          f"{host_launch_calls(events) / units}")
     ranked = sorted(kernels, key=device_us, reverse=True)[:top]
     for e in ranked:
         print(f"{label}   {device_us(e) / 1e3 / units:.4f} ms/{unit}  "
@@ -130,7 +168,7 @@ def profile_cell(label: str, work: Callable[[], None], units: int,
 def steps_of(sys_, seed: bool = True):
     if seed:
         seed_ring_full(sys_)
-    return lambda steps: ((lambda: sys_.run(steps)), steps, "step")
+    return lambda steps: ((lambda: sys_.run(steps)), steps, "step", sys_)
 
 
 def region_waves(n: int):
@@ -154,7 +192,7 @@ def region_waves(n: int):
         def work():
             for _ in range(units):
                 wave()
-        return work, units, "wave"
+        return work, units, "wave", region.system
     return make
 
 
@@ -197,6 +235,7 @@ def gateway_requests(n: int):
     steps' `run` calls on the scheduler thread (Python and launch calls
     enqueueing the steps) and the steps run."""
     region, read_run = gateway_region(n)
+    region.system.warmup()  # capture before the front end's threads start
     _, srv = serve_stack(region, continuous=True)
     seeds = itertools.count()
 
@@ -214,7 +253,7 @@ def gateway_requests(n: int):
                                    f"{res.sheds} sheds")
             host_split("gateway_serve", seed, units, wall, read_run(),
                        region.system._host_step - step0)
-        return work, units, "req256"
+        return work, units, "req256", region.system
     return make
 
 
@@ -224,6 +263,7 @@ def gateway_requests_remote(n: int):
     stopped at exit); work() returns when that process reports every
     reply in."""
     region, read_run = gateway_region(n)
+    region.system.warmup()
     _, srv = serve_stack(region, continuous=True)
     load = subprocess.Popen(
         [sys.executable, "-m", "akka_tpu_torch.tools.gateway_load",
@@ -255,7 +295,7 @@ def gateway_requests_remote(n: int):
                        f" client_seconds {res['seconds']} reply_ms_p50 "
                        f"{res['reply_ms_p50']} reply_ms_p99 "
                        f"{res['reply_ms_p99']}")
-        return work, units, "req256"
+        return work, units, "req256", region.system
     return make
 
 
@@ -282,13 +322,22 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--cells", default=",".join(CELLS),
                     help="comma-separated cells, of: " + ", ".join(CELLS))
+    ap.add_argument("--modes", default=",".join(MODES),
+                    help="comma-separated step modes, of: graph (replays "
+                         "of the step's CUDA graph), eager (the eager twin)")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     for cell in args.cells.split(","):
-        work, units, unit = CELLS[cell](args.n)(args.steps)
-        profile_cell(cell, work, units, args.top, unit)
+        work, units, unit, system = CELLS[cell](args.n)(args.steps)
+        for mode in args.modes.split(","):
+            if mode not in MODES:
+                raise ValueError(f"unknown mode {mode!r}")
+            system._eager = mode == "eager"
+            profile_cell(f"{cell}/{mode}", work, units, args.top, unit)
+        print(f"{cell} graphs {system._graphs.stats()} memory_reserved "
+              f"{torch.cuda.memory_reserved()}")
 
 
 if __name__ == "__main__":

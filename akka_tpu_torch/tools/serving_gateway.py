@@ -14,7 +14,9 @@ Three subcommands compose into a small multi-process serving stack:
             recovers from the directory and prints "RESTORED step=N"
             (and, with `--durable`, "DURABLE respawned=N sum=X").
             `--durable` arms the entity journal and a record-log
-            remember-entities store. Prints "READY <port>" once bound.
+            remember-entities store. On the card the region's step graph
+            is captured first (warmup), before the restore's replay and
+            the front end's threads. Prints "READY <port>" once bound.
   load   -- one load-generator process: paced client traffic through
             the front door, reconnecting through server restarts.
             Prints a JSON result line (sent/acked sums, outcome counts).
@@ -74,6 +76,9 @@ def cmd_serve(args: argparse.Namespace) -> int:
         spec.remember_store = JournalRememberEntitiesStore(
             os.path.join(args.dir, "remember_entities.journal"))
     region = DeviceShardRegion(spec, device=args.device)
+    # capture the step's CUDA graph now, before the restore's replay and
+    # the front end's threads (a no-op on the CPU)
+    region.system.warmup()
     region.attach_journal(args.dir, fsync_every_n=args.fsync_every_n)
     if args.durable:
         region.attach_entity_journal(args.dir,

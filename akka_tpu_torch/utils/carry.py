@@ -45,11 +45,16 @@ def _sharded(system) -> bool:
 
 
 def numpy_carry(system) -> Dict[str, np.ndarray]:
-    """The port system's carry as a dict of numpy arrays."""
+    """The port system's carry as a dict of numpy arrays (copies: the
+    carry is updated in place)."""
     sharded = _sharded(system)
-    out = {f"state/{c}": v.cpu().numpy() for c, v in system.state.items()}
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.to("cpu", copy=True).numpy()
+
+    out = {f"state/{c}": host(v) for c, v in system.state.items()}
     for f in SHARDED_FIELDS if sharded else DEVICE_FIELDS:
-        out[f] = getattr(system, f).cpu().numpy()
+        out[f] = host(getattr(system, f))
     with system._lock:
         out["host/next_row"] = np.asarray(system._next_row, np.int64)
         if not sharded:
@@ -59,34 +64,37 @@ def numpy_carry(system) -> Dict[str, np.ndarray]:
     return out
 
 
-def _load(current: torch.Tensor, value, key: str) -> torch.Tensor:
+def _check(current: torch.Tensor, value, key: str) -> np.ndarray:
     arr = np.array(value)  # a writable copy
     if tuple(arr.shape) != tuple(current.shape):
         raise ValueError(f"carry field {key!r}: shape {arr.shape} does not "
                          f"match the system's {tuple(current.shape)}")
-    return torch.as_tensor(arr).to(device=current.device,
-                                   dtype=current.dtype).clone()
+    return arr
 
 
 def load_numpy_carry(system, arrays: Dict[str, np.ndarray]) -> None:
     """Fill a port system's carry from `arrays` (every key of the module
     docstring for its kind; state columns must match the system's
     schema, and every field its shape). Values are cast to the system's
-    dtypes and copied to its device."""
+    dtypes and copied into its tensors in place (a captured step reads
+    them at fixed addresses); nothing is written unless every key
+    matches."""
     cols = {k[len("state/"):] for k in arrays if k.startswith("state/")}
     if cols != set(system.state):
         raise ValueError(f"carry state columns {sorted(cols)} do not match "
                          f"the system's {sorted(system.state)}")
-    system.state = {c: _load(v, arrays[f"state/{c}"], f"state/{c}")
-                    for c, v in system.state.items()}
     sharded = _sharded(system)
-    for f in SHARDED_FIELDS if sharded else DEVICE_FIELDS:
-        setattr(system, f, _load(getattr(system, f), arrays[f], f))
+    pairs = [(v, _check(v, arrays[f"state/{c}"], f"state/{c}"))
+             for c, v in system.state.items()]
+    pairs += [(getattr(system, f), _check(getattr(system, f), arrays[f], f))
+              for f in (SHARDED_FIELDS if sharded else DEVICE_FIELDS)]
     if not sharded:
         generation = np.asarray(arrays["host/generation"], np.int64)
         if generation.shape != system._generation.shape:
             raise ValueError("carry field 'host/generation' does not match "
                              "the system's capacity")
+    for cur, arr in pairs:
+        cur.copy_(torch.from_numpy(arr))
     with system._lock:
         system._next_row = int(arrays["host/next_row"])
         if not sharded:

@@ -15,30 +15,49 @@
    allocated once, zeroing included: `ms`), the Python wrapper
    (`wrapper_ms`), the plain version and, for K1, one `index_add_` call,
    and computes the memory-bytes bound at 3.35 TB/s.
+Every path steps through replays of the step's CUDA graph
+(akka_tpu_torch/batched/graphs.py): the systems capture it in warmup(),
+before a path's launch counts are zeroed (the eager warm-up steps before
+a first capture launch the kernels too) and before a gateway's front end
+starts; the hand-off window's graph is captured at the first rebalance.
+A capture that fails raises; nothing falls back to eager. Each step cell
+and region_serve keep an eager twin in the same call, built and driven
+alike, that steps through the private `_step_impl` loop: integer carries
+must be bit-equal to the graph system's, floats within rtol 1e-4 /
+atol 1e-3, and the two are timed as interleaved pairs (graph, eager,
+graph, ...; host-clock times spread between calls). Launch counts are
+zeroed just before each stretch of a path on the graph system and read
+just after (the twin runs between stretches), and K1/K2 must launch
+exactly once per step by replay count; on ring_reduce and
+cross_shard_d8 a torch.profiler trace must show `ring_sweep` once per
+replayed step. For each phase it prints ms/step (or asks/s, requests/s
+and reply p50/p99), the host's CUDA launch calls per step (profiler),
+the captures and their ms, and torch.cuda.memory_reserved(); each
+phase's systems, and their graph pools, are freed before the next.
+
 3. Drives the main path through BatchedSystem on the card at 1M actors:
-   the ring in reduce mode, the 1M -> 1k fan-in, the ring with 2-slot
-   bounded mailboxes (and its twin on the ranked kernels, which must agree
-   bit for bit), and a few tells followed by step(). Each result is held to
-   its closed form, and each path must have launched its kernel (launch
-   counts are zeroed just before the path and read just after).
+   the ring in reduce mode (and tells followed by step()), the
+   1M -> 1k fan-in, the ring with 2-slot bounded mailboxes (and a twin
+   on the ranked kernels, which must agree bit for bit). Each result is
+   held to its closed form.
 4. Drives the sharded system (ShardedBatchedSystem) at bench config 5,
    256 logical shards x 4096 entities = 2^20 actors, seeded with one token
-   each, 20 timed steps after 20 warm ones: on one shard
-   (sharded_ring_d1), on 8 shards of the card where every message crosses
-   a shard (cross_shard_d8), and on 8 shards with 2-slot bounded
-   mailboxes (sharded_slots_d8, bit-equal to its twin on the ranked
-   kernels). Every actor must have received one token per step, nothing
-   may be dropped, and K1 (K2 for slots) must launch once per step.
+   each: on one shard (sharded_ring_d1), on 8 shards of the card where
+   every message crosses a shard (cross_shard_d8), and on 8 shards with
+   2-slot bounded mailboxes (sharded_slots_d8, bit-equal to its twin on
+   the ranked kernels). Every actor must have received one token per
+   step and nothing may be dropped.
 5. Serves asks through the region (DeviceShardRegion of the gateway's
    counter entity, 256 shards x 4096 entities on one shard of the axis,
-   two spare blocks): one warm wave, then 32 timed ask_many waves of 256
-   adds (integer-valued floats, so every sum is exact; about an eighth of
-   each wave repeats an entity of the same wave), a solo ask, a rebalance
-   of one shard and a wave over its entities. Every reply must equal a
-   host oracle's running total, the totals must be conserved, no ask may
-   be left in flight, and K1 must launch (region_serve). The same trace
-   on a region with 2-slot bounded mailboxes (region_serve_slots) must
-   give bit-equal replies and launch K2.
+   two spare blocks), the graph region and its eager twin in turn: one
+   warm wave, 32 timed ask_many waves of 256 adds (integer-valued
+   floats, so every sum is exact; about an eighth of each wave repeats
+   an entity of the same wave), one profiled wave, a solo ask, a
+   rebalance of one shard and a wave over its entities. Every reply must
+   equal a host oracle's running total and the twin's reply, the totals
+   must be conserved, and no ask may be left in flight (region_serve).
+   The same trace on regions with 2-slot bounded mailboxes
+   (region_serve_slots) must give bit-equal replies and launch K2.
 6. Serves the gateway on the card (akka_tpu_torch.tools.gateway_load):
    a full-width counter region (256 shards x 4096 entities, one shard of
    the axis, two spare blocks) behind RegionBackend(continuous=True,
@@ -49,35 +68,36 @@
    pipelined binary windows of 8 (depth 4); sheds are retried and
    counted (gateway_serve). Every ok reply must equal its client's
    running total, sum_all the acked sum (plus the warm-up), no reply may
-   be an error, no ask may be in flight after quiesce, and K1 must launch
-   once per region step. The same trace with continuous=False
+   be an error, and no ask may be in flight after quiesce. A short
+   profiled load follows. The same trace with continuous=False
    (gateway_serve_serialized) must give the same replies and totals, and
    the first 128 adds of each client on a region with 2-slot bounded
-   mailboxes (gateway_serve_slots, K2 once per step) the replies
-   gateway_serve gave them. gateway_serve_durable runs gateway_serve's
-   trace on a region with the tell WAL and the entity journal attached
-   (an fsync per WAL record and per entity-journal wave): the same
-   replies, the journal's fold equal to the acked totals, and its fsyncs
-   per 256 requests.
+   mailboxes (gateway_serve_slots) the replies gateway_serve gave them.
+   gateway_serve_durable runs gateway_serve's trace on a region with the
+   tell WAL and the entity journal attached (an fsync per WAL record and
+   per entity-journal wave): the same replies, the journal's fold equal
+   to the acked totals, and its fsyncs per 256 requests.
 7. Durability (akka_tpu_torch.persistence, DeviceShardRegion's
    checkpoint/restore). region_restore: the region_serve region with
    both journals and an uninterrupted twin take 16 ask waves of 256
    adds, a rebalance (which drains the hand-off window and checkpoints
    itself), the timed checkpoint(), 16 more waves and 64 tells to new
    entities staged but not stepped; the journaled region is dropped
-   without a goodbye and a fresh one restores from the directory. Every
-   entity's total must equal the twin's and the host oracle's, the entity
-   journal's fold the acked totals, and the replay must launch K1 once
-   per replayed step (counts zeroed just before restore()). It prints
-   the snapshot's bytes, checkpoint_ms, and restore_ms split into load,
-   H2D and replay. region_restore_slots: the same with 2-slot bounded
-   mailboxes, on K2. gateway_kill9: a full-width durable, deduplicating
-   `serving_gateway serve` child on the card and two `load` children;
-   the server is SIGKILLed mid-load and restarted with --restore on the
-   same port and directory; acked_sum <= final_total <= sent_sum must
-   hold, the `durable` admin op must report the respawned entities, and
-   the restored server's replay must have launched K1 once per step (it
-   prints its counts). It prints the wall time from SIGKILL to READY.
+   without a goodbye and a fresh one, warmed up, restores from the
+   directory. Every entity's total must equal the twin's and the host
+   oracle's, the entity journal's fold the acked totals, the replay must
+   launch K1 once per replayed step (counts zeroed just before
+   restore()), and the same-shape restore must keep the warmed graph. It
+   prints the snapshot's bytes, checkpoint_ms, and restore_ms split into
+   load, H2D and replay. region_restore_slots: the same with 2-slot
+   bounded mailboxes, on K2. gateway_kill9: a full-width durable,
+   deduplicating `serving_gateway serve` child on the card and two
+   `load` children; the server is SIGKILLed mid-load and restarted with
+   --restore on the same port and directory; acked_sum <= final_total <=
+   sent_sum must hold, the `durable` admin op must report the respawned
+   entities, and the restored server's replay must have launched K1 once
+   per step (it prints its counts). It prints the wall time from SIGKILL
+   to READY.
 8. Holds both kernels against their plain versions once more at the
    shapes these paths gave them: the 8-shard flat inboxes (sharded_d8),
    the region's inbox as a wave's tells land (region) and the gateway
@@ -92,6 +112,7 @@ and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -117,14 +138,18 @@ from akka_tpu_torch.ops import cuda_mailbox as cm
 from akka_tpu_torch.sharding import DeviceEntity, DeviceShardRegion
 from akka_tpu_torch.tools import bench_mailbox as bm
 from akka_tpu_torch.tools import gateway_load as gl
+from akka_tpu_torch.tools import profile_step as ps
 from akka_tpu_torch.tools import serving_gateway as sg
+from akka_tpu_torch.utils.carry import numpy_carry
 
 RTOL, ATOL = bm.RTOL, bm.ATOL
 N = 1 << 20                 # actors on the main path
 M = N + bm.HOST_ROWS        # inbox rows: n * K emissions + host_inbox
 SLOTS = bm.SLOTS
 KERNEL_ITERS = 200          # C-entry launches per device timing
-STEPS = 20                  # timed steps per main-path system
+STEPS = 20                  # steps per timed run of a main-path system
+PAIRS = 3                   # interleaved (graph, eager twin) timed runs
+PROFILE_STEPS = 5           # steps under the profiler, graph and eager
 WAVES, WAVE_ASKS = 32, 256  # timed ask waves of the region phases
 GW_CLIENTS, GW_ENTS, GW_ADDS = 16, 64, 512  # gateway_serve's trace
 GW_SLOTS_ADDS = 128        # adds per client of gateway_serve_slots
@@ -215,120 +240,214 @@ def flat_inputs(s):
             s.inbox_payload.clone(), own.reshape(-1).clone()), s.capacity
 
 
-def timed_run(sys_, steps: int, msgs_per_step: int, label: str) -> float:
-    """Warm run(steps), then a timed run(steps) between CUDA events;
-    returns ms per step."""
-    sys_.run(steps)
-    ms = bm.cuda_ms(lambda: sys_.run(steps), iters=1, warmup=0) / steps
-    print(f"{label} ms_per_step {ms}")
-    print(f"{label} msgs_per_s {msgs_per_step / (ms * 1e-3)}")
-    return ms
+class Launches:
+    """The kernel launches of one main path: the counts are zeroed just
+    before each stretch of the path and read just after it, and summed
+    (the eager twin's steps run between the stretches, uncounted)."""
+
+    def __init__(self):
+        self.counts = {k: 0 for k in cm.LAUNCHES}
+
+    def __call__(self, fn):
+        cm.reset_launches()
+        out = fn()
+        for k, v in cm.LAUNCHES.items():
+            self.counts[k] += v
+        return out
+
+    def report(self, label: str, kernel: str, launches: dict,
+               steps=None) -> None:
+        """Record the path's counts; it must have launched `kernel`, and
+        with `steps`, exactly once per step."""
+        counts = dict(self.counts)
+        print(f"{label} launches {counts}")
+        check(counts[kernel] > 0, f"{label} launched {kernel}")
+        if steps is not None:
+            print(f"{label} launches_per_step {counts[kernel] / steps}")
+            check(counts[kernel] == steps, f"{label}: {counts[kernel]} "
+                  f"{kernel} launches, one per step for all shards "
+                  f"({steps})")
+        launches[label] = counts
 
 
-def path(label: str, kernel: str, launches: dict, fn, steps=None):
-    """Drive one main-path phase with the launch counts zeroed just
-    before and read just after; the phase must launch `kernel`, and with
-    `steps`, exactly once per step."""
-    cm.reset_launches()
-    t0 = time.perf_counter()
-    out = fn()
+def eager_twin(system):
+    """A comparison twin that steps eagerly: the private `_step_impl`
+    loop, where the system itself replays its step's CUDA graph."""
+    system._eager = True
+    return system
+
+
+def free() -> None:
+    """Release a finished phase's systems and their graph pools."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def graph_line(label: str, system) -> None:
+    """The phase's captures, their time and the memory the allocator
+    holds (carries, graph pools and caches)."""
     torch.cuda.synchronize()
-    counts = dict(cm.LAUNCHES)
-    print(f"{label} phase_s {time.perf_counter() - t0}")
-    print(f"{label} launches {counts}")
-    check(counts[kernel] > 0, f"{label} launched {kernel}")
-    if steps is not None:
-        print(f"{label} launches_per_step {counts[kernel] / steps}")
-        check(counts[kernel] == steps, f"{label}: {counts[kernel]} "
-              f"{kernel} launches, one per step for all shards ({steps})")
-    launches[label] = counts
-    return out
+    st = system._graphs.stats()
+    print(f"{label} captures {st['captures']} capture_ms "
+          f"{st['capture_ms']} warmup_ms {st['warm_ms']} graphs "
+          f"{st['graphs']} memory_reserved {torch.cuda.memory_reserved()}")
 
 
-def check_twins(label: str, a, b, fields) -> None:
-    """Integer carry fields bit-equal, the received counts too, the inbox
-    payload within the kernel tolerance, and finite."""
-    for field in fields:
-        check(torch.equal(getattr(a, field), getattr(b, field)),
-              f"{label} vs ranked twin: {field} bit-equal")
-    check(torch.equal(a.state["received"], b.state["received"]),
-          f"{label} vs ranked twin: received bit-equal")
-    check(torch.allclose(a.inbox_payload, b.inbox_payload, rtol=RTOL,
-                         atol=ATOL), f"{label} vs ranked twin: payload")
-    check(bool(torch.isfinite(a.inbox_payload).all()),
-          f"{label}: finite payloads")
+def timed_pairs(label: str, g, e, steps: int, msgs_per_step: int,
+                count: Launches) -> None:
+    """PAIRS interleaved timings, graph then eager twin, of run(steps)
+    between CUDA events (host-clock spread between calls is large, so
+    the two are compared only as neighbours); prints each and the
+    medians."""
+    times = {"graph": [], "eager": []}
+    for _ in range(PAIRS):
+        times["graph"].append(count(lambda: bm.cuda_ms(
+            lambda: g.run(steps), iters=1, warmup=0)) / steps)
+        times["eager"].append(bm.cuda_ms(lambda: e.run(steps), iters=1,
+                                         warmup=0) / steps)
+    for mode, ts in times.items():
+        ms = float(np.median(ts))
+        print(f"{label} {mode} ms_per_step {ms} pairs {ts}")
+        print(f"{label} {mode} msgs_per_s {msgs_per_step / (ms * 1e-3)}")
+    print(f"{label} eager_over_graph "
+          f"{np.median(times['eager']) / np.median(times['graph'])}")
 
 
-def single_device_paths(launches: dict, steps: int = STEPS) -> None:
-    def ring():
-        s = build_ring(N, device="cuda")
-        seed_ring_full(s)
-        timed_run(s, steps, N, "ring_reduce")
-        recv = s.read_state("received")
-        check((recv == 2 * steps).all(), "ring: every actor received "
-              "2 * steps tokens")
-        return s
+def host_launches(label: str, g, e, steps: int, count: Launches,
+                  sweeps: bool = False) -> None:
+    """The host's CUDA launch calls per step under torch.profiler, graph
+    and eager twin. With `sweeps`, the trace must show the ring kernels'
+    `ring_sweep` once per replayed step, as the replay counts say."""
+    calls, kernels, busy = count(lambda: ps.launch_profile(
+        lambda: g.run(steps)))
+    print(f"{label} graph host_launch_calls_per_step {calls / steps} "
+          f"device_busy_ms_per_step {busy / steps}")
+    if sweeps:
+        n = sum(c for k, c in kernels.items() if "ring_sweep" in k)
+        print(f"{label} profiler ring_sweep {n} over {steps} replayed "
+              f"steps")
+        check(n == steps, f"{label}: the trace shows ring_sweep {n} times "
+              f"for {steps} replayed steps")
+    calls, _, busy = ps.launch_profile(lambda: e.run(steps))
+    print(f"{label} eager host_launch_calls_per_step {calls / steps} "
+          f"device_busy_ms_per_step {busy / steps}")
 
-    s = path("ring_reduce", "ring_reduce", launches, ring)
 
-    def tells():
-        before = s.read_state("received")
+def check_twin(label: str, g, e, twin: str = "eager twin") -> None:
+    """The graph system against a twin, every carry field: integers
+    bit-equal, floats within RTOL/ATOL (float atomics add in a
+    run-dependent order) and finite."""
+    cg, ce = numpy_carry(g), numpy_carry(e)
+    check(sorted(cg) == sorted(ce), f"{label}: the same carry fields")
+    for k, a in cg.items():
+        if a.dtype.kind == "f":
+            check(np.isfinite(a).all(), f"{label}: {k} finite")
+            check(np.allclose(a, ce[k], rtol=RTOL, atol=ATOL),
+                  f"{label} vs {twin}: {k} within tolerance")
+        else:
+            check(np.array_equal(a, ce[k]),
+                  f"{label} vs {twin}: {k} bit-equal")
+    print(f"{label} {twin}: {len(cg)} carry fields equal")
+
+
+def step_cell(label: str, kernel: str, build, launches: dict, check_fn,
+              msgs_per_step: int, sweeps: bool = False, after=None,
+              seed=seed_ring_full):
+    """One step cell: the system on graphs and its eager twin, built and
+    seeded alike; warmup() (outside the counted path), a first run of
+    STEPS, PAIRS interleaved timed runs, the host launches per step, the
+    cell's closed form on the graph system, the twin check, and the
+    launch count (once per step by replay count). Returns both."""
+    g, e = build(), eager_twin(build())
+    for s in (g, e):
+        seed(s)
+    t0 = time.perf_counter()
+    g.warmup()
+    print(f"{label} warmup_s {time.perf_counter() - t0}")
+    count = Launches()
+    count(lambda: g.run(STEPS))
+    e.run(STEPS)
+    timed_pairs(label, g, e, STEPS, msgs_per_step, count)
+    host_launches(label, g, e, PROFILE_STEPS, count, sweeps)
+    torch.cuda.synchronize()
+    steps = g._host_step
+    if after is not None:
+        after(g, e)  # a path of its own where it steps
+    check_fn(g, steps)
+    check_twin(label, g, e)
+    graph_line(label, g)
+    count.report(label, kernel, launches, steps)
+    return g, e
+
+
+def single_device_paths(launches: dict) -> None:
+    def ring_check(s, steps):
+        check((s.read_state("received") == steps).all(),
+              "ring: every actor received one token per step")
+
+    def tells(g, e):
+        ring_check(g, g._host_step)  # before the tells add tokens
+        before = g.read_state("received")
         told = [0, 5, 7]
-        s.tell(told, [1.0, 0.0, 0.0, 0.0])
-        s.step()
-        after = s.read_state("received")
+        count = Launches()
+        for s in (g, e):
+            s.tell(told, [1.0, 0.0, 0.0, 0.0])
+        count(g.step)
+        e.step()
+        after = g.read_state("received")
         want = before + 1
         want[told] += 1
         check((after == want).all(), "tell + step: told rows got 2 "
               "messages, others 1")
+        count.report("tell_step", "ring_reduce", launches, 1)
+        # one step with staged tells: the flush's copies and the replay
+        g.tell(told, [1.0, 0.0, 0.0, 0.0])
+        e.tell(told, [1.0, 0.0, 0.0, 0.0])
+        calls, _, _ = count(lambda: ps.launch_profile(g.step))
+        print(f"tell_step graph host_launch_calls_per_step {calls}")
+        calls, _, _ = ps.launch_profile(e.step)
+        print(f"tell_step eager host_launch_calls_per_step {calls}")
 
-    path("tell_step", "ring_reduce", launches, tells)
-    del s
+    step_cell("ring_reduce", "ring_reduce", lambda: build_ring(
+        N, device="cuda"), launches,
+        lambda s, steps: None, N, sweeps=True, after=tells)
+    free()
 
-    def fan_in():
-        f = build_fan_in(N, 1000, device="cuda")
-        timed_run(f, steps, N, "fan_in")
+    def fan_in_check(f, steps):
         msgs = f.read_state("msgs")[:1000]
         total = f.read_state("total")[:1000]
-        want = (2 * steps - 1) * N   # deliveries lag the first send a step
+        want = (steps - 1) * N   # deliveries lag the first send a step
         check(int(msgs.sum()) == want, f"fan-in: {int(msgs.sum())} == {want}")
         check(float(total.astype("float64").sum()) == float(want),
               "fan-in: totals == msgs")
 
-    path("fan_in", "ring_reduce", launches, fan_in)
+    step_cell("fan_in", "ring_reduce", lambda: build_fan_in(
+        N, 1000, device="cuda"), launches, fan_in_check, N,
+        seed=lambda s: None)
+    free()
 
-    def slots_system(backend):
-        r = build_ring_slots(N, SLOTS, device="cuda",
-                             delivery_backend=backend)
-        seed_ring_full(r)
-        return r
+    def slots_system(backend=None):
+        return build_ring_slots(N, SLOTS, device="cuda",
+                                delivery_backend=backend)
 
-    def slots():
-        r = slots_system(None)
-        timed_run(r, steps, N, "ring_slots")
-        check((r.read_state("received") == 2 * steps).all(),
-              "slots ring: every actor received 2 * steps tokens")
-        return r
+    def ranked_twin(g, e):
+        twin = slots_system("ranked")
+        seed_ring_full(twin)
+        twin.run(g._host_step)
+        check_twin("ring_slots", g, twin, "ranked twin")
 
-    r = path("ring_slots", "ring_slots", launches, slots)
-    twin = slots_system("ranked")
-    twin.run(2 * steps)
-    check_twins("slots ring", r, twin,
-                ("inbox_dst", "inbox_type", "inbox_valid", "alive",
-                 "behavior_id", "step_count", "mail_dropped"))
+    step_cell("ring_slots", "ring_slots", slots_system, launches,
+              ring_check, N, after=ranked_twin)
+    free()
 
 
-def sharded_paths(launches: dict, steps: int = STEPS) -> dict:
+def sharded_paths(launches: dict) -> dict:
     """The sharded system's paths; returns the 8-shard paths' delivery
     inputs by kernel."""
-    def cross_shard(d):
-        def run():
-            x = build_cross_shard(256, 4096, n_devices=d, device="cuda")
-            seed_ring_full(x)
-            label = "sharded_ring_d1" if d == 1 else f"cross_shard_d{d}"
-            timed_run(x, steps, x.capacity, label)
-            check((x.read_state("received") == 2 * steps).all(),
-                  f"{label}: every entity received 2 * steps tokens")
+    def cross_shard_check(label, d):
+        def check_fn(x, steps):
+            check((x.read_state("received") == steps).all(),
+                  f"{label}: every entity received one token per step")
             check(x.total_dropped == 0 and x.mailbox_overflow == 0,
                   f"{label}: total_dropped == 0")
             pc, sc = x.pair_cap, x.spill_cap
@@ -339,52 +458,53 @@ def sharded_paths(launches: dict, steps: int = STEPS) -> dict:
             if d > 1:
                 check(not bool(chunks.diagonal().any()),
                       f"{label}: every message crossed a shard")
-            return x
-        return run
+        return check_fn
 
-    path("sharded_ring_d1", "ring_reduce", launches, cross_shard(1),
-         steps=2 * steps)
-    x = path("cross_shard_d8", "ring_reduce", launches, cross_shard(8),
-             steps=2 * steps)
-    flat = {"K1": flat_inputs(x)}
-    del x
+    flat = {}
+    for d, label in ((1, "sharded_ring_d1"), (8, "cross_shard_d8")):
+        x, _ = step_cell(label, "ring_reduce", lambda: build_cross_shard(
+            256, 4096, n_devices=d, device="cuda"), launches,
+            cross_shard_check(label, d), N, sweeps=d == 8)
+        if d == 8:
+            flat["K1"] = flat_inputs(x)
+        del x
+        free()
 
-    def slots_system(backend):
-        r = build_cross_shard_slots(256, 4096, n_devices=8, slots=SLOTS,
-                                    device="cuda", delivery_backend=backend)
-        seed_ring_full(r)
-        return r
+    def slots_system(backend=None):
+        return build_cross_shard_slots(256, 4096, n_devices=8, slots=SLOTS,
+                                       device="cuda",
+                                       delivery_backend=backend)
 
-    def slots_d8():
-        r = slots_system(None)
-        timed_run(r, steps, r.capacity, "sharded_slots_d8")
-        check((r.read_state("received") == 2 * steps).all(),
-              "sharded slots: every entity received 2 * steps tokens")
+    def ranked_twin(g, e):
+        twin = slots_system("ranked")
+        seed_ring_full(twin)
+        twin.run(g._host_step)
+        check_twin("sharded_slots_d8", g, twin, "ranked twin")
+
+    def slots_check(r, steps):
+        check((r.read_state("received") == steps).all(),
+              "sharded slots: every entity received one token per step")
         check(r.total_dropped == 0 and r.mailbox_overflow == 0,
               "sharded slots: nothing dropped")
-        return r
 
-    r = path("sharded_slots_d8", "ring_slots", launches, slots_d8,
-             steps=2 * steps)
-    twin = slots_system("ranked")
-    twin.run(2 * steps)
-    check_twins("sharded slots d8", r, twin,
-                ("inbox_dst", "inbox_type", "inbox_valid", "alive",
-                 "behavior_id", "step_count", "mail_dropped", "dropped",
-                 "attention"))
+    r, _ = step_cell("sharded_slots_d8", "ring_slots", slots_system,
+                     launches, slots_check, N, after=ranked_twin)
     flat["K2"] = flat_inputs(r)
+    del r
+    free()
     return flat
 
 
 def make_trace(seed: int = 0):
-    """One warm wave and WAVES timed waves of WAVE_ASKS adds: 7/8 distinct
-    entities of a 4096-name pool, the rest repeats of entities already in
-    the wave; values are integers 1..9."""
+    """One warm wave, WAVES timed waves and one profiled wave of
+    WAVE_ASKS adds: 7/8 distinct entities of a 4096-name pool, the rest
+    repeats of entities already in the wave; values are integers
+    1..9."""
     rng = np.random.default_rng(seed)
     pool = [f"entity-{i}" for i in range(4096)]
     waves = []
     distinct = WAVE_ASKS - WAVE_ASKS // 8
-    for _ in range(WAVES + 1):
+    for _ in range(WAVES + 2):
         names = list(rng.choice(pool, distinct, replace=False))
         names += list(rng.choice(names, WAVE_ASKS - distinct))
         order = rng.permutation(WAVE_ASKS)
@@ -393,79 +513,129 @@ def make_trace(seed: int = 0):
     return waves
 
 
-def serve(label: str, slots: int, trace) -> list:
-    """The region phase: returns every reply, in order."""
-    region = DeviceShardRegion(DeviceEntity(
-        "counter", counter_behavior(PAYLOAD_W), n_shards=256,
-        entities_per_shard=4096, n_devices=1, spare_blocks=2,
-        mailbox_slots=slots, spill_capacity=0 if slots else None),
-        device="cuda")
-    sys_ = region.system
-    refs = {n: region.entity_ref(n) for w in trace for n, _ in w}
-    oracle = {n: 0.0 for n in refs}
+def serve(label: str, slots: int, trace, launches: dict):
+    """The region phase: a region stepping on graphs and its eager twin
+    take the same waves in turn (graph, eager, graph, ...; the graph
+    region's waves are the counted path). Returns the graph region's
+    replies, in order, and its system."""
+    g, e = gateway_region(slots), gateway_region(slots)
+    eager_twin(e.system)
+    t0 = time.perf_counter()
+    g.system.warmup()
+    print(f"{label} warmup_s {time.perf_counter() - t0}")
+    refs = [{n: r.entity_ref(n) for w in trace for n, _ in w}
+            for r in (g, e)]
+    oracle = {n: 0.0 for n in refs[0]}
     sent = 0.0
     replies = []
     rounds = [0]
-    run = sys_.run
+    run = g.system.run
 
     def counted_run(n_steps=1):
         rounds[0] += 1
         run(n_steps)
 
-    sys_.run = counted_run
+    g.system.run = counted_run
+    count = Launches()
 
-    def wave(asks):
-        nonlocal sent
-        reqs = [(refs[n].shard, refs[n].index, [v]) for n, v in asks]
+    def on(r, fn):
+        """fn() for region r; the graph region's calls are the counted
+        main path."""
+        return count(fn) if r is g else fn()
+
+    def requests(r, asks):
+        i = 0 if r is g else 1
+        return [(refs[i][n].shard, refs[i][n].index, [v]) for n, v in asks]
+
+    def ask(r, asks):
+        reqs = requests(r, asks)
         t0 = time.perf_counter()
-        out = region.ask_many(reqs)
-        dt = time.perf_counter() - t0
-        for (n, v), o in zip(asks, out):
+        out = on(r, lambda: r.ask_many(reqs))
+        return out, time.perf_counter() - t0
+
+    def wave(asks, timed=None):
+        nonlocal sent
+        out, dt = ask(g, asks)
+        twin, dt_e = ask(e, asks)
+        if timed is not None:
+            timed["graph"].append(dt)
+            timed["eager"].append(dt_e)
+        for (n, v), o, t in zip(asks, out, twin):
             check(not isinstance(o, BaseException), f"{label}: {o!r}")
             oracle[n] += v
             sent += v
             check(float(o[0]) == oracle[n], f"{label}: reply {o[0]} == "
                   f"oracle {oracle[n]} for {n}")
+            check(np.array_equal(o, t), f"{label}: the eager twin's reply "
+                  f"{t} == {o}")
             replies.append(o)
-        return dt
 
     wave(trace[0])  # warm: allocator, first launches
-    times, per_wave_rounds, per_wave_steps = [], [], []
-    for asks in trace[1:]:
-        r0, s0 = rounds[0], sys_._host_step
-        times.append(wave(asks))
+    times = {"graph": [], "eager": []}
+    per_wave_rounds, per_wave_steps = [], []
+    for asks in trace[1:WAVES + 1]:
+        r0, s0 = rounds[0], g.system._host_step
+        wave(asks, times)
         per_wave_rounds.append(rounds[0] - r0)
-        per_wave_steps.append(sys_._host_step - s0)
-    times = np.asarray(times)
-    print(f"{label} asks_per_s {WAVES * WAVE_ASKS / times.sum()}")
-    print(f"{label} wave_ms_p50 {np.percentile(times, 50) * 1e3}")
-    print(f"{label} wave_ms_p99 {np.percentile(times, 99) * 1e3}")
+        per_wave_steps.append(g.system._host_step - s0)
+    for mode, ts in times.items():
+        ts = np.asarray(ts)
+        print(f"{label} {mode} asks_per_s {WAVES * WAVE_ASKS / ts.sum()}")
+        print(f"{label} {mode} wave_ms_p50 {np.percentile(ts, 50) * 1e3}")
+        print(f"{label} {mode} wave_ms_p99 {np.percentile(ts, 99) * 1e3}")
     print(f"{label} rounds_per_wave {np.mean(per_wave_rounds)} "
           f"steps_per_wave {np.mean(per_wave_steps)}")
 
+    # one more wave each under the profiler: host launch calls per step
+    outs = []
+    for r, mode in ((g, "graph"), (e, "eager")):
+        reqs = requests(r, trace[WAVES + 1])
+        start = r.system._host_step
+        calls, _, busy = on(r, lambda: ps.launch_profile(
+            lambda: outs.append(r.ask_many(reqs))))
+        steps = r.system._host_step - start
+        print(f"{label} {mode} host_launch_calls_per_step {calls / steps} "
+              f"device_busy_ms_per_step {busy / steps} "
+              f"(one profiled wave, {steps} steps)")
+    for (n, v), o, t in zip(trace[WAVES + 1], *outs):
+        oracle[n] += v
+        sent += v
+        check(float(o[0]) == oracle[n] and np.array_equal(o, t),
+              f"{label}: profiled wave")
+        replies.append(o)
+
     name = trace[0][0][0]
-    solo = region.ask(refs[name].shard, refs[name].index, [5.0])
+    solo = count(lambda: g.ask(refs[0][name].shard, refs[0][name].index,
+                               [5.0]))
+    twin = e.ask(refs[1][name].shard, refs[1][name].index, [5.0])
     oracle[name] += 5.0
     sent += 5.0
-    check(float(solo[0]) == oracle[name], f"{label}: solo ask")
+    check(float(solo[0]) == oracle[name] and np.array_equal(solo, twin),
+          f"{label}: solo ask")
     replies.append(solo)
 
-    moved = refs[name].shard
-    old_row = refs[name].row
-    region.rebalance(moved)
-    check(refs[name].row != old_row, f"{label}: the shard moved")
-    wave([(n, 1.0) for n in refs if refs[n].shard == moved])
-    rows = np.asarray([r.row for r in refs.values()], np.int64)
+    moved = refs[0][name].shard
+    old_row = refs[0][name].row
+    for r in (g, e):
+        on(r, lambda: r.rebalance(moved))
+    check(refs[0][name].row != old_row, f"{label}: the shard moved")
+    wave([(n, 1.0) for n in refs[0] if refs[0][n].shard == moved])
+    sys_ = g.system
+    rows = np.asarray([r.row for r in refs[0].values()], np.int64)
     totals = sys_.read_state("total", rows)
-    check(all(float(t) == oracle[n] for t, n in zip(totals, refs)),
+    check(all(float(t) == oracle[n] for t, n in zip(totals, refs[0])),
           f"{label}: totals == oracle after rebalance")
     live = sys_.alive.cpu().numpy()  # the moved block's old copy is dead
     check(float(sys_.read_state("total")[live].astype(np.float64).sum())
           == sent, f"{label}: totals conserved ({sent})")
-    check(region.ask_pool_stats()["in_flight"] == 0,
+    check(g.ask_pool_stats()["in_flight"] == 0,
           f"{label}: no ask left in flight")
-    print(f"{label} asks {len(replies)} entities {len(refs)} "
+    check_twin(label, sys_, e.system)
+    graph_line(label, sys_)
+    print(f"{label} asks {len(replies)} entities {len(refs[0])} "
           f"steps {sys_._host_step}")
+    kernel = "ring_slots" if slots else "ring_reduce"
+    count.report(label, kernel, launches, sys_._host_step)
     return replies, sys_
 
 
@@ -475,14 +645,10 @@ def region_paths(launches: dict) -> dict:
     trace = make_trace()
     flat = {}
     replies = {}
-    for label, slots, kernel in (("region_serve", 0, "ring_reduce"),
-                                 ("region_serve_slots", SLOTS,
-                                  "ring_slots")):
-        out, sys_ = path(label, kernel, launches,
-                         lambda: serve(label, slots, trace))
-        steps = sys_._host_step
-        print(f"{label} launches_per_step "
-              f"{launches[label][kernel] / steps}")
+    for label, slots in (("region_serve", 0), ("region_serve_slots", SLOTS)):
+        t0 = time.perf_counter()
+        out, sys_ = serve(label, slots, trace, launches)
+        print(f"{label} phase_s {time.perf_counter() - t0}")
         replies[label] = out
         # the first step's inbox of a wave: its tells flushed in
         for i in range(WAVE_ASKS):
@@ -491,6 +657,7 @@ def region_paths(launches: dict) -> dict:
         sys_._flush_staged()
         flat["K2" if slots else "K1"] = flat_inputs(sys_)
         del sys_
+        free()
     a, b = replies["region_serve"], replies["region_serve_slots"]
     check(len(a) == len(b) and all(np.array_equal(x, y)
                                    for x, y in zip(a, b)),
@@ -507,14 +674,14 @@ def gateway_region(slots: int) -> DeviceShardRegion:
         device="cuda")
 
 
-def gateway_serve(label: str, slots: int, continuous: bool, traces,
+def gateway_serve(label: str, region, continuous: bool, traces,
                   durable: bool = False):
-    """One gateway phase on a fresh region: a warm-up wave, then the
-    clients' trace over TCP. With `durable`, the region has both journals
-    attached with an fsync per record (tell) and per wave (entity
-    events). Returns (LoadResult, the region's steps, the region's
-    delivery inputs as a window's tells land)."""
-    region = gateway_region(slots)
+    """One gateway phase on a fresh region whose step graph is already
+    captured (before the front end's threads start): a warm-up wave, then
+    the clients' trace over TCP. With `durable`, the region has both
+    journals attached with an fsync per record (tell) and per wave
+    (entity events). Returns (LoadResult, the region's steps, the
+    region's delivery inputs as a window's tells land)."""
     directory = tempfile.mkdtemp(prefix="chip_smoke_") if durable else None
     if durable:
         region.attach_journal(directory, fsync_every_n=1)
@@ -571,6 +738,20 @@ def gateway_serve(label: str, slots: int, continuous: bool, traces,
                   f"{ej['waves'] - ej0['waves']}")
             print(f"{label} fsyncs_per_256_requests "
                   f"{(wal + ej_fsyncs) * 256 / res.requests}")
+        # host launch calls per step, every thread's, over a short extra
+        # load (not counted in the numbers above)
+        s0 = region.system._host_step
+        box = []
+        calls, _, busy = ps.launch_profile(lambda: box.append(gl.drive(
+            srv.host, srv.port, gl.client_traces(99, GW_CLIENTS, 8, 16))))
+        check(not box[0].errors and gl.running_totals_hold(box[0]),
+              f"{label}: the profiled load's replies")
+        check(backend.batcher.quiesce(60.0), f"{label}: quiesce")
+        n = region.system._host_step - s0
+        print(f"{label} host_launch_calls_per_step {calls / n} "
+              f"device_busy_ms_per_step {busy / n} (profiled load, "
+              f"{box[0].requests} requests, {n} steps)")
+        graph_line(label, region.system)
         # a window's tells as they land: the delivery call's inputs
         sys_ = region.system
         for i in range(64):
@@ -587,8 +768,9 @@ def gateway_serve(label: str, slots: int, continuous: bool, traces,
 
 
 def gateway_paths(launches: dict) -> dict:
-    """gateway_serve, its serialized twin and gateway_serve_slots;
-    returns the gateway region's delivery inputs by kernel."""
+    """gateway_serve, its durable and serialized twins and
+    gateway_serve_slots; returns the gateway region's delivery inputs by
+    kernel."""
     traces = gl.client_traces(1, GW_CLIENTS, GW_ENTS, GW_ADDS)
     runs, flat = {}, {}
     short = [t[:GW_SLOTS_ADDS // 8] for t in traces]
@@ -599,15 +781,19 @@ def gateway_paths(launches: dict) -> dict:
              False),
             ("gateway_serve_slots", SLOTS, True, short, "ring_slots",
              False)):
-        res, steps, inputs = path(
-            label, kernel, launches,
-            lambda: gateway_serve(label, slots, continuous, trace, durable))
-        n = launches[label][kernel]
-        print(f"{label} launches_per_step {n / steps}")
-        check(n == steps, f"{label}: {n} {kernel} launches, one per region "
-              f"step ({steps})")
+        t0 = time.perf_counter()
+        region = gateway_region(slots)
+        region.system.warmup()  # before the front end's threads start
+        count = Launches()
+        res, steps, inputs = count(lambda: gateway_serve(
+            label, region, continuous, trace, durable))
+        # the profiled load's steps launch too: count them all
+        count.report(label, kernel, launches, region.system._host_step)
+        print(f"{label} phase_s {time.perf_counter() - t0}")
         runs[label] = res
         flat["K2" if slots else "K1"] = inputs
+        del region
+        free()
     main = runs["gateway_serve"].replies
     check(runs["gateway_serve_serialized"].replies == main,
           "gateway_serve_serialized: the same replies as gateway_serve")
@@ -679,6 +865,9 @@ def restore_phase(label: str, slots: int, kernel: str, trace,
         fresh = gateway_region(slots)
         fresh.attach_journal(directory)
         fresh.attach_entity_journal(directory)
+        t0 = time.perf_counter()
+        fresh.system.warmup()  # a same-shape restore keeps the graph
+        warm_ms = (time.perf_counter() - t0) * 1e3
         cm.reset_launches()
         t0 = time.perf_counter()
         step = fresh.restore()
@@ -708,12 +897,17 @@ def restore_phase(label: str, slots: int, kernel: str, trace,
               f"{ckpt_ms}")
         print(f"{label} restore_ms {restore_ms} load_ms {timing['load_ms']} "
               f"h2d_ms {timing['h2d_ms']} replay_ms {timing['replay_ms']} "
-              f"replayed_steps {replayed} step {step}")
+              f"replayed_steps {replayed} step {step} (warmup before it "
+              f"{warm_ms} ms)")
         print(f"{label} launches {counts}")
+        graph_line(label, fresh.system)
+        check(fresh.system._graphs.stats()["captures"] == 1,
+              f"{label}: the restore replayed the warmed graph")
         check(counts[kernel] == replayed > 0, f"{label}: {counts[kernel]} "
               f"{kernel} launches, one per replayed step ({replayed})")
         launches[label] = counts
         del fresh, twin
+        free()
     finally:
         shutil.rmtree(directory, ignore_errors=True)
 

@@ -1,6 +1,12 @@
 """Card-only tests of the PyTorch port: the ring-mailbox CUDA kernels
-against their plain versions, the delivery seam on CUDA tensors, and the
-sharded system and the region's ask path through the kernels.
+against their plain versions, the delivery seam on CUDA tensors, the
+sharded system and the region's ask path through the kernels, and the
+compiled step: CUDA graph replays against the eager step, the captures a
+rebalance and a re-sharded restore cause, and a behavior that cannot be
+captured.
+
+Launch counts are read after `warmup()`: the eager warm-up steps before a
+system's first capture launch the kernels too.
 
 They skip without a CUDA device. On a machine with a card (and no JAX),
 run them without the JAX test configuration:
@@ -134,6 +140,7 @@ def test_sharded_step_launches_one_kernel_per_step(card, slots):
     a, b = (build(8, 256, n_devices=8, device=dev) for dev in (card, "cpu"))
     for s in (a, b):
         tbb.seed_ring_full(s)
+    a.warmup()
     cm.reset_launches()
     a.run(5)
     b.run(5)
@@ -163,6 +170,7 @@ def test_region_answers_asks_through_the_ring_kernels(card, slots):
                              device="cpu")
     names = [f"e{i}" for i in range(12)]
     picks = [0, 1, 2, 0, 3, 4, 5, 1, 6, 7, 8, 9, 10, 11, 0]
+    on_card.system.warmup()
     cm.reset_launches()
     outs = []
     for r in (on_card, twin):
@@ -192,6 +200,8 @@ def test_continuous_gateway_serves_through_k1(card):
     region = DeviceShardRegion(DeviceEntity(
         "gw", counter_behavior(4), n_shards=4, entities_per_shard=256,
         n_devices=1, spare_blocks=2), device=card)
+    region.system.warmup()  # capture before the front end's threads start
+    cm.reset_launches()
     backend, srv = gl.serve_stack(region, continuous=True)
     try:
         res = gl.drive(srv.host, srv.port, gl.client_traces(3, 4, 8, 96))
@@ -261,3 +271,204 @@ def test_restore_on_the_card_equals_restore_on_the_cpu(card, tmp_path, slots):
             np.testing.assert_array_equal(ca[k], cb[k], err_msg=k)
     assert on_card._durable_replayed_totals == \
         on_cpu._durable_replayed_totals
+
+
+# ------------------------------------------------------ the compiled step
+
+def _assert_twins(a, b, ctx):
+    """Integer carry fields bit-equal, float fields within the kernel
+    tolerance."""
+    ca, cb = numpy_carry(a), numpy_carry(b)
+    assert sorted(ca) == sorted(cb), ctx
+    for k in ca:
+        if ca[k].dtype.kind == "f":
+            np.testing.assert_allclose(ca[k], cb[k], rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{ctx} {k}")
+        else:
+            np.testing.assert_array_equal(ca[k], cb[k], err_msg=f"{ctx} {k}")
+
+
+def _eager_twin(system):
+    """The same system stepping eagerly (the private `_step_impl` loop)."""
+    system._eager = True
+    return system
+
+
+@pytest.mark.parametrize("cell", ["ring", "ring_slots", "cross_shard_d8"])
+def test_graph_replays_match_the_eager_twin(card, cell):
+    """run(n), step() and staged tells through the step's CUDA graph give
+    the eager step's carry; the graph was captured once, the live carry
+    kept its storage, and K1 (K2 for slots) launched once per step by
+    replay count."""
+    build = {"ring": lambda: tbb.build_ring(2048, device=card),
+             "ring_slots": lambda: tbb.build_ring_slots(2048, 2,
+                                                        device=card),
+             "cross_shard_d8": lambda: tbb.build_cross_shard(
+                 16, 64, n_devices=8, device=card)}[cell]
+    kernel = "ring_slots" if cell == "ring_slots" else "ring_reduce"
+    g, e = build(), _eager_twin(build())
+    for s in (g, e):
+        tbb.seed_ring_full(s)
+    ptr = g.inbox_dst.data_ptr()
+    g.warmup()
+    _assert_twins(g, e, "warmup leaves the carry")
+    assert g._graphs.stats()["captures"] == 1
+    cm.reset_launches()
+    for s in (g, e):
+        s.run(5)
+        s.tell(3, [1.0, 0.0, 0.0, 0.0])
+        s.step()
+        s.run(2)
+    assert cm.LAUNCHES[kernel] == 16  # 8 graph steps + 8 eager ones
+    assert g._graphs.stats()["captures"] == 1
+    assert g.inbox_dst.data_ptr() == ptr
+    _assert_twins(g, e, cell)
+    want = np.full(g.capacity, 8, np.int32)
+    want[3] += 1  # the told row
+    np.testing.assert_array_equal(g.read_state("received"), want)
+
+
+@pytest.mark.parametrize("slots", [0, 2])
+def test_region_graph_matches_eager_twin_across_rebalances(card, slots):
+    """A region stepping on graphs and its eager twin answer the same ask
+    waves across two rebalances with the same replies and carries. The
+    captures: the steady graph at warmup, the stray graph at the first
+    run of the first hand-off window, none at leaving stray mode (the
+    region's run drains the window), at the second rebalance or after
+    it."""
+    spec = dict(n_shards=4, entities_per_shard=256, n_devices=2,
+                mailbox_slots=slots, spill_capacity=0 if slots else None,
+                spare_blocks=3)
+    regions = [DeviceShardRegion(DeviceEntity("c", counter_behavior(4),
+                                              **spec), device=card)
+               for _ in range(2)]
+    g, e = regions
+    _eager_twin(e.system)
+    g.system.warmup()
+    names = [f"e{i}" for i in range(40)]
+    picks = [i % 40 for i in range(0, 120, 7)]
+
+    def captures(r, want):
+        return r.system._graphs.stats()["captures"] == (want if r is g
+                                                          else 0)
+
+    outs = []
+    for r in regions:
+        refs = [r.entity_ref(n) for n in names]
+        reqs = [(refs[i].shard, refs[i].index, [float(i + 1)])
+                for i in picks]
+        got = r.ask_many(reqs)
+        assert captures(r, 1)
+        for k in (0, 1):
+            r.rebalance(refs[k].shard)
+            got += r.ask_many(reqs[::1 - 2 * k])
+            assert r.system.stray_mode
+            r.run(8)
+            assert not r.system.stray_mode
+            assert captures(r, 2)
+        got.append(r.ask(refs[5].shard, refs[5].index, [2.0]))
+        outs.append(got)
+    for x, y in zip(*outs):
+        np.testing.assert_array_equal(x, y)
+    _assert_twins(g.system, e.system, f"region slots={slots}")
+
+
+def test_captures_after_a_resharded_restore(card, tmp_path):
+    """A snapshot taken in the hand-off window (its wider inbox) restores
+    into a steady system through the re-sharding path: both graphs are
+    dropped and the next run captures again, where a same-shape restore
+    captures nothing."""
+    def build():
+        return tbb.build_cross_shard(16, 64, n_devices=4, device=card,
+                                     reroute_strays=True)
+
+    a = build()
+    tbb.seed_ring_full(a)
+    a.run(3)
+    a.enter_stray_mode()
+    a.run(1)
+    wide = a.checkpoint(str(tmp_path / "wide"))
+    assert a.exit_stray_mode()
+    a.run(1)
+    steady = a.checkpoint(str(tmp_path / "steady"))
+    assert a._graphs.stats()["captures"] == 2
+
+    b = build()
+    b.warmup()
+    assert b._graphs.stats()["captures"] == 1
+    b.restore(steady)
+    b.run(1)
+    assert b._graphs.stats()["captures"] == 1  # same shape: in place
+    b.restore(wide)
+    assert b._graphs.stats()["graphs"] == 0
+    b.run(2)
+    assert b._graphs.stats()["captures"] == 2
+    assert (b.read_state("received") > 0).all()
+
+
+def test_a_behavior_that_syncs_cannot_be_captured(card):
+    """A behavior reading a value with .item() makes warmup() raise an
+    error naming it; the live carry is untouched and run() raises too:
+    nothing falls back to eager."""
+    from akka_tpu_torch.batched import BatchedSystem, Emit, behavior
+    from akka_tpu_torch.batched.graphs import GraphCaptureError
+
+    @behavior("reads_item", {"n": ((), torch.int32)})
+    def reads_item(state, inbox, ctx):
+        k = int(inbox.count.sum().item())
+        return ({"n": state["n"] + k},
+                Emit.none(ctx.actor_id.shape[0], 1, 4, device=card))
+
+    s = BatchedSystem(64, [reads_item], device=card)
+    s.spawn_block(0, 64)
+    s.tell([1, 2], [1.0, 0.0, 0.0, 0.0])
+    before = numpy_carry(s)
+    with pytest.raises(GraphCaptureError, match="reads_item"):
+        s.warmup()
+    after = numpy_carry(s)
+    for k in before:
+        np.testing.assert_array_equal(before[k], after[k], err_msg=k)
+    with pytest.raises(GraphCaptureError, match="reads_item"):
+        s.run(1)
+    assert int(s.step_count.item()) == 0
+
+
+def test_stray_capture_survives_a_concurrent_pressure_poll(card):
+    """The stray graph is captured at the first rebalance, under the ask
+    lock, while another thread polls the admission pressure sources (a
+    device read each poll) in a loop: the capture holds and the poller
+    sees no error."""
+    import threading
+    from akka_tpu_torch.event.pressure import system_pressure_sources
+    region = DeviceShardRegion(DeviceEntity(
+        "c", counter_behavior(4), n_shards=4, entities_per_shard=256,
+        n_devices=1, spare_blocks=2), device=card)
+    region.system.warmup()
+    sources = system_pressure_sources(region,
+                                      ask_pool_stats=region.ask_pool_stats)
+    stop, errors, polls = threading.Event(), [], [0]
+
+    def poll():
+        while not stop.is_set():
+            try:
+                for fn in sources.values():
+                    fn()
+                polls[0] += 1
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(exc)
+
+    refs = [region.entity_ref(f"e{i}") for i in range(32)]
+    region.ask_many([(r.shard, r.index, [1.0]) for r in refs])
+    t = threading.Thread(target=poll)
+    t.start()
+    try:
+        for k in range(3):
+            region.rebalance(refs[k].shard)
+            out = region.ask_many([(r.shard, r.index, [1.0]) for r in refs])
+            assert [float(o[0]) for o in out] == [k + 2.0] * len(refs)
+    finally:
+        stop.set()
+        t.join()
+    assert not errors, errors[:3]
+    assert polls[0] > 0
+    assert region.system._graphs.stats()["captures"] == 2
