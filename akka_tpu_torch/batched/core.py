@@ -133,7 +133,11 @@ class BatchedSystem:
     reserved for host tells per flush; mailbox_slots S: 0 = commutative
     reduction inboxes, >0 = per-message mailboxes of S ordered
     (type, payload) slots (required when any behavior has inbox="slots").
-    delivery_backend: None/"auto", "ranked" or "cuda" (ops/segment.py).
+    delivery_backend: None/"auto", "ranked" or "cuda" (ops/segment.py;
+    None reads the process default when the step is captured).
+    topology: an ops.segment.StaticTopology over the n x K emission slots
+    (reduce mode only): compiled routing, no rank and no ring kernel; its
+    tensors move to the system's device once, here.
     device: where the system runs; defaults to CUDA and raises without a
     card unless device="cpu" is passed. On a card every step is a replay
     of the step's CUDA graph.

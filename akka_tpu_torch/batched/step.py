@@ -7,7 +7,10 @@ vmapped `lax.switch` does), applies supervision, and hands the emitted
 messages back to the caller, who writes them as the next inbox.
 
 Two delivery modes:
-- reduce: one segment reduction -> Inbox(sum, max, count).
+- reduce: one segment reduction -> Inbox(sum, max, count); with a
+  `topology` (StaticTopology compiled routing), the emission rows go
+  through `deliver_static` and the host-injected tail through a small
+  scatter.
 - slots:  ordered delivery -> per-actor Mailbox of up to S discrete
   (type, payload) messages in per-sender FIFO order.
 
@@ -16,7 +19,11 @@ sharded system's leading shard axis on one card): delivery and behaviors
 run once over all rows, and the counters the step returns (mailbox drops,
 supervision counts, attention words) come back per shard.
 
-`topology` (StaticTopology compiled routing) is not ported yet.
+The reference skips the static path's tail at run time (`lax.cond` on
+any live tail row); a CUDA graph cannot branch on device data without a
+sync, so the port always scatters the tail's `host_inbox` rows, and with
+`need_max` takes the merged max only where a tail row is live (a select
+on the device, which gives the reference's result).
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.segment import deliver, deliver_slots
+from ..ops.segment import Delivery, deliver, deliver_slots, deliver_static
 from .behavior import BatchedBehavior, Ctx, Emit, Inbox, Mailbox, rows
 from .graphs import GraphCaptureError, capturing
 from .supervision import (N_COUNTERS, SupervisionTables, apply_supervision,
@@ -55,10 +62,6 @@ class StepCore:
                  delivery_backend: Optional[str] = None,
                  attention_latch_col: Optional[str] = None, device=None,
                  n_shards: Optional[int] = None):
-        if topology is not None:
-            raise NotImplementedError(
-                "StaticTopology routing (deliver_static) is not ported yet; "
-                "build the system with topology=None (dynamic delivery)")
         self.behaviors = list(behaviors)
         self.n_local = int(n_local)
         self.n_global = int(n_global if n_global is not None else n_local)
@@ -68,6 +71,10 @@ class StepCore:
         self.slots = int(slots)
         self.need_max = need_max
         self.delivery = delivery
+        # compiled routing (ops.segment.StaticTopology), its tensors on the
+        # step's device, moved once here: a captured step reads them in place
+        self.topology = None if topology is None else topology.to(
+            device if device is not None else "cpu")
         # kernel implementation seam (ops/segment.py): None/"auto",
         # "ranked" or "cuda"
         self.delivery_backend = delivery_backend
@@ -83,6 +90,14 @@ class StepCore:
                 raise ValueError(
                     f"behaviors {bad} need per-message mailboxes: construct "
                     f"the system with mailbox_slots > 0")
+        if self.slots > 0 and topology is not None:
+            raise ValueError("StaticTopology routing is a reduce-mode "
+                             "optimization; slots mode uses dynamic delivery")
+        if topology is not None and \
+                topology.n * topology.k != self.n_local * self.out_degree:
+            raise ValueError(
+                f"topology routes {topology.n} x {topology.k} emission slots;"
+                f" the step emits {self.n_local} x {self.out_degree}")
         self.sup = SupervisionTables(self.behaviors, device)
         # which behaviors consume ordered slots: overflow past the slot cap
         # is a real drop only for these
@@ -148,8 +163,39 @@ class StepCore:
                                  suspended=suspended,
                                  backend=self.delivery_backend,
                                  shards=shards)
+        if self.topology is not None:
+            nk = n * self.out_degree
+            d = deliver_static(self.topology, self.topology.runtime_arrays(),
+                               inbox_payload[:nk], inbox_valid[:nk],
+                               self.need_max)
+            if inbox_dst.shape[0] > nk:
+                d = self._add_tail(d, dst[nk:], inbox_payload[nk:],
+                                   inbox_valid[nk:])
+            return d
         return deliver(dst, inbox_payload, inbox_valid, n, self.need_max,
                        mode=self.delivery, backend=self.delivery_backend)
+
+    def _add_tail(self, d: Delivery, dst, payload, valid) -> Delivery:
+        """The static path's host-injected tail (every step: see the module
+        docstring). Without need_max its few rows add in place into the
+        static delivery's fresh sums and counts (a dead row adds zeros to
+        row 0); with it, the reference's merge: a scatter delivery of the
+        tail, summed, and the elementwise max of both maxes, taken only
+        when a tail row is live (the reference's lax.cond, as a select on
+        the device so that a graph can capture it)."""
+        n = self.n_local
+        if self.need_max:
+            hd = deliver(dst, payload, valid, n, True, mode="scatter")
+            merged = torch.maximum(d.max, hd.max)
+            return Delivery(sum=d.sum + hd.sum,
+                            max=torch.where(valid.any(), merged, d.max),
+                            count=d.count + hd.count)
+        ok = valid & (dst >= 0) & (dst < n)
+        key = torch.where(ok, dst, 0).long()
+        d.sum.index_add_(0, key, torch.where(ok[:, None], payload, 0)
+                         .to(d.sum.dtype))
+        d.count.index_add_(0, key, ok.to(torch.int32))
+        return d
 
     def _per_shard(self, x: torch.Tensor) -> torch.Tensor:
         """Sum an [n_local, ...] row quantity per shard ([D, ...]), or over

@@ -52,10 +52,22 @@
 // sectors. ring_fill's gather of type and payload by claimed row is random
 // on random traffic. Hot recipients (fan-in collectors) serialise their
 // atomics in L2.
+//
+// Payload types T (the reference's outputs take the payload's dtype):
+// float, int32 and bf16, each with an accumulator A: float for float and
+// bf16, int for int32 (exact; wraps as int32 arithmetic does). A bf16
+// accumulator would stop growing (256 + 1 rounds to 256 in bf16), so bf16
+// sums land in a float32 scratch [n, p] and are rounded once
+// (__float2bfloat16, round to nearest even): by `round_sums` after K1's
+// sweep, by ring_fill in K2. Only float rows take the 16-byte vector path
+// (float4 loads and vector atomics: no int or bf16 vector atomic exists);
+// int32 and bf16 rows add and copy column by column.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -66,6 +78,35 @@ constexpr int kThreads = 256;
 // threads resident) measured faster than two or four on random traffic.
 constexpr int kReduceRows = 4;
 constexpr int kClaimRows = 1;
+
+// the C entries' dtype codes (ops/cuda_mailbox.py DTYPES)
+enum DtypeCode { kF32 = 0, kI32 = 1, kBF16 = 2 };
+
+template <typename T>
+struct Acc {
+  using type = T;
+};
+template <>
+struct Acc<__nv_bfloat16> {
+  using type = float;
+};
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ int widen(int x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ int zero_of<int>() { return 0; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
 
 // d when row j is accepted, else -1.
 __device__ __forceinline__ int accept(const int* __restrict__ dst,
@@ -80,29 +121,31 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// Adds one payload row into acc. VEC: p % 4 == 0 and 16-byte aligned rows;
-// `head` holds the row's first four columns, loaded ahead by the caller.
-template <bool VEC>
-__device__ __forceinline__ void add_row(const float* __restrict__ src,
-                                        float* __restrict__ acc, int p,
-                                        float4 head) {
-  if (VEC) {
+// Adds one payload row into acc. VEC (float only): p % 4 == 0 and 16-byte
+// aligned rows; `head` holds the row's first four columns, loaded ahead by
+// the caller.
+template <bool VEC, typename T>
+__device__ __forceinline__ void add_row(const T* __restrict__ src,
+                                        typename Acc<T>::type* __restrict__ acc,
+                                        int p, float4 head) {
+  if constexpr (VEC) {
     atomicAdd(reinterpret_cast<float4*>(acc), head);
     for (int c = 4; c < p; c += 4)
       atomicAdd(reinterpret_cast<float4*>(acc + c), load4(src + c));
   } else {
-    for (int c = 0; c < p; ++c) atomicAdd(acc + c, src[c]);
+    for (int c = 0; c < p; ++c) atomicAdd(acc + c, widen(src[c]));
   }
 }
 
 // The sweep both kernels share: accept ROWS rows of this thread, load
 // their first payload columns, count and sum them. With CLAIM, also the
 // cascaded claim into first [n, slots].
-template <int ROWS, bool VEC, bool CLAIM>
+template <int ROWS, bool VEC, bool CLAIM, typename T>
 __global__ void __launch_bounds__(kThreads)
-ring_sweep(const int* __restrict__ dst, const float* __restrict__ payload,
+ring_sweep(const int* __restrict__ dst, const T* __restrict__ payload,
            const uint8_t* __restrict__ valid, int m, int n, int p,
-           int slots, int* __restrict__ counts, float* __restrict__ sums,
+           int slots, int* __restrict__ counts,
+           typename Acc<T>::type* __restrict__ sums,
            int* __restrict__ first) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads * ROWS +
                        threadIdx.x;
@@ -112,8 +155,11 @@ ring_sweep(const int* __restrict__ dst, const float* __restrict__ payload,
   for (int r = 0; r < ROWS; ++r) {
     const int64_t j = base + r * kThreads;
     d[r] = accept(dst, valid, j, m, n);
-    head[r] = VEC && d[r] >= 0 ? load4(payload + j * p)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (VEC)
+      head[r] = d[r] >= 0 ? load4(payload + j * p)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    else
+      head[r] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   int old[ROWS];  // what level 0 held before this row's claim
   if (CLAIM) {
@@ -131,8 +177,8 @@ ring_sweep(const int* __restrict__ dst, const float* __restrict__ payload,
     if (d[r] < 0) continue;
     const int64_t j = base + r * kThreads;
     atomicAdd(counts + d[r], 1);
-    add_row<VEC>(payload + j * p, sums + static_cast<int64_t>(d[r]) * p, p,
-                 head[r]);
+    add_row<VEC, T>(payload + j * p, sums + static_cast<int64_t>(d[r]) * p,
+                    p, head[r]);
   }
   if (CLAIM) {
 #pragma unroll
@@ -150,26 +196,37 @@ ring_sweep(const int* __restrict__ dst, const float* __restrict__ payload,
   }
 }
 
-template <bool VEC>
+// bf16 sums: the float32 accumulator rounded once into the output.
 __global__ void __launch_bounds__(kThreads)
-ring_fill(const int* __restrict__ mtype, const float* __restrict__ payload,
+round_sums(const float* __restrict__ acc, __nv_bfloat16* __restrict__ out,
+           int64_t count) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < count) out[i] = __float2bfloat16(acc[i]);
+}
+
+// One thread per ring cell. For bf16, the thread of each recipient's first
+// cell also rounds its row of the float32 accumulator `acc` into `sums`.
+template <bool VEC, typename T>
+__global__ void __launch_bounds__(kThreads)
+ring_fill(const int* __restrict__ mtype, const T* __restrict__ payload,
           int m, int n, int p, int slots, const int* __restrict__ counts,
           const int* __restrict__ first, int* __restrict__ buf_t,
-          float* __restrict__ buf_p, uint8_t* __restrict__ buf_v,
-          int* __restrict__ dropped) {
+          T* __restrict__ buf_p, uint8_t* __restrict__ buf_v,
+          int* __restrict__ dropped, const float* __restrict__ acc,
+          T* __restrict__ sums) {
   // 32-bit cell index (the caller keeps n * slots below 2^31): a 64-bit
   // division per thread measured slower
   const unsigned i = blockIdx.x * kThreads + threadIdx.x;
   int over = 0;
   if (i < static_cast<unsigned>(n) * slots) {
     const int f = first[i];           // first is [n, slots]: cell order
-    float* out = buf_p + static_cast<int64_t>(i) * p;
+    T* out = buf_p + static_cast<int64_t>(i) * p;
     if (f != 0) {
       const int64_t j = m - f;
-      const float* src = payload + j * p;
+      const T* src = payload + j * p;
       buf_t[i] = mtype[j];
       buf_v[i] = 1;
-      if (VEC) {
+      if constexpr (VEC) {
         for (int c = 0; c < p; c += 4)
           *reinterpret_cast<float4*>(out + c) = load4(src + c);
       } else {
@@ -178,14 +235,22 @@ ring_fill(const int* __restrict__ mtype, const float* __restrict__ payload,
     } else {
       buf_t[i] = 0;
       buf_v[i] = 0;
-      if (VEC) {
+      if constexpr (VEC) {
         for (int c = 0; c < p; c += 4)
           *reinterpret_cast<float4*>(out + c) = make_float4(0, 0, 0, 0);
       } else {
-        for (int c = 0; c < p; ++c) out[c] = 0.f;
+        for (int c = 0; c < p; ++c) out[c] = zero_of<T>();
       }
     }
-    if (i % slots == 0) over = max(counts[i / slots] - slots, 0);
+    if (i % slots == 0) {
+      const unsigned d = i / slots;
+      over = max(counts[d] - slots, 0);
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        const int64_t row = static_cast<int64_t>(d) * p;
+        for (int c = 0; c < p; ++c)
+          sums[row + c] = __float2bfloat16(acc[row + c]);
+      }
+    }
   }
   // block-wide sum of the overflow, then one atomic per block
   for (int off = 16; off > 0; off >>= 1)
@@ -211,50 +276,63 @@ bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-template <bool CLAIM>
-void launch_sweep(bool vec, const int* dst, const float* payload,
+template <bool CLAIM, typename T>
+void launch_sweep(bool vec, const int* dst, const T* payload,
                   const uint8_t* valid, int m, int n, int p, int slots,
-                  int* counts, float* sums, int* first, cudaStream_t s) {
+                  int* counts, typename Acc<T>::type* sums, int* first,
+                  cudaStream_t s) {
   constexpr int rows = CLAIM ? kClaimRows : kReduceRows;
   const int grid = blocks_for(m, kThreads * rows);
-  if (vec)
-    ring_sweep<rows, true, CLAIM><<<grid, kThreads, 0, s>>>(
-        dst, payload, valid, m, n, p, slots, counts, sums, first);
-  else
-    ring_sweep<rows, false, CLAIM><<<grid, kThreads, 0, s>>>(
-        dst, payload, valid, m, n, p, slots, counts, sums, first);
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      ring_sweep<rows, true, CLAIM, T><<<grid, kThreads, 0, s>>>(
+          dst, payload, valid, m, n, p, slots, counts, sums, first);
+      return;
+    }
+  }
+  ring_sweep<rows, false, CLAIM, T><<<grid, kThreads, 0, s>>>(
+      dst, payload, valid, m, n, p, slots, counts, sums, first);
 }
 
-}  // namespace
-
-// K1. counts [n] int32 and sums [n, p] float32 are zeroed here.
-extern "C" int ring_reduce(const void* dst, const void* payload,
-                           const void* valid, int m, int n, int p,
-                           void* counts, void* sums, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
+// K1 for payload type T: zero counts and the accumulator, sweep, and for
+// bf16 round the accumulator into sums.
+template <typename T>
+int reduce_impl(const void* dst, const void* payload, const void* valid,
+                int m, int n, int p, void* counts, void* sums, void* acc,
+                cudaStream_t s) {
+  using A = typename Acc<T>::type;
+  constexpr bool kRound = !std::is_same<A, T>::value;
+  A* into = kRound ? static_cast<A*>(acc) : static_cast<A*>(sums);
+  if (into == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t elems = int64_t(n) * p;
   cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * int64_t(n), s);
   if (err == cudaSuccess)
-    err = cudaMemsetAsync(sums, 0, sizeof(float) * int64_t(n) * p, s);
+    err = cudaMemsetAsync(into, 0, sizeof(A) * elems, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = p % 4 == 0 && aligned16(payload) && aligned16(sums);
-  launch_sweep<false>(vec, static_cast<const int*>(dst),
-                      static_cast<const float*>(payload),
-                      static_cast<const uint8_t*>(valid), m, n, p, 0,
-                      static_cast<int*>(counts), static_cast<float*>(sums),
-                      nullptr, s);
+  const bool vec = p % 4 == 0 && aligned16(payload) && aligned16(into);
+  launch_sweep<false, T>(vec, static_cast<const int*>(dst),
+                         static_cast<const T*>(payload),
+                         static_cast<const uint8_t*>(valid), m, n, p, 0,
+                         static_cast<int*>(counts), into, nullptr, s);
+  if constexpr (kRound) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    round_sums<<<blocks_for(elems, kThreads), kThreads, 0, s>>>(
+        into, static_cast<__nv_bfloat16*>(sums), elems);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2. scratch is int32 [n + n * slots + 1]: counts [n], then first
-// [n, slots], then dropped [1]; it and sums [n, p] are zeroed here.
-// buf_t [n * slots] int32, buf_p [n * slots, p] float32 and buf_v
-// [n * slots] bool are fully written. n * slots must stay below 2^31.
-extern "C" int ring_slots(const void* dst, const void* mtype,
-                          const void* payload, const void* valid, int m,
-                          int n, int p, int slots, void* scratch, void* sums,
-                          void* buf_t, void* buf_p, void* buf_v,
-                          void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
+// K2 for payload type T (see ring_slots below).
+template <typename T>
+int slots_impl(const void* dst, const void* mtype, const void* payload,
+               const void* valid, int m, int n, int p, int slots,
+               void* scratch, void* sums, void* acc, void* buf_t,
+               void* buf_p, void* buf_v, cudaStream_t s) {
+  using A = typename Acc<T>::type;
+  constexpr bool kRound = !std::is_same<A, T>::value;
+  A* into = kRound ? static_cast<A*>(acc) : static_cast<A*>(sums);
+  if (into == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t cells = int64_t(n) * slots;
   int* counts = static_cast<int*>(scratch);
   int* first = counts + n;
@@ -262,27 +340,85 @@ extern "C" int ring_slots(const void* dst, const void* mtype,
   cudaError_t err =
       cudaMemsetAsync(scratch, 0, sizeof(int) * (n + cells + 1), s);
   if (err == cudaSuccess)
-    err = cudaMemsetAsync(sums, 0, sizeof(float) * int64_t(n) * p, s);
+    err = cudaMemsetAsync(into, 0, sizeof(A) * int64_t(n) * p, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = p % 4 == 0 && aligned16(payload) && aligned16(sums) &&
-                   aligned16(buf_p);
-  const auto* pay = static_cast<const float*>(payload);
-  launch_sweep<true>(vec, static_cast<const int*>(dst), pay,
-                     static_cast<const uint8_t*>(valid), m, n, p, slots,
-                     counts, static_cast<float*>(sums), first, s);
+  const bool vec = std::is_same<T, float>::value && p % 4 == 0 &&
+                   aligned16(payload) && aligned16(into) && aligned16(buf_p);
+  const auto* pay = static_cast<const T*>(payload);
+  launch_sweep<true, T>(vec, static_cast<const int*>(dst), pay,
+                        static_cast<const uint8_t*>(valid), m, n, p, slots,
+                        counts, into, first, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = blocks_for(cells, kThreads);
   const auto* t = static_cast<const int*>(mtype);
   auto* bt = static_cast<int*>(buf_t);
-  auto* bp = static_cast<float*>(buf_p);
+  auto* bp = static_cast<T*>(buf_p);
   auto* bv = static_cast<uint8_t*>(buf_v);
-  if (vec)
-    ring_fill<true><<<grid, kThreads, 0, s>>>(t, pay, m, n, p, slots, counts,
-                                              first, bt, bp, bv, dropped);
-  else
-    ring_fill<false><<<grid, kThreads, 0, s>>>(t, pay, m, n, p, slots,
-                                               counts, first, bt, bp, bv,
-                                               dropped);
+  const float* round_from = nullptr;
+  if constexpr (kRound) round_from = into;
+  if (vec) {
+    if constexpr (std::is_same<T, float>::value)
+      ring_fill<true, T><<<grid, kThreads, 0, s>>>(
+          t, pay, m, n, p, slots, counts, first, bt, bp, bv, dropped,
+          nullptr, nullptr);
+  } else {
+    ring_fill<false, T><<<grid, kThreads, 0, s>>>(
+        t, pay, m, n, p, slots, counts, first, bt, bp, bv, dropped,
+        round_from, static_cast<T*>(sums));
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1. counts [n] int32 and sums [n, p] of the payload's type (dtype: 0
+// float32, 1 int32, 2 bf16) are zeroed here; for bf16, acc is a float32
+// [n, p] accumulator (zeroed here, then rounded into sums), else unused.
+extern "C" int ring_reduce(const void* dst, const void* payload,
+                           const void* valid, int m, int n, int p, int dtype,
+                           void* counts, void* sums, void* acc,
+                           void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return reduce_impl<float>(dst, payload, valid, m, n, p, counts, sums,
+                                acc, s);
+    case kI32:
+      return reduce_impl<int>(dst, payload, valid, m, n, p, counts, sums,
+                              acc, s);
+    case kBF16:
+      return reduce_impl<__nv_bfloat16>(dst, payload, valid, m, n, p,
+                                        counts, sums, acc, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K2. scratch is int32 [n + n * slots + 1]: counts [n], then first
+// [n, slots], then dropped [1]; it and the sums' accumulator (sums, or acc
+// for bf16) are zeroed here. buf_t [n * slots] int32, buf_p
+// [n * slots, p] of the payload's type and buf_v [n * slots] bool are
+// fully written, and for bf16 sums [n, p] too. n * slots must stay below
+// 2^31.
+extern "C" int ring_slots(const void* dst, const void* mtype,
+                          const void* payload, const void* valid, int m,
+                          int n, int p, int slots, int dtype, void* scratch,
+                          void* sums, void* acc, void* buf_t, void* buf_p,
+                          void* buf_v, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return slots_impl<float>(dst, mtype, payload, valid, m, n, p, slots,
+                               scratch, sums, acc, buf_t, buf_p, buf_v, s);
+    case kI32:
+      return slots_impl<int>(dst, mtype, payload, valid, m, n, p, slots,
+                             scratch, sums, acc, buf_t, buf_p, buf_v, s);
+    case kBF16:
+      return slots_impl<__nv_bfloat16>(dst, mtype, payload, valid, m, n, p,
+                                       slots, scratch, sums, acc, buf_t,
+                                       buf_p, buf_v, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,9 +1,11 @@
 """The reference's bench topologies as batched-behavior 'models'.
 
-Port of `akka_tpu/models/baseline_benches.py`, dynamic delivery only (the
-path the ring-mailbox kernel is on; StaticTopology is not ported yet):
+Port of `akka_tpu/models/baseline_benches.py`:
 - ring:   every actor holds one token and forwards it to the next each step
 - fan_in: 1M leaves -> 1k collectors, every leaf sending every step
+  (both compile their fixed wiring to a StaticTopology by default, as the
+  reference does: the ring to a roll, the fan-in to a reshape-sum;
+  static=False delivers dynamically, through the ring-mailbox kernel)
 - cross_shard (bench config 5): 256 logical shards x 4096 entities on a
   ShardedBatchedSystem, every token forwarded to the same slot of the next
   shard, so all traffic rides the exchange
@@ -14,10 +16,12 @@ path the ring-mailbox kernel is on; StaticTopology is not ported yet):
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..batched import BatchedSystem, Emit, behavior
 from ..batched.sharded import ShardedBatchedSystem
+from ..ops.segment import StaticTopology
 
 PAYLOAD_W = 4
 
@@ -51,16 +55,18 @@ def fan_in_collector(state, inbox, ctx):
                       device=ctx.actor_id.device))
 
 
-def build_ring(n: int = 1 << 20, static: bool = False, delivery: str = "auto",
+def build_ring(n: int = 1 << 20, static: bool = True, delivery: str = "auto",
                device=None, **kwargs) -> BatchedSystem:
-    """n-actor ring. `kwargs` go to BatchedSystem (delivery_backend,
-    mailbox_slots, ...)."""
+    """n-actor ring; static=True compiles its wiring (kind "shift").
+    `kwargs` go to BatchedSystem (delivery_backend, payload_dtype, ...)."""
+    topo = None
     if static:
-        raise NotImplementedError("StaticTopology is not ported yet; "
-                                  "use static=False")
+        dst_table = ((np.arange(n, dtype=np.int64) + 1) % n)[:, None]
+        topo = StaticTopology.from_dst_table(dst_table)
     sys = BatchedSystem(capacity=n, behaviors=[ring_behavior],
                         payload_width=PAYLOAD_W, host_inbox=8,
-                        delivery=delivery, device=device, **kwargs)
+                        delivery=delivery, device=device, topology=topo,
+                        **kwargs)
     sys.spawn_block(ring_behavior, n)
     return sys
 
@@ -119,21 +125,25 @@ def build_ring_slots(n: int = 1 << 20, slots: int = 2, device=None,
 
 
 def build_fan_in(n_leaves: int = 1 << 20, n_collectors: int = 1000,
-                 static: bool = False, device=None,
+                 static: bool = True, device=None,
                  **kwargs) -> BatchedSystem:
     """n_leaves leaves -> n_collectors collectors (rows [0, n_collectors)).
-    Capacity rounds up to a multiple of n_collectors, as in the reference;
-    the padding rows are never spawned."""
-    if static:
-        raise NotImplementedError("StaticTopology is not ported yet; "
-                                  "use static=False")
+    Capacity rounds up to a multiple of n_collectors, as in the reference,
+    so that static=True compiles the wiring to kind "mod" (a reshape-sum)
+    and not "csr"; the padding rows are never spawned."""
     n = n_leaves + n_collectors
     if n % n_collectors:
         n += n_collectors - n % n_collectors
+    topo = None
+    if static:
+        ids = np.arange(n, dtype=np.int64)
+        dst_table = np.where(ids >= n_collectors, ids % n_collectors,
+                             -1)[:, None]
+        topo = StaticTopology.from_dst_table(dst_table)
     leaf = make_fan_in_leaf(n_collectors)
     sys = BatchedSystem(capacity=n, behaviors=[fan_in_collector, leaf],
                         payload_width=PAYLOAD_W, host_inbox=8, device=device,
-                        **kwargs)
+                        topology=topo, **kwargs)
     sys.spawn_block(fan_in_collector, n_collectors)
     sys.spawn_block(leaf, n_leaves)
     return sys

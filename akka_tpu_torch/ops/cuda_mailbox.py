@@ -10,9 +10,15 @@ kernel. Its two modes are two kernels in practice, and both sit behind the
   arrival order in its ring (types, payload, valid), and `dropped` = valid
   rows past `slots`. C entry `ring_slots`.
 
+Payloads are float32, int32 or bf16 (`DTYPES`); the outputs take the
+payload's dtype, as the reference's do. Sums accumulate in float32 for
+bf16 (a bf16 accumulator stops growing: 256 + 1 rounds to 256) and round
+once; int32 sums wrap as int32 arithmetic does.
+
 Each C entry zeroes its own outputs (`cudaMemsetAsync`) and launches one
-kernel (K1) or two (K2); `launch_reduce`/`launch_slots` call it on outputs
-the caller allocated, so a benchmark can time the C entry alone.
+kernel (K1; K1 in bf16 two: the sweep and the rounding) or two (K2);
+`launch_reduce`/`launch_slots` call it on outputs the caller allocated, so
+a benchmark can time the C entry alone.
 
 On a CUDA tensor each wrapper launches its kernel through ctypes or raises;
 on a CPU tensor it runs the plain PyTorch version beside it
@@ -42,7 +48,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .segment import Delivery, SlotDelivery, _segment_max
+from .segment import (Delivery, SlotDelivery, _neg_inf, _segment_max,
+                      _segment_sums)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "ring_mailbox.cu"
@@ -50,8 +57,11 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# kernel launches per C entry (incremented only where a kernel launches)
+# kernel launches per C entry, whatever the dtype (incremented only where
+# a kernel launches)
 LAUNCHES = {"ring_reduce": 0, "ring_slots": 0}
+# payload dtypes of the kernels -> the C entries' dtype code
+DTYPES = {torch.float32: 0, torch.int32: 1, torch.bfloat16: 2}
 
 _INT_MAX = 2 ** 31 - 1
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
@@ -71,7 +81,7 @@ def unsupported_reason(n_actors: int, p: int, slots: int = 1,
 
     Spill generations and the per-recipient kind/suspension masks are
     redelivery machinery the ring kernel does not model; payloads are
-    float32 (bf16 is queued).
+    float32, int32 or bf16 (float16 and float64 rank).
 
     There is NO cap on accumulator state. The reference caps it at 8 MiB
     (`pallas_mailbox.py:59`), a TPU VMEM budget: rings, cursors and sums
@@ -88,7 +98,7 @@ def unsupported_reason(n_actors: int, p: int, slots: int = 1,
         return "suspended"
     if n_actors < 1 or slots < 1 or p < 1:
         return f"shape n_actors={n_actors} slots={slots} p={p}"
-    if dtype != torch.float32:
+    if dtype not in DTYPES:
         return f"payload dtype {dtype}"
     if n_actors * slots >= _INT_MAX:
         return f"{n_actors} x {slots} ring cells exceed the int32 cell index"
@@ -141,10 +151,11 @@ def compile_library(source: Path = SOURCE,
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument types of `ring_reduce` and `ring_slots`."""
-    lib.ring_reduce.argtypes = [_VP, _VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP]
+    lib.ring_reduce.argtypes = [_VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP, _VP,
+                                _VP, _VP]
     lib.ring_reduce.restype = _CI
-    lib.ring_slots.argtypes = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP,
-                               _VP, _VP, _VP, _VP, _VP]
+    lib.ring_slots.argtypes = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI,
+                               _VP, _VP, _VP, _VP, _VP, _VP, _VP]
     lib.ring_slots.restype = _CI
     return lib
 
@@ -165,8 +176,11 @@ def _check(dst, payload, valid, mtype=None) -> Tuple[int, int]:
     if payload.dim() != 2:
         raise ValueError(f"payload must be [M, P], got {tuple(payload.shape)}")
     m, p = payload.shape
+    if payload.dtype not in DTYPES:
+        raise ValueError(f"payload must be one of {tuple(DTYPES)}, got "
+                         f"{payload.dtype}")
     named = [("dst", dst, torch.int32, (m,)),
-             ("payload", payload, torch.float32, (m, p)),
+             ("payload", payload, payload.dtype, (m, p)),
              ("valid", valid, torch.bool, (m,))]
     if mtype is not None:
         named.append(("mtype", mtype, torch.int32, (m,)))
@@ -198,16 +212,18 @@ def _stream(t: torch.Tensor) -> int:
 
 def ring_reduce_plain(dst, payload, valid,
                       n_actors: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 in plain PyTorch: (counts [n] int32, sums [n, P]) over rows with
-    valid & 0 <= dst < n, accumulated in row (arrival) order."""
+    """K1 in plain PyTorch: (counts [n] int32, sums [n, P] in the payload's
+    dtype) over rows with valid & 0 <= dst < n, accumulated in row
+    (arrival) order in the kernel's accumulator (float32 for bf16) and
+    rounded once."""
     ok = valid & (dst >= 0) & (dst < n_actors)
     key = torch.where(ok, dst, n_actors).long()
     counts = torch.zeros((n_actors + 1,), dtype=torch.int32,
                          device=dst.device).index_add_(
         0, key, ok.to(torch.int32))
-    sums = payload.new_zeros((n_actors + 1, payload.shape[1])).index_add_(
-        0, key, torch.where(ok[:, None], payload, 0).to(payload.dtype))
-    return counts[:n_actors], sums[:n_actors]
+    sums = _segment_sums(torch.where(ok[:, None], payload, 0)
+                         .to(payload.dtype), key, n_actors)
+    return counts[:n_actors], sums
 
 
 def ring_slots_plain(dst, mtype, payload, valid, n_actors: int, slots: int):
@@ -243,63 +259,82 @@ def ring_slots_plain(dst, mtype, payload, valid, n_actors: int, slots: int):
 
 # ------------------------------------------------------------ the kernels
 
-def reduce_outputs(n_actors: int, p: int, device) -> Tuple[torch.Tensor,
-                                                           torch.Tensor]:
-    """Uninitialised (counts [n] int32, sums [n, P] float32) for
-    `launch_reduce`, which zeroes them."""
+def reduce_outputs(n_actors: int, p: int, device,
+                   dtype: torch.dtype = torch.float32):
+    """Uninitialised (counts [n] int32, sums [n, P] in `dtype`, acc) for
+    `launch_reduce`, which zeroes them; acc is the float32 [n, P]
+    accumulator for bf16, None otherwise."""
     return (torch.empty((n_actors,), dtype=torch.int32, device=device),
-            torch.empty((n_actors, p), dtype=torch.float32, device=device))
+            torch.empty((n_actors, p), dtype=dtype, device=device),
+            _acc_scratch(n_actors, p, device, dtype))
 
 
-def slots_outputs(n_actors: int, p: int, slots: int, device):
-    """Uninitialised (scratch, sums, buf_t, buf_p, buf_v) for
-    `launch_slots`, which zeroes scratch and sums and writes every ring
-    cell. scratch is int32 [n + n * slots + 1]: counts, the claim levels
-    [n, slots], dropped."""
+def slots_outputs(n_actors: int, p: int, slots: int, device,
+                  dtype: torch.dtype = torch.float32):
+    """Uninitialised (scratch, sums, acc, buf_t, buf_p, buf_v) for
+    `launch_slots`, which zeroes scratch, sums and acc and writes every
+    ring cell. scratch is int32 [n + n * slots + 1]: counts, the claim
+    levels [n, slots], dropped; sums and buf_p take `dtype`; acc as in
+    `reduce_outputs`."""
     return (torch.empty((n_actors * (1 + slots) + 1,), dtype=torch.int32,
                         device=device),
-            torch.empty((n_actors, p), dtype=torch.float32, device=device),
+            torch.empty((n_actors, p), dtype=dtype, device=device),
+            _acc_scratch(n_actors, p, device, dtype),
             torch.empty((n_actors, slots), dtype=torch.int32, device=device),
-            torch.empty((n_actors, slots, p), dtype=torch.float32,
-                        device=device),
+            torch.empty((n_actors, slots, p), dtype=dtype, device=device),
             torch.empty((n_actors, slots), dtype=torch.bool, device=device))
 
 
-def launch_reduce(lib, dst, payload, valid, n_actors: int, counts,
-                  sums) -> None:
+def _acc_scratch(n_actors: int, p: int, device,
+                 dtype: torch.dtype) -> Optional[torch.Tensor]:
+    if dtype != torch.bfloat16:
+        return None
+    return torch.empty((n_actors, p), dtype=torch.float32, device=device)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def launch_reduce(lib, dst, payload, valid, n_actors: int, counts, sums,
+                  acc=None) -> None:
     """Call the C entry `ring_reduce` of `lib` on checked inputs and the
     outputs of `reduce_outputs`; raises on a launch error."""
     m, p = payload.shape
     with torch.cuda.device(dst.device):
         err = lib.ring_reduce(
             dst.data_ptr(), payload.data_ptr(), valid.data_ptr(), m,
-            n_actors, p, counts.data_ptr(), sums.data_ptr(), _stream(dst))
+            n_actors, p, DTYPES[payload.dtype], counts.data_ptr(),
+            sums.data_ptr(), _ptr(acc), _stream(dst))
     _raise_on(err, "ring_reduce")
 
 
 def launch_slots(lib, dst, mtype, payload, valid, n_actors: int, slots: int,
-                 scratch, sums, buf_t, buf_p, buf_v) -> None:
+                 scratch, sums, acc, buf_t, buf_p, buf_v) -> None:
     """Call the C entry `ring_slots` of `lib` on checked inputs and the
     outputs of `slots_outputs`; raises on a launch error."""
     m, p = payload.shape
     with torch.cuda.device(dst.device):
         err = lib.ring_slots(
             dst.data_ptr(), mtype.data_ptr(), payload.data_ptr(),
-            valid.data_ptr(), m, n_actors, p, slots, scratch.data_ptr(),
-            sums.data_ptr(), buf_t.data_ptr(), buf_p.data_ptr(),
-            buf_v.data_ptr(), _stream(dst))
+            valid.data_ptr(), m, n_actors, p, slots,
+            DTYPES[payload.dtype], scratch.data_ptr(), sums.data_ptr(),
+            _ptr(acc), buf_t.data_ptr(), buf_p.data_ptr(), buf_v.data_ptr(),
+            _stream(dst))
     _raise_on(err, "ring_slots")
 
 
 def ring_reduce(dst, payload, valid, n_actors: int):
-    """K1: (counts [n] int32, sums [n, P] float32). Launches
-    `ring_sweep` on a CUDA tensor, runs `ring_reduce_plain` on a CPU
-    one. Sums accumulate by float atomics, in no fixed order."""
+    """K1: (counts [n] int32, sums [n, P] in the payload's dtype).
+    Launches `ring_sweep` (and for bf16 `round_sums`) on a CUDA tensor,
+    runs `ring_reduce_plain` on a CPU one. Float sums accumulate by float
+    atomics, in no fixed order."""
     if not dst.is_cuda:
         return ring_reduce_plain(dst, payload, valid, n_actors)
     _, p = _check(dst, payload, valid)
-    counts, sums = reduce_outputs(n_actors, p, dst.device)
-    launch_reduce(build(), dst, payload, valid, n_actors, counts, sums)
+    counts, sums, acc = reduce_outputs(n_actors, p, dst.device,
+                                       payload.dtype)
+    launch_reduce(build(), dst, payload, valid, n_actors, counts, sums, acc)
     LAUNCHES["ring_reduce"] += 1
     return counts, sums
 
@@ -314,10 +349,10 @@ def ring_slots(dst, mtype, payload, valid, n_actors: int, slots: int):
     if n_actors * slots >= _INT_MAX:
         raise ValueError(f"{n_actors} x {slots} ring cells exceed the int32 "
                          f"cell index")
-    scratch, sums, buf_t, buf_p, buf_v = slots_outputs(n_actors, p, slots,
-                                                       dst.device)
+    scratch, sums, acc, buf_t, buf_p, buf_v = slots_outputs(
+        n_actors, p, slots, dst.device, payload.dtype)
     launch_slots(build(), dst, mtype, payload, valid, n_actors, slots,
-                 scratch, sums, buf_t, buf_p, buf_v)
+                 scratch, sums, acc, buf_t, buf_p, buf_v)
     LAUNCHES["ring_slots"] += 1
     return buf_t, buf_p, buf_v, scratch[:n_actors], sums, scratch[-1]
 
@@ -326,16 +361,17 @@ def ring_slots(dst, mtype, payload, valid, n_actors: int, slots: int):
 
 def _merge_style_max(dst, payload, valid, n_actors: int, need_max: bool):
     """The reference's max convention around its kernel (plain torch, as in
-    the reference): invalid rows contribute -inf, recipients with no rows
-    read back 0."""
+    the reference): invalid rows contribute the dtype's -inf (an int's
+    minimum), recipients with no rows read back 0."""
     p = payload.shape[1]
     if not need_max:
         return payload.new_zeros((n_actors, p))
     ok = valid & (dst >= 0) & (dst < n_actors)
     key = torch.where(ok, dst, n_actors).long()
-    maxs = _segment_max(torch.where(ok[:, None], payload, float("-inf"))
-                        .to(payload.dtype), key, n_actors + 1)[:n_actors]
-    return torch.where(maxs <= float("-inf"), 0, maxs).to(payload.dtype)
+    neg_inf = _neg_inf(payload.dtype)
+    maxs = _segment_max(torch.where(ok[:, None], payload, neg_inf)
+                        .to(payload.dtype), key, n_actors)
+    return torch.where(maxs <= neg_inf, 0, maxs).to(payload.dtype)
 
 
 def deliver_reduce(dst, payload, valid, n_actors: int,

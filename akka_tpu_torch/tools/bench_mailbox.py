@@ -77,8 +77,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def make_pattern(name: str, m: int, n: int, p: int, seed: int,
-                 device="cuda"):
-    """(dst, mtype, payload, valid) of one traffic pattern (see above)."""
+                 device="cuda", dtype: torch.dtype = torch.float32):
+    """(dst, mtype, payload, valid) of one traffic pattern (see above).
+    The payload is standard normal in float32 and rounded to bf16, or
+    integers in [-1000, 1000) in int32 (drawn last: the other columns are
+    the float32 pattern's)."""
     g = torch.Generator(device=device).manual_seed(seed)
     mtype = torch.randint(1, 5, (m,), generator=g, device=device,
                           dtype=torch.int32)
@@ -94,30 +97,64 @@ def make_pattern(name: str, m: int, n: int, p: int, seed: int,
         dst, valid = i % min(n, FAN_IN_COLLECTORS), i < m - HOST_ROWS
     else:
         raise ValueError(f"unknown pattern {name!r}")
+    if dtype == torch.int32:
+        payload = torch.randint(-1000, 1000, (m, p), generator=g,
+                                device=device, dtype=torch.int32)
+    else:
+        payload = payload.to(dtype)
     return dst, mtype, payload, valid
 
 
 def bound_bytes(m: int, n: int, p: int, slots: int,
-                live: Optional[int] = None):
+                live: Optional[int] = None, elem: int = 4):
     """Bytes K1 and K2 must move: each input read once (dst and valid of
     every row; payload, and for K2 mtype, of the `live` rows the kernels
     accept, default all m), each output written once (counts, sums; K2
-    also the ring cells and dropped)."""
+    also the ring cells and dropped); payload elements of `elem` bytes."""
     live = m if live is None else live
-    k1 = m * (4 + 1) + live * 4 * p + n * (4 + 4 * p)
-    return k1, k1 + live * 4 + n * slots * (4 + 4 * p + 1) + 4
+    k1 = m * (4 + 1) + live * elem * p + n * (4 + elem * p)
+    return k1, k1 + live * 4 + n * slots * (4 + elem * p + 1) + 4
 
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def compare(name: str, got, want) -> float:
-    """Integer fields bit-equal, float fields allclose (raises otherwise);
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    a = x.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def sum_slack(dst, payload, valid, n: int) -> torch.Tensor:
+    """[n, P] float32 allowance between two float32 sums of the same rows
+    added in different orders: 2 * k * 2^-24 * sum|x| over each
+    recipient's k accepted rows."""
+    ok = valid & (dst >= 0) & (dst < n)
+    key = torch.where(ok, dst, n).long()
+    k = torch.zeros((n + 1,), device=dst.device).index_add_(0, key, ok.float())
+    mag = torch.zeros((n + 1, payload.shape[1]), device=dst.device) \
+        .index_add_(0, key, torch.where(ok[:, None], payload.float().abs(), 0))
+    return (2 * k[:, None] * 2.0 ** -24 * mag)[:n]
+
+
+def compare(name: str, got, want, slack=None) -> float:
+    """Integer fields (int32 sums included) bit-equal; float32 fields
+    allclose; bf16 fields within one bf16 ulp of the larger of the two,
+    plus `slack` where it has the field's shape (the sums: both sides add
+    in float32 in no fixed order, then round once). Raises otherwise;
     returns the max absolute float error."""
     err = 0.0
     for i, (a, b) in enumerate(zip(got, want)):
-        if a.is_floating_point():
+        if a.dtype == torch.bfloat16:
+            diff = (a.float() - b.float()).abs()
+            tol = bf16_ulp(torch.maximum(a.float().abs(), b.float().abs()))
+            if slack is not None and slack.shape == a.shape:
+                tol = tol + slack
+            if not bool((diff <= tol).all()):
+                raise RuntimeError(f"{name} field {i} outside one bf16 ulp")
+            err = max(err, float(diff.max()))
+        elif a.is_floating_point():
             if not torch.allclose(a, b, rtol=RTOL, atol=ATOL):
                 raise RuntimeError(f"{name} field {i} outside rtol {RTOL} / "
                                    f"atol {ATOL}")
@@ -148,16 +185,16 @@ def package_entries(lib, inputs, n: int, slots: int):
     returns their outputs in the plain versions' layout."""
     dst, mtype, payload, valid = inputs
     p = payload.shape[1]
-    counts, sums = cm.reduce_outputs(n, p, dst.device)
-    scratch, sums2, buf_t, buf_p, buf_v = cm.slots_outputs(n, p, slots,
-                                                           dst.device)
+    counts, sums, acc = cm.reduce_outputs(n, p, dst.device, payload.dtype)
+    scratch, sums2, acc2, buf_t, buf_p, buf_v = cm.slots_outputs(
+        n, p, slots, dst.device, payload.dtype)
 
     def k1():
-        cm.launch_reduce(lib, dst, payload, valid, n, counts, sums)
+        cm.launch_reduce(lib, dst, payload, valid, n, counts, sums, acc)
 
     def k2():
         cm.launch_slots(lib, dst, mtype, payload, valid, n, slots, scratch,
-                        sums2, buf_t, buf_p, buf_v)
+                        sums2, acc2, buf_t, buf_p, buf_v)
 
     def results():
         return ((counts, sums),

@@ -4,10 +4,12 @@
         [--cells ring_reduce,fan_in,...] [--modes graph,eager]
 
 For each main-path cell (BatchedSystem: ring in reduce mode, 1M -> 1k
-fan-in, ring over 2-slot bounded mailboxes; ShardedBatchedSystem: the
+fan-in, ring over 2-slot bounded mailboxes, and the ring and fan-in on
+compiled routing, ring_static and fan_in_static; ShardedBatchedSystem: the
 cross-shard bench, 256 shards x 4096 entities, on one shard of the axis
 and on eight; region_serve: waves of 256 asks to a full-width counter
-region, per wave instead of per step, with the host's time by op;
+region, per wave instead of per step, with the host's time by op, and
+region_serve_spill, the same over 2 slots and the default spill region;
 gateway_serve: the served path of chip_smoke.py, 16 clients sending
 pipelined binary adds through the evloop gateway to a continuous
 RegionBackend, per 256 requests, with the client threads in this process;
@@ -29,6 +31,10 @@ prints, per step (or unit):
   and memsets, on every thread): one graph launch a step under replay,
   plus the flush's copies when tells are staged;
 - the kernels with the most device time;
+- with --sweep-traces R, R more graph-mode traces of one run, each with
+  the kernels it saw and its ring kernels' `ring_sweep` records (a trace
+  that loses records shows fewer; every trace has --trace-margin-ms of
+  idle host time on each side, default 10, against such losses);
 - for the per-wave and per-request cells, the host's time inside CUDA
   synchronize and copy calls (the runtime calls in which the host can
   wait for the card; the profiler sees them on every thread) and the
@@ -47,6 +53,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from typing import Callable
 
 import numpy as np
@@ -91,17 +98,57 @@ def host_launch_calls(events) -> int:
                if e.device_type == DeviceType.CPU and e.key in LAUNCH_CALLS)
 
 
+# Host time traced before and after the work. On an H100 a trace without
+# it now and then lost the card's records of whole steps: the lost
+# trace's device times sat early against the host's, and the tail of the
+# work fell outside the traced window (PERF.md section 7; measured by
+# `--sweep-traces` with `--trace-margin-ms 0`).
+TRACE_MARGIN_S = 0.010
+
+
+@contextmanager
+def traced():
+    """torch.profiler over the host and the card, with TRACE_MARGIN_S of
+    idle host time on each side of the body; the card is drained before
+    the trace starts and before it ends."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+
+
 def launch_profile(work: Callable[[], None]):
     """Run `work()` under torch.profiler; returns (host launch calls,
     {kernel name: launches on the card}, device-busy ms)."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         work()
-        torch.cuda.synchronize()
     events = prof.key_averages()
     kernels = device_events(events)
     return (host_launch_calls(events), {e.key: e.count for e in kernels},
             sum(device_us(e) for e in kernels) / 1e3)
+
+
+def sweep_trace(label: str, work: Callable[[], None], units: int,
+                unit: str) -> None:
+    """One graph-mode trace of `work()`: the card's kernels and copies it
+    recorded, its `ring_sweep` records, and the first device record's
+    time after the first graph launch (µs on the profiler's clock; a
+    negative value puts the card's records before the work began)."""
+    with traced() as prof:
+        work()
+    events = prof.events()
+    dev = device_events(events)
+    sweeps = sum(1 for e in dev if "ring_sweep" in e.name)
+    launches = [e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU
+                and e.name in ("cudaGraphLaunch", "cuGraphLaunch")]
+    lead = (min(e.time_range.start for e in dev) - min(launches)
+            if dev and launches else None)
+    print(f"{label} kernels {len(dev)} ring_sweep {sweeps} over {units} "
+          f"{unit}s first_device_us {lead}")
 
 
 def device_us(event) -> float:
@@ -129,8 +176,7 @@ def profile_cell(label: str, work: Callable[[], None], units: int,
     print(f"{label} ms_per_{unit}_untraced {untraced_ms}")
     print(f"{label} host_enqueue_ms_per_{unit} {host_ms}")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         t0 = time.perf_counter()
         work()
         torch.cuda.synchronize()
@@ -171,13 +217,16 @@ def steps_of(sys_, seed: bool = True):
     return lambda steps: ((lambda: sys_.run(steps)), steps, "step", sys_)
 
 
-def region_waves(n: int):
+def region_waves(n: int, mailbox_slots: int = 0):
     """The region_serve cell of chip_smoke.py: a full-width counter
-    region, waves of 256 adds with 1/8 repeats (`units` waves a run)."""
+    region, waves of 256 adds with 1/8 repeats (`units` waves a run).
+    With mailbox_slots, the region keeps its default spill region
+    (region_serve_spill: the ranked kernels)."""
     eps = n // 256
     region = DeviceShardRegion(DeviceEntity(
         "counter", counter_behavior(4), n_shards=256,
-        entities_per_shard=eps, n_devices=1, spare_blocks=2))
+        entities_per_shard=eps, n_devices=1, spare_blocks=2,
+        mailbox_slots=mailbox_slots))
     rng = np.random.default_rng(0)
     pool = [region.entity_ref(f"entity-{i}")
             for i in range(min(4096, n // 16))]
@@ -301,19 +350,24 @@ def gateway_requests_remote(n: int):
 
 # cell name -> builder at n actors of: steps -> (work, units, unit)
 CELLS = {
-    "ring_reduce": lambda n: steps_of(build_ring(n)),
-    "fan_in": lambda n: steps_of(build_fan_in(n, 1000), seed=False),
+    "ring_reduce": lambda n: steps_of(build_ring(n, static=False)),
+    "fan_in": lambda n: steps_of(build_fan_in(n, 1000, static=False),
+                                 seed=False),
     "ring_slots": lambda n: steps_of(build_ring_slots(n, 2)),
+    "ring_static": lambda n: steps_of(build_ring(n)),
+    "fan_in_static": lambda n: steps_of(build_fan_in(n, 1000), seed=False),
     "sharded_ring_d1": lambda n: steps_of(build_cross_shard(256, n // 256)),
     "cross_shard_d8": lambda n: steps_of(build_cross_shard(
         256, n // 256, n_devices=8)),
     "region_serve": region_waves,
+    "region_serve_spill": lambda n: region_waves(n, mailbox_slots=2),
     "gateway_serve": gateway_requests,
     "gateway_serve_remote": gateway_requests_remote,
 }
 
 
 def main() -> None:
+    global TRACE_MARGIN_S
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--steps", type=int, default=10,
@@ -325,7 +379,17 @@ def main() -> None:
     ap.add_argument("--modes", default=",".join(MODES),
                     help="comma-separated step modes, of: graph (replays "
                          "of the step's CUDA graph), eager (the eager twin)")
+    ap.add_argument("--sweep-traces", type=int, default=0,
+                    help="after each cell, this many more graph-mode "
+                         "traces of one run, each printing the kernels "
+                         "the profiler saw and its ring_sweep records "
+                         "(how often a trace loses records)")
+    ap.add_argument("--trace-margin-ms", type=float,
+                    default=TRACE_MARGIN_S * 1e3,
+                    help="idle host time traced before and after the "
+                         "work (0: none)")
     args = ap.parse_args()
+    TRACE_MARGIN_S = args.trace_margin_ms / 1e3
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -336,6 +400,9 @@ def main() -> None:
                 raise ValueError(f"unknown mode {mode!r}")
             system._eager = mode == "eager"
             profile_cell(f"{cell}/{mode}", work, units, args.top, unit)
+        system._eager = False
+        for i in range(args.sweep_traces):
+            sweep_trace(f"{cell} trace {i}", work, units, unit)
         print(f"{cell} graphs {system._graphs.stats()} memory_reserved "
               f"{torch.cuda.memory_reserved()}")
 

@@ -46,10 +46,13 @@ def _sharded(system) -> bool:
 
 def numpy_carry(system) -> Dict[str, np.ndarray]:
     """The port system's carry as a dict of numpy arrays (copies: the
-    carry is updated in place)."""
+    carry is updated in place; bf16 fields widen to float32, which numpy
+    has)."""
     sharded = _sharded(system)
 
     def host(t: torch.Tensor) -> np.ndarray:
+        if t.dtype == torch.bfloat16:
+            return t.to("cpu", torch.float32, copy=True).numpy()
         return t.to("cpu", copy=True).numpy()
 
     out = {f"state/{c}": host(v) for c, v in system.state.items()}

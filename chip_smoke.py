@@ -8,13 +8,17 @@
 2. Holds each kernel against its plain PyTorch version on the card, at a
    small ragged shape and at the main path's shape (m = 2^20 + 8 rows,
    n = 2^20 actors, P = 4, S = 2) under three traffic patterns (random,
-   ring, 1000-collector fan-in; akka_tpu_torch/tools/bench_mailbox.py):
-   integer outputs bit-equal, sums within rtol 1e-4 / atol 1e-3 (float
-   atomics add in a run-dependent order). For each pattern it times the C
-   entry on the card's clock (CUDA events around 200 launches on outputs
-   allocated once, zeroing included: `ms`), the Python wrapper
-   (`wrapper_ms`), the plain version and, for K1, one `index_add_` call,
-   and computes the memory-bytes bound at 3.35 TB/s.
+   ring, 1000-collector fan-in; akka_tpu_torch/tools/bench_mailbox.py),
+   and in int32 and bf16 payloads at the small shape and on the random
+   pattern: integer outputs (int32 sums included) bit-equal, float32 sums
+   within rtol 1e-4 / atol 1e-3 (float atomics add in a run-dependent
+   order), bf16 sums within one bf16 ulp plus the float32 reordering
+   allowance 2 k 2^-24 sum|x| (both sides add in float32, then round
+   once). For each it times the C entry on the card's clock (CUDA events
+   around 200 launches on outputs allocated once, zeroing included:
+   `ms`), the Python wrapper (`wrapper_ms`), the plain version and, for
+   K1, one `index_add_` call in the payload's dtype, and computes the
+   memory-bytes bound at 3.35 TB/s at the payload's element size.
 Every path steps through replays of the step's CUDA graph
 (akka_tpu_torch/batched/graphs.py): the systems capture it in warmup(),
 before a path's launch counts are zeroed (the eager warm-up steps before
@@ -30,7 +34,8 @@ zeroed just before each stretch of a path on the graph system and read
 just after (the twin runs between stretches), and K1/K2 must launch
 exactly once per step by replay count; on ring_reduce and
 cross_shard_d8 a torch.profiler trace must show `ring_sweep` once per
-replayed step. For each phase it prints ms/step (or asks/s, requests/s
+replayed step (a trace that lost records is taken again; see
+host_launches). For each phase it prints ms/step (or asks/s, requests/s
 and reply p50/p99), the host's CUDA launch calls per step (profiler),
 the captures and their ms, and torch.cuda.memory_reserved(); each
 phase's systems, and their graph pools, are freed before the next.
@@ -38,8 +43,12 @@ phase's systems, and their graph pools, are freed before the next.
 3. Drives the main path through BatchedSystem on the card at 1M actors:
    the ring in reduce mode (and tells followed by step()), the
    1M -> 1k fan-in, the ring with 2-slot bounded mailboxes (and a twin
-   on the ranked kernels, which must agree bit for bit). Each result is
-   held to its closed form.
+   on the ranked kernels, which must agree bit for bit), the same ring in
+   reduce and slots mode with int32 and bf16 payloads (ring_reduce_int32,
+   ring_slots_int32, ring_reduce_bf16, ring_slots_bf16; each with a
+   ranked twin), and the compiled-routing ring and fan-in (ring_static,
+   kind shift; fan_in_static, kind mod: no ring kernel launch, each held
+   to its dynamic counterpart). Each result is held to its closed form.
 4. Drives the sharded system (ShardedBatchedSystem) at bench config 5,
    256 logical shards x 4096 entities = 2^20 actors, seeded with one token
    each: on one shard (sharded_ring_d1), on 8 shards of the card where
@@ -57,7 +66,10 @@ phase's systems, and their graph pools, are freed before the next.
    equal a host oracle's running total and the twin's reply, the totals
    must be conserved, and no ask may be left in flight (region_serve).
    The same trace on regions with 2-slot bounded mailboxes
-   (region_serve_slots) must give bit-equal replies and launch K2.
+   (region_serve_slots) must give bit-equal replies and launch K2, and
+   on regions with 2 slots and the default spill region
+   (region_serve_spill: the ranked kernels at full width, whose summed
+   reply-row ids pass 2^24) bit-equal replies and no ring launch.
 6. Serves the gateway on the card (akka_tpu_torch.tools.gateway_load):
    a full-width counter region (256 shards x 4096 entities, one shard of
    the axis, two spare blocks) behind RegionBackend(continuous=True,
@@ -104,10 +116,11 @@ phase's systems, and their graph pools, are freed before the next.
    region's (gateway).
 
 Any failure raises and the exit code is non-zero. The last lines are the
-kernel report (JSON; `ms` and the other top-level numbers are the random
-pattern's, `patterns` holds every pattern and path shape, and
-`launches_by_path` each path's launches), the card's name and power limit,
-and {"ok": true, "device": {...}}.
+kernel report (JSON, one row per kernel and payload dtype; `ms` and the
+other top-level numbers are the random pattern's, `patterns` holds every
+pattern and path shape, and `launches_by_path` the launches of each path
+whose system has that dtype), the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -143,6 +156,9 @@ from akka_tpu_torch.tools import serving_gateway as sg
 from akka_tpu_torch.utils.carry import numpy_carry
 
 RTOL, ATOL = bm.RTOL, bm.ATOL
+TYPED = (torch.int32, torch.bfloat16)   # payload dtypes besides float32
+DTYPE_NAME = {torch.float32: "float32", torch.int32: "int32",
+              torch.bfloat16: "bf16"}
 N = 1 << 20                 # actors on the main path
 M = N + bm.HOST_ROWS        # inbox rows: n * K emissions + host_inbox
 SLOTS = bm.SLOTS
@@ -166,24 +182,29 @@ def check(cond, what: str) -> None:
 
 def kernel_rows(label: str, inputs, n: int, lib,
                 kernels=("K1", "K2")) -> dict:
-    """`kernels` against their plain versions on `inputs` (integers
-    bit-equal, sums within the tolerance), then timed: the C entry on the
-    card's clock (`ms`), the wrapper, the plain version and, for K1, one
-    `index_add_` call; the bound counts the bytes of this input's
-    accepted rows."""
+    """`kernels` against their plain versions on `inputs` (integers, int32
+    sums included, bit-equal; float32 sums within rtol/atol; bf16 sums
+    within one bf16 ulp plus the float32 reordering allowance), then
+    timed: the C entry on the card's clock (`ms`), the wrapper, the plain
+    version and, for K1, one `index_add_` call in the payload's dtype; the
+    bound counts the bytes of this input's accepted rows at the payload's
+    element size."""
     dst, mtype, payload, valid = inputs
-    m, n_p = dst.shape[0], payload.shape[1]
+    m, n_p, dt = dst.shape[0], payload.shape[1], payload.dtype
     e1, e2, _ = bm.package_entries(lib, inputs, n, SLOTS)
     ok = valid & (dst >= 0) & (dst < n)
-    b1, b2 = bm.bound_bytes(m, n, n_p, SLOTS, live=int(ok.sum()))
+    b1, b2 = bm.bound_bytes(m, n, n_p, SLOTS, live=int(ok.sum()),
+                            elem=payload.element_size())
+    slack = bm.sum_slack(dst, payload, valid, n) \
+        if dt == torch.bfloat16 else None
     rows = {}
     if "K1" in kernels:
         err = bm.compare(f"K1 {label}", cm.ring_reduce(dst, payload, valid, n),
-                         cm.ring_reduce_plain(dst, payload, valid, n))
+                         cm.ring_reduce_plain(dst, payload, valid, n), slack)
         torch.cuda.synchronize()
         key = torch.where(ok, dst, n).long()
         src = torch.cat([torch.where(ok[:, None], payload, 0),
-                         ok[:, None].float()], dim=1)
+                         ok[:, None].to(dt)], dim=1)
         rows["K1"] = {
             "ms": bm.cuda_ms(e1, KERNEL_ITERS, 5),
             "wrapper_ms": bm.cuda_ms(
@@ -191,12 +212,12 @@ def kernel_rows(label: str, inputs, n: int, lib,
             "plain_ms": bm.cuda_ms(
                 lambda: cm.ring_reduce_plain(dst, payload, valid, n)),
             "library_ms": bm.cuda_ms(
-                lambda: torch.zeros((n + 1, n_p + 1), device="cuda")
+                lambda: torch.zeros((n + 1, n_p + 1), dtype=dt, device="cuda")
                 .index_add_(0, key, src)),
             "bound_ms": bm.bound_ms(b1), "max_abs_err": err}
     if "K2" in kernels:
         err = bm.compare(f"K2 {label}", cm.ring_slots(*inputs, n, SLOTS),
-                         cm.ring_slots_plain(*inputs, n, SLOTS))
+                         cm.ring_slots_plain(*inputs, n, SLOTS), slack)
         torch.cuda.synchronize()
         rows["K2"] = {
             "ms": bm.cuda_ms(e2, KERNEL_ITERS, 5),
@@ -212,20 +233,46 @@ def kernel_rows(label: str, inputs, n: int, lib,
     return rows
 
 
-def kernel_phase(lib) -> Dict[str, dict]:
-    """K1 and K2 at a small ragged shape and, at the main path's shape,
-    at each traffic pattern; returns the report rows by pattern."""
-    dst, mtype, payload, valid = bm.make_pattern("random", 37, 11, 3, 37)
-    err = bm.compare("K1 m=37", cm.ring_reduce(dst, payload, valid, 11),
-                     cm.ring_reduce_plain(dst, payload, valid, 11))
-    err = max(err, bm.compare(
+def small_check(dtype) -> dict:
+    """K1 and K2 against their plain versions at a small ragged shape;
+    returns {kernel: {"max_abs_err": ...}}."""
+    dst, mtype, payload, valid = bm.make_pattern("random", 37, 11, 3, 37,
+                                                 dtype=dtype)
+    slack = bm.sum_slack(dst, payload, valid, 11) \
+        if dtype == torch.bfloat16 else None
+    errs = {"K1": bm.compare(
+        "K1 m=37", cm.ring_reduce(dst, payload, valid, 11),
+        cm.ring_reduce_plain(dst, payload, valid, 11), slack),
+            "K2": bm.compare(
         "K2 m=37", cm.ring_slots(dst, mtype, payload, valid, 11, SLOTS),
-        cm.ring_slots_plain(dst, mtype, payload, valid, 11, SLOTS)))
+        cm.ring_slots_plain(dst, mtype, payload, valid, 11, SLOTS), slack)}
     torch.cuda.synchronize()
-    print(f"kernel_check m=37 n=11 p=3 S={SLOTS}: max_abs_err={err}")
-    return {pattern: kernel_rows(pattern, bm.make_pattern(
+    print(f"kernel_check {DTYPE_NAME[dtype]} m=37 n=11 p=3 S={SLOTS}: "
+          f"max_abs_err={max(errs.values())}")
+    return {k: {"max_abs_err": e} for k, e in errs.items()}
+
+
+def kernel_phase(lib):
+    """K1 and K2 at a small ragged shape and, at the main path's shape,
+    at each traffic pattern in float32 and on the random and fan-in
+    patterns in int32 and bf16 (fan-in adds ~1000 rows into each
+    collector: a bf16 accumulator would miss the one-ulp check there);
+    returns the float32 report rows by pattern and the typed rows by
+    dtype name, then pattern."""
+    small_check(torch.float32)
+    rows = {pattern: kernel_rows(pattern, bm.make_pattern(
                 pattern, M, N, PAYLOAD_W, seed), N, lib)
             for seed, pattern in enumerate(bm.PATTERNS)}
+    typed = {}
+    for dtype in TYPED:
+        name = DTYPE_NAME[dtype]
+        typed[name] = {"small": small_check(dtype)}
+        for pattern in ("random", "fan_in"):
+            typed[name][pattern] = kernel_rows(
+                f"{pattern}_{name}", bm.make_pattern(
+                    pattern, M, N, PAYLOAD_W, bm.PATTERNS.index(pattern),
+                    dtype=dtype), N, lib)
+    return rows, typed
 
 
 def flat_inputs(s):
@@ -255,12 +302,18 @@ class Launches:
             self.counts[k] += v
         return out
 
-    def report(self, label: str, kernel: str, launches: dict,
+    def report(self, label: str, kernel, launches: dict,
                steps=None) -> None:
         """Record the path's counts; it must have launched `kernel`, and
-        with `steps`, exactly once per step."""
+        with `steps`, exactly once per step (kernel None: neither ring
+        kernel, not once)."""
         counts = dict(self.counts)
         print(f"{label} launches {counts}")
+        if kernel is None:  # a path off the ring kernels
+            check(not any(counts.values()), f"{label} launched no ring "
+                  f"kernel")
+            launches[label] = counts
+            return
         check(counts[kernel] > 0, f"{label} launched {kernel}")
         if steps is not None:
             print(f"{label} launches_per_step {counts[kernel] / steps}")
@@ -325,7 +378,7 @@ def host_launches(label: str, g, e, steps: int, count: Launches,
     if sweeps:
         n = sum(c for k, c in kernels.items() if "ring_sweep" in k)
         print(f"{label} profiler ring_sweep {n} over {steps} replayed "
-              f"steps")
+              f"steps ({sum(kernels.values())} kernels traced)")
         check(n == steps, f"{label}: the trace shows ring_sweep {n} times "
               f"for {steps} replayed steps")
     calls, _, busy = ps.launch_profile(lambda: e.run(steps))
@@ -409,7 +462,7 @@ def single_device_paths(launches: dict) -> None:
         print(f"tell_step eager host_launch_calls_per_step {calls}")
 
     step_cell("ring_reduce", "ring_reduce", lambda: build_ring(
-        N, device="cuda"), launches,
+        N, static=False, device="cuda"), launches,
         lambda s, steps: None, N, sweeps=True, after=tells)
     free()
 
@@ -422,7 +475,7 @@ def single_device_paths(launches: dict) -> None:
               "fan-in: totals == msgs")
 
     step_cell("fan_in", "ring_reduce", lambda: build_fan_in(
-        N, 1000, device="cuda"), launches, fan_in_check, N,
+        N, 1000, static=False, device="cuda"), launches, fan_in_check, N,
         seed=lambda s: None)
     free()
 
@@ -430,15 +483,62 @@ def single_device_paths(launches: dict) -> None:
         return build_ring_slots(N, SLOTS, device="cuda",
                                 delivery_backend=backend)
 
-    def ranked_twin(g, e):
-        twin = slots_system("ranked")
-        seed_ring_full(twin)
-        twin.run(g._host_step)
-        check_twin("ring_slots", g, twin, "ranked twin")
-
     step_cell("ring_slots", "ring_slots", slots_system, launches,
-              ring_check, N, after=ranked_twin)
+              ring_check, N, after=twin_check("ring_slots", slots_system,
+                                              "ranked"))
     free()
+
+    # the ring in int32 and bf16 payloads, on K1 and K2
+    for dtype in TYPED:
+        name = DTYPE_NAME[dtype]
+
+        def reduce_system(backend=None, dtype=dtype):
+            return build_ring(N, static=False, device="cuda",
+                              payload_dtype=dtype, delivery_backend=backend)
+
+        def typed_slots(backend=None, dtype=dtype):
+            return build_ring_slots(N, SLOTS, device="cuda",
+                                    payload_dtype=dtype,
+                                    delivery_backend=backend)
+
+        for label, kernel, build in (
+                (f"ring_reduce_{name}", "ring_reduce", reduce_system),
+                (f"ring_slots_{name}", "ring_slots", typed_slots)):
+            step_cell(label, kernel, build, launches, ring_check, N,
+                      after=twin_check(label, build, "ranked"))
+            free()
+
+    # compiled routing: no ring kernel; held to the dynamic twin
+    for label, kind, build, dynamic, check_fn, seed in (
+            ("ring_static", "shift", lambda: build_ring(N, device="cuda"),
+             lambda _: build_ring(N, static=False, device="cuda"),
+             ring_check, seed_ring_full),
+            ("fan_in_static", "mod",
+             lambda: build_fan_in(N, 1000, device="cuda"),
+             lambda _: build_fan_in(N, 1000, static=False, device="cuda"),
+             fan_in_check, lambda s: None)):
+        g, _ = step_cell(label, None, build, launches, check_fn, N,
+                         after=twin_check(label, dynamic, None, seed),
+                         seed=seed)
+        got = g._core.topology.kind
+        print(f"{label} kind {got}")
+        check(got == kind, f"{label}: kind {got} == {kind}")
+        del g
+        free()
+
+
+def twin_check(label: str, build, backend, seed=seed_ring_full):
+    """A step cell's `after`: a twin built with `build(backend)` (the
+    ranked kernels, or the dynamic counterpart of a static system), seeded
+    and run as many steps as the graph system, must agree with it
+    (integers bit-equal)."""
+    def after(g, e):
+        twin = build(backend)
+        seed(twin)
+        twin.run(g._host_step)
+        check_twin(label, g, twin, "ranked twin" if backend else
+                   "dynamic twin")
+    return after
 
 
 def sharded_paths(launches: dict) -> dict:
@@ -475,12 +575,6 @@ def sharded_paths(launches: dict) -> dict:
                                        device="cuda",
                                        delivery_backend=backend)
 
-    def ranked_twin(g, e):
-        twin = slots_system("ranked")
-        seed_ring_full(twin)
-        twin.run(g._host_step)
-        check_twin("sharded_slots_d8", g, twin, "ranked twin")
-
     def slots_check(r, steps):
         check((r.read_state("received") == steps).all(),
               "sharded slots: every entity received one token per step")
@@ -488,7 +582,9 @@ def sharded_paths(launches: dict) -> dict:
               "sharded slots: nothing dropped")
 
     r, _ = step_cell("sharded_slots_d8", "ring_slots", slots_system,
-                     launches, slots_check, N, after=ranked_twin)
+                     launches, slots_check, N,
+                     after=twin_check("sharded_slots_d8", slots_system,
+                                      "ranked"))
     flat["K2"] = flat_inputs(r)
     del r
     free()
@@ -513,12 +609,14 @@ def make_trace(seed: int = 0):
     return waves
 
 
-def serve(label: str, slots: int, trace, launches: dict):
+def serve(label: str, slots: int, trace, launches: dict,
+          spill: bool = False):
     """The region phase: a region stepping on graphs and its eager twin
     take the same waves in turn (graph, eager, graph, ...; the graph
-    region's waves are the counted path). Returns the graph region's
-    replies, in order, and its system."""
-    g, e = gateway_region(slots), gateway_region(slots)
+    region's waves are the counted path). With `spill`, the slots region
+    keeps its default spill region (the ranked kernels, no ring kernel).
+    Returns the graph region's replies, in order, and its system."""
+    g, e = gateway_region(slots, spill), gateway_region(slots, spill)
     eager_twin(e.system)
     t0 = time.perf_counter()
     g.system.warmup()
@@ -634,22 +732,34 @@ def serve(label: str, slots: int, trace, launches: dict):
     graph_line(label, sys_)
     print(f"{label} asks {len(replies)} entities {len(refs[0])} "
           f"steps {sys_._host_step}")
-    kernel = "ring_slots" if slots else "ring_reduce"
-    count.report(label, kernel, launches, sys_._host_step)
+    if spill:
+        count.report(label, None, launches)
+    else:
+        kernel = "ring_slots" if slots else "ring_reduce"
+        count.report(label, kernel, launches, sys_._host_step)
     return replies, sys_
 
 
 def region_paths(launches: dict) -> dict:
-    """region_serve and region_serve_slots on one trace; returns the
-    region's delivery inputs as a wave's tells land, by kernel."""
+    """region_serve, region_serve_slots and region_serve_spill (2 slots
+    and the default spill region: the ranked kernels at full width) on
+    one trace; returns the region's delivery inputs as a wave's tells
+    land, by kernel."""
     trace = make_trace()
     flat = {}
     replies = {}
-    for label, slots in (("region_serve", 0), ("region_serve_slots", SLOTS)):
+    for label, slots, spill in (("region_serve", 0, False),
+                                ("region_serve_slots", SLOTS, False),
+                                ("region_serve_spill", SLOTS, True)):
         t0 = time.perf_counter()
-        out, sys_ = serve(label, slots, trace, launches)
+        out, sys_ = serve(label, slots, trace, launches, spill)
         print(f"{label} phase_s {time.perf_counter() - t0}")
         replies[label] = out
+        if spill:
+            check(sys_.spill_cap > 0, f"{label}: a spill region")
+            del sys_
+            free()
+            continue
         # the first step's inbox of a wave: its tells flushed in
         for i in range(WAVE_ASKS):
             sys_.tell(i * 4099 % sys_.capacity,
@@ -658,19 +768,23 @@ def region_paths(launches: dict) -> dict:
         flat["K2" if slots else "K1"] = flat_inputs(sys_)
         del sys_
         free()
-    a, b = replies["region_serve"], replies["region_serve_slots"]
-    check(len(a) == len(b) and all(np.array_equal(x, y)
-                                   for x, y in zip(a, b)),
-          "region_serve_slots replies bit-equal to region_serve's")
+    a = replies["region_serve"]
+    for label in ("region_serve_slots", "region_serve_spill"):
+        b = replies[label]
+        check(len(a) == len(b) and all(np.array_equal(x, y)
+                                       for x, y in zip(a, b)),
+              f"{label} replies bit-equal to region_serve's")
     return flat
 
 
-def gateway_region(slots: int) -> DeviceShardRegion:
-    """The full-width counter region of the region and gateway phases."""
+def gateway_region(slots: int, spill: bool = False) -> DeviceShardRegion:
+    """The full-width counter region of the region and gateway phases; a
+    slots region is bounded (spill_capacity=0) unless `spill`."""
     return DeviceShardRegion(DeviceEntity(
         "counter", counter_behavior(PAYLOAD_W), n_shards=256,
         entities_per_shard=4096, n_devices=1, spare_blocks=2,
-        mailbox_slots=slots, spill_capacity=0 if slots else None),
+        mailbox_slots=slots,
+        spill_capacity=0 if slots and not spill else None),
         device="cuda")
 
 
@@ -998,6 +1112,14 @@ def durability_paths(launches: dict) -> None:
     print(f"gateway_kill9 phase_s {time.perf_counter() - t0}")
 
 
+def path_dtype(label: str) -> str:
+    """The payload dtype of a path's system, by the path's name."""
+    for name in ("int32", "bf16"):
+        if label.endswith(f"_{name}"):
+            return name
+    return "float32"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1010,7 +1132,7 @@ def main() -> int:
     print(f"build_s {time.perf_counter() - t0}")
 
     t0 = time.perf_counter()
-    rows = kernel_phase(lib)
+    rows, typed = kernel_phase(lib)
     print(f"kernel_phase_s {time.perf_counter() - t0}")
     launches: Dict[str, dict] = {}
     single_device_paths(launches)
@@ -1032,18 +1154,24 @@ def main() -> int:
              "K2": ("ring_slots", "_run(with_slots=True)")}
     kernels = []
     for k, (cname, mode) in entry.items():
-        by_pattern = {pat: r[k] for pat, r in rows.items() if k in r}
-        kernels.append({
-            "name": f"{k} {cname}", "route": "cuda",
-            "source": "akka_tpu_torch/csrc/ring_mailbox.cu",
-            "replaces": f"akka_tpu/ops/pallas_mailbox.py:137 {mode}",
-            "launches": sum(c[cname] for c in launches.values()),
-            "bound_by": "bytes",
-            **rows["random"][k],
-            "max_abs_err": max(r["max_abs_err"]
-                               for r in by_pattern.values()),
-            "launches_by_path": {p: c[cname] for p, c in launches.items()},
-            "patterns": by_pattern})
+        # one row per payload dtype; a path's launches count under its
+        # system's dtype (the cells named *_int32, *_bf16; the rest float32)
+        for dname, table in (("float32", rows), *typed.items()):
+            by_pattern = {pat: r[k] for pat, r in table.items() if k in r}
+            by_path = {p: c[cname] for p, c in launches.items()
+                       if path_dtype(p) == dname}
+            kernels.append({
+                "name": f"{k} {cname} {dname}", "route": "cuda",
+                "source": "akka_tpu_torch/csrc/ring_mailbox.cu",
+                "replaces": f"akka_tpu/ops/pallas_mailbox.py:137 {mode}",
+                "dtype": dname,
+                "launches": sum(by_path.values()),
+                "bound_by": "bytes",
+                **table["random"][k],
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in by_pattern.values()),
+                "launches_by_path": by_path,
+                "patterns": by_pattern})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -309,10 +309,10 @@ def test_host_fault_helpers_match_reference():
 
 
 def test_numpy_carry_round_trip_and_shape_check():
-    a = tbb.build_ring(16, device="cpu")
+    a = tbb.build_ring(16, static=False, device="cpu")
     tbb.seed_ring_full(a)
     a.run(2)
-    b = tbb.build_ring(16, device="cpu")
+    b = tbb.build_ring(16, static=False, device="cpu")
     load_numpy_carry(b, numpy_carry(a))
     assert_carries_match(numpy_carry(a), numpy_carry(b), "round trip")
     a.run(3)
@@ -320,6 +320,6 @@ def test_numpy_carry_round_trip_and_shape_check():
     np.testing.assert_array_equal(a.read_state("received"),
                                   np.full(16, 5, np.int32))
     assert_carries_match(numpy_carry(a), numpy_carry(b), "after run")
-    small = tbb.build_ring(8, device="cpu")
+    small = tbb.build_ring(8, static=False, device="cpu")
     with pytest.raises(ValueError, match="shape|capacity"):
         load_numpy_carry(small, numpy_carry(a))

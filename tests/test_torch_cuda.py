@@ -82,6 +82,45 @@ def test_kernels_match_plain_versions_by_pattern(card, pattern, p, slots):
     assert cm.LAUNCHES == {"ring_reduce": 1, "ring_slots": 1}
 
 
+# int32 and bf16 add column by column (no int or bf16 vector atomic); bf16
+# accumulates in float32 and rounds once. int32 outputs, sums included,
+# are bit-equal to the plain versions; bf16 sums lie within one bf16 ulp
+# plus the float32 reordering allowance (bench_mailbox.compare).
+@pytest.mark.parametrize("dtype", [torch.int32, torch.bfloat16])
+@pytest.mark.parametrize("p", [1, 3, 4, 8])
+@pytest.mark.parametrize("pattern", bm.PATTERNS)
+def test_typed_kernels_match_plain_versions(card, pattern, p, dtype):
+    n = 4096
+    dst, mtype, payload, valid = bm.make_pattern(
+        pattern, n + bm.HOST_ROWS, n, p, seed=p, device=card, dtype=dtype)
+    slack = bm.sum_slack(dst, payload, valid, n) \
+        if dtype == torch.bfloat16 else None
+    got = cm.ring_reduce(dst, payload, valid, n)
+    assert got[1].dtype == dtype
+    bm.compare("K1", got, cm.ring_reduce_plain(dst, payload, valid, n),
+               slack)
+    got = cm.ring_slots(dst, mtype, payload, valid, n, 3)
+    assert got[1].dtype == got[4].dtype == dtype
+    bm.compare("K2", got, cm.ring_slots_plain(dst, mtype, payload, valid, n,
+                                              3), slack)
+    assert cm.LAUNCHES == {"ring_reduce": 1, "ring_slots": 1}
+
+
+def test_bf16_sums_keep_growing_past_256(card):
+    """30000 rows of 1.0 into each of 10 recipients: a bf16 accumulator
+    would stop at 256 (256 + 1 rounds to 256); the float32 one reaches
+    30000 and rounds once, as the plain version does."""
+    m, n = 300_000, 10
+    dst = (torch.arange(m, device=card) % n).to(torch.int32)
+    payload = torch.ones((m, 4), dtype=torch.bfloat16, device=card)
+    valid = torch.ones((m,), dtype=torch.bool, device=card)
+    want = torch.full((n, 4), 30000.0, device=card).to(torch.bfloat16)
+    assert torch.equal(cm.ring_reduce(dst, payload, valid, n)[1], want)
+    assert torch.equal(cm.ring_slots(dst, dst, payload, valid, n, 2)[4],
+                       want)
+    assert torch.equal(cm.ring_reduce_plain(dst, payload, valid, n)[1], want)
+
+
 def test_misaligned_payload_takes_the_scalar_path(card):
     m, n, p = 3001, 500, 4
     dst, mtype, payload, valid = _inputs(m, n, p, card, seed=11)
@@ -127,6 +166,25 @@ def test_wrapper_raises_on_wrong_dtype(card):
     dst, _, payload, valid = _inputs(64, 8, 2, card)
     with pytest.raises(ValueError, match="float32"):
         cm.ring_reduce(dst, payload.double(), valid, 8)
+
+
+def test_cuda_backend_outside_the_dtypes_raises(card):
+    """float16 lies outside the kernels' dtypes: backend="cuda" raises,
+    "auto" ranks it (no launch), and int32 and bf16 launch the kernels."""
+    dst, mtype, payload, valid = _inputs(2048, 100, 4, card)
+    half = payload.half()
+    with pytest.raises(ValueError, match="dtype"):
+        tsg.deliver(dst, half, valid, 100, mode="merge", backend="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        tsg.deliver_slots(dst, mtype, half, valid, 100, 2, backend="cuda")
+    tsg.deliver(dst, half, valid, 100)
+    tsg.deliver_slots(dst, mtype, half, valid, 100, 2)
+    assert cm.LAUNCHES == {"ring_reduce": 0, "ring_slots": 0}
+    for dtype in (torch.int32, torch.bfloat16):
+        typed = payload.to(dtype)
+        tsg.deliver(dst, typed, valid, 100, backend="cuda")
+        tsg.deliver_slots(dst, mtype, typed, valid, 100, 2)
+    assert cm.LAUNCHES == {"ring_reduce": 2, "ring_slots": 2}
 
 
 @pytest.mark.parametrize("slots", [0, 2])
@@ -300,7 +358,8 @@ def test_graph_replays_match_the_eager_twin(card, cell):
     the eager step's carry; the graph was captured once, the live carry
     kept its storage, and K1 (K2 for slots) launched once per step by
     replay count."""
-    build = {"ring": lambda: tbb.build_ring(2048, device=card),
+    build = {"ring": lambda: tbb.build_ring(2048, static=False,
+                                            device=card),
              "ring_slots": lambda: tbb.build_ring_slots(2048, 2,
                                                         device=card),
              "cross_shard_d8": lambda: tbb.build_cross_shard(
@@ -326,6 +385,64 @@ def test_graph_replays_match_the_eager_twin(card, cell):
     want = np.full(g.capacity, 8, np.int32)
     want[3] += 1  # the told row
     np.testing.assert_array_equal(g.read_state("received"), want)
+
+
+def test_static_ring_graph_matches_the_eager_twin(card):
+    """The static ring (kind shift) through the step's CUDA graph gives
+    the eager step's carry and the dynamic ring's, with staged tells, and
+    launches no ring kernel; its topology lives on the card."""
+    g, e = tbb.build_ring(2048, device=card), \
+        _eager_twin(tbb.build_ring(2048, device=card))
+    dynamic = tbb.build_ring(2048, static=False, device=card)
+    assert g._core.topology.kind == "shift"
+    for s in (g, e, dynamic):
+        tbb.seed_ring_full(s)
+    g.warmup()
+    dynamic.warmup()
+    cm.reset_launches()
+    for s in (g, e):
+        s.run(5)
+        s.tell(3, [1.0, 0.0, 0.0, 0.0])
+        s.step()
+        s.run(2)
+    assert cm.LAUNCHES == {"ring_reduce": 0, "ring_slots": 0}
+    dynamic.run(5)
+    dynamic.tell(3, [1.0, 0.0, 0.0, 0.0])
+    dynamic.step()
+    dynamic.run(2)
+    assert g._graphs.stats()["captures"] == 1
+    _assert_twins(g, e, "static ring")
+    _assert_twins(g, dynamic, "static ring vs dynamic")
+    want = np.full(g.capacity, 8, np.int32)
+    want[3] += 1
+    np.testing.assert_array_equal(g.read_state("received"), want)
+
+
+def test_spill_region_at_width_answers_every_ask(card):
+    """A full-width slots region (256 x 4096 entities, 2 slots) with its
+    default spill region runs the ranked kernels on the card; its summed
+    reply-row ids pass 2^24 over the inbox, so every reply must still
+    equal the host oracle's running total (ROADMAP A14)."""
+    region = DeviceShardRegion(DeviceEntity(
+        "c", counter_behavior(4), n_shards=256, entities_per_shard=4096,
+        n_devices=1, spare_blocks=2, mailbox_slots=2), device=card)
+    assert region.system.spill_cap > 0
+    region.system.warmup()
+    rng = np.random.default_rng(8)
+    oracle = {}
+    for _ in range(4):
+        names = [f"e{i}" for i in rng.choice(1 << 20, 224, replace=False)]
+        names += list(rng.choice(names, 32))
+        vals = rng.integers(1, 10, len(names)).astype(float)
+        refs = [region.entity_ref(n) for n in names]
+        out = region.ask_many([(r.shard, r.index, [v])
+                               for r, v in zip(refs, vals)])
+        for n, v, o in zip(names, vals, out):
+            assert not isinstance(o, BaseException), o
+            oracle[n] = oracle.get(n, 0.0) + v
+            assert float(o[0]) == oracle[n], n
+    assert region.ask_pool_stats()["in_flight"] == 0
+    assert cm.LAUNCHES == {"ring_reduce": 0, "ring_slots": 0}
 
 
 @pytest.mark.parametrize("slots", [0, 2])

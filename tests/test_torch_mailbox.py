@@ -89,7 +89,7 @@ def test_support_matrix_has_no_state_cap():
                          "slots_kind"),
                         ({"suspended": torch.zeros(4, dtype=torch.bool)},
                          "suspended"),
-                        ({"dtype": torch.bfloat16}, "dtype")]:
+                        ({"dtype": torch.float16}, "dtype")]:
         assert why in cm.unsupported_reason(4, 2, slots=2, **kwargs)
 
 
@@ -110,7 +110,7 @@ def test_explicit_cuda_backend_outside_support_raises():
     with pytest.raises(ValueError, match="spill_cap"):
         tsg.deliver_slots(*args, spill_cap=8, backend="cuda")
     with pytest.raises(ValueError, match="dtype"):
-        tsg.deliver(args[0], args[2].to(torch.bfloat16), args[3], 8,
+        tsg.deliver(args[0], args[2].to(torch.float16), args[3], 8,
                     mode="merge", backend="cuda")
     # "auto" on a CPU tensor resolves to the ranked kernels, as on the
     # reference's CPU; with spill it stays ranked
@@ -132,3 +132,96 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="shape"):
         cm._check(torch.from_numpy(dst)[:8], torch.from_numpy(payload),
                   torch.from_numpy(valid))
+
+
+def _typed_inputs(m, n, p, seed, dtype):
+    """_inputs with an int32 payload (integers in [-50, 50)) or a bf16 one
+    (standard normal values rounded to bf16), as numpy arrays for the
+    reference (bf16 as float32, cast on the way in)."""
+    dst, mtype, payload, valid = _inputs(m, n, p, seed)
+    if dtype == "int32":
+        payload = np.random.default_rng(seed + 1).integers(
+            -50, 50, size=(m, p)).astype(np.int32)
+    else:
+        payload = torch.from_numpy(payload).to(torch.bfloat16).float().numpy()
+    return dst, mtype, payload, valid
+
+
+def _as_port(payload, dtype):
+    t = torch.from_numpy(payload)
+    return t.to(torch.bfloat16) if dtype == "bf16" else t
+
+
+def _as_ref(payload, dtype):
+    a = jnp.asarray(payload)
+    return a.astype(jnp.bfloat16) if dtype == "bf16" else a
+
+
+def _bf16_sum_bound(dst, valid, payload, n):
+    """Per element: 2 * k * 2^-8 * sum|x| over that recipient's k accepted
+    rows, the recursive-summation bound of both sides (the reference adds
+    in bf16, the port in float32 and rounds once)."""
+    ok = valid & (dst >= 0) & (dst < n)
+    key = np.where(ok, dst, n)
+    k = np.bincount(key, minlength=n + 1)[:n].astype(np.float64)
+    mag = np.zeros((n + 1, payload.shape[1]))
+    np.add.at(mag, key, np.abs(payload.astype(np.float64)))
+    return 2 * k[:, None] * 2.0 ** -8 * mag[:n]
+
+
+@pytest.mark.parametrize("m,n,p,slots", CASES)
+@pytest.mark.parametrize("dtype", ["int32", "bf16"])
+def test_ring_mailbox_dtypes_match_pallas_interpret(m, n, p, slots, dtype):
+    """K1 and K2's plain versions in int32 (every field bit-equal, sums
+    included) and bf16 (integer fields, slot payloads and maxes
+    bit-equal, sums within the summation bound) against the Pallas
+    kernel."""
+    dst, mtype, payload, valid = _typed_inputs(m, n, p, m * 17 + n, dtype)
+    bound = _bf16_sum_bound(dst, valid, payload, n)
+    cm.reset_launches()
+    args_ref = (jnp.asarray(dst), _as_ref(payload, dtype), jnp.asarray(valid))
+    args_port = (torch.from_numpy(dst), _as_port(payload, dtype),
+                 torch.from_numpy(valid))
+    ref = pm.deliver_reduce(*args_ref, n, True)
+    port = cm.deliver_reduce(*args_port, n, True)
+    ref_s = pm.deliver_slots_ring(args_ref[0], jnp.asarray(mtype),
+                                  *args_ref[1:], n, slots, True)
+    port_s = cm.deliver_slots_ring(args_port[0], torch.from_numpy(mtype),
+                                   *args_port[1:], n, slots, True)
+    for r, t in ((ref, port), (ref_s, port_s)):
+        assert r._fields == t._fields
+        for f in r._fields:
+            want = np.asarray(jnp.asarray(getattr(r, f), jnp.float32)
+                              if dtype == "bf16" and f in ("sum", "max",
+                                                           "payload",
+                                                           "spill_payload")
+                              else getattr(r, f))
+            got = getattr(t, f)
+            assert tuple(got.shape) == want.shape, f
+            if dtype == "bf16" and got.is_floating_point():
+                assert got.dtype == torch.bfloat16, f
+                got = got.float()
+            got = got.numpy()
+            if dtype == "bf16" and f == "sum":
+                assert (np.abs(got - want) <= bound).all(), f
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=f)
+    assert cm.LAUNCHES == {"ring_reduce": 0, "ring_slots": 0}
+
+
+def test_int32_max_reads_zero_for_an_empty_recipient():
+    """The max convention around the kernel uses the dtype's own sentinel:
+    an int32 recipient with no rows reads 0 (not a cast of -inf), one
+    whose rows are all negative reads their max, as the reference does."""
+    dst = np.array([0, 0, 2, 5, 2], np.int32)        # 1, 3, 4 empty; 5 out
+    payload = np.array([[-7, 3], [-2, -9], [4, 1], [8, 8], [-1, -1]],
+                       np.int32)
+    valid = np.array([True, True, True, True, False])
+    ref = pm.deliver_reduce(jnp.asarray(dst), jnp.asarray(payload),
+                            jnp.asarray(valid), 5, True)
+    port = cm.deliver_reduce(torch.from_numpy(dst), torch.from_numpy(payload),
+                             torch.from_numpy(valid), 5, True)
+    want = np.array([[-2, 3], [0, 0], [4, 1], [0, 0], [0, 0]], np.int32)
+    np.testing.assert_array_equal(port.max.numpy(), want)
+    np.testing.assert_array_equal(np.asarray(ref.max), want)
+    np.testing.assert_array_equal(port.sum.numpy(), np.asarray(ref.sum))

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 
 from akka_tpu.ops import segment as sg
+from akka_tpu_torch.ops import cuda_mailbox as cm
 from akka_tpu_torch.ops import segment as tsg
 
 RTOL, ATOL = 1e-4, 1e-3
@@ -143,3 +144,197 @@ def test_unknown_backend_and_mode_raise():
         tsg.deliver(dst, pl, ok, 2, mode="merge", backend="pallas")
     with pytest.raises(ValueError, match="mode"):
         tsg.deliver(dst, pl, ok, 2, mode="pallas")
+
+
+# ------------------------------------------------ rank strategies, helpers
+
+REF_RANKS_BY = jax.jit(sg.stable_ranks, static_argnums=(1,),
+                       static_argnames=("platform", "strategy"))
+COUNT_SHAPES = [(257, 16), (1024, 64), (64, 1), (96, 96), (4096, 1000),
+                (33, 3), (333, 8)]
+
+
+def _keys(m, n, seed):
+    return np.random.default_rng(seed).integers(0, n + 1,
+                                                size=m).astype(np.int32)
+
+
+@pytest.mark.parametrize("m,n", COUNT_SHAPES)
+@pytest.mark.parametrize("strategy", ["counting", "packed", "sort2",
+                                      "auto"])
+def test_rank_strategies_match_reference(m, n, strategy):
+    key = _keys(m, n, m * 3 + n)
+    r_ref, c_ref = REF_RANKS_BY(jnp.asarray(key), n, platform="cpu",
+                                strategy=strategy)
+    r, c = tsg.stable_ranks(torch.from_numpy(key), n, strategy=strategy)
+    assert r.dtype == torch.int32 and c.dtype == torch.int32
+    np.testing.assert_array_equal(r.numpy(), np.asarray(r_ref))
+    np.testing.assert_array_equal(c.numpy(), np.asarray(c_ref))
+
+
+def test_counting_ranks_forced_multi_pass_matches_reference():
+    """A tiny max_bins forces many 1-bit LSD passes: the ranks must not
+    change, and must equal the reference's under the same max_bins."""
+    m, n = 777, 1000
+    key = _keys(m, n, 5)
+    r_ref, c_ref = sg.counting_ranks(jnp.asarray(key), n, max_bins=64)
+    r_mp, c_mp = tsg.counting_ranks(torch.from_numpy(key), n, max_bins=64)
+    r_1, c_1 = tsg.counting_ranks(torch.from_numpy(key), n)
+    for r, c in ((r_mp, c_mp), (r_1, c_1)):
+        np.testing.assert_array_equal(r.numpy(), np.asarray(r_ref))
+        np.testing.assert_array_equal(c.numpy(), np.asarray(c_ref))
+
+
+def test_rank_packing_overflow_boundary():
+    """(n_keys + 2) * ceil(M/B) >= 2^31: auto picks counting on the CPU
+    and an explicit "packed" reroutes to it; the ranks equal the
+    reference's sort2."""
+    m, n = (1 << 16) + 33, 1 << 20
+    assert tsg._auto_rank_strategy(m, n, "cpu") == "counting"
+    key = _keys(m, n, 9)
+    r_ref, c_ref = REF_RANKS_BY(jnp.asarray(key), n, platform="cpu",
+                                strategy="sort2")
+    for strategy in ("auto", "packed"):
+        r, c = tsg.stable_ranks(torch.from_numpy(key), n, strategy=strategy)
+        np.testing.assert_array_equal(r.numpy(), np.asarray(r_ref))
+        np.testing.assert_array_equal(c.numpy(), np.asarray(c_ref))
+    with pytest.raises(ValueError, match="strategy"):
+        tsg.stable_ranks(torch.from_numpy(key), n, strategy="radix")
+
+
+@pytest.mark.parametrize("m,n", [(64, 8), (4096, 61), (4096, 62),
+                                 (1 << 16, 1 << 14), ((1 << 16) + 33, 1 << 20),
+                                 (1 << 21, 1 << 20)])
+def test_auto_rank_strategy_matches_reference(m, n):
+    assert tsg._auto_rank_strategy(m, n, "cpu") == \
+        sg._auto_rank_strategy(m, n, "cpu")
+    # off the CPU the reference keeps the two-operand sort: so does a card
+    assert tsg._auto_rank_strategy(m, n, "cuda") == \
+        sg._auto_rank_strategy(m, n, "gpu") == "sort2"
+
+
+def test_route_one_hop_matches_reference():
+    rng = np.random.default_rng(3)
+    table = rng.permutation(40).astype(np.int32)
+    dst = np.concatenate([rng.integers(0, 40, size=60),
+                          [-1, -40, -41, 40, 99]]).astype(np.int32)
+    want = np.asarray(sg.route_one_hop(jnp.asarray(dst), jnp.asarray(table)))
+    got = tsg.route_one_hop(torch.from_numpy(dst), torch.from_numpy(table))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("capacity", [64, 80, 20])
+def test_compact_messages_matches_reference(capacity):
+    rng = np.random.default_rng(capacity)
+    m = 64
+    dst = rng.integers(0, 9, size=m).astype(np.int32)
+    payload = rng.standard_normal((m, 3)).astype(np.float32)
+    valid = rng.random(m) > 0.4
+    ref = sg.compact_messages(jnp.asarray(dst), jnp.asarray(payload),
+                              jnp.asarray(valid), capacity)
+    port = tsg.compact_messages(torch.from_numpy(dst),
+                                torch.from_numpy(payload),
+                                torch.from_numpy(valid), capacity)
+    for want, got in zip(ref, port):
+        want = np.asarray(want)
+        assert got.dtype == torch.from_numpy(np.array(want)).dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert int(port[3]) == max(int(valid.sum()) - capacity, 0)
+
+
+@pytest.fixture
+def restore_backend():
+    prev = tsg.get_delivery_backend()
+    yield
+    tsg.set_delivery_backend(prev)
+
+
+def test_set_delivery_backend(restore_backend):
+    assert tsg.get_delivery_backend() == "auto"
+    assert tsg.set_delivery_backend("cuda") == "auto"
+    assert tsg.set_delivery_backend("cuda") == "cuda"
+    for name in ("xla", "reference", "pallas", None):
+        with pytest.raises(ValueError, match="backend"):
+            tsg.set_delivery_backend(name)
+    assert tsg.get_delivery_backend() == "cuda"
+    # a call with backend=None reads the default: "cuda" refuses a spill
+    # region, where "auto" ranks it
+    dst, ok, payload, mtype, _ = _case(64, 8, 2, seed=4)
+    args = (torch.from_numpy(dst), torch.from_numpy(mtype),
+            torch.from_numpy(payload), torch.from_numpy(ok), 8, 2)
+    with pytest.raises(ValueError, match="spill_cap"):
+        tsg.deliver_slots(*args, spill_cap=8)
+    tsg.deliver_slots(*args, spill_cap=8, backend="ranked")
+    assert tsg.set_delivery_backend("auto") == "cuda"
+    tsg.deliver_slots(*args, spill_cap=8)
+
+
+def test_delivery_attribution_keys_match_reference():
+    ref = sg.delivery_attribution(64, 16, repeats=1)
+    port = tsg.delivery_attribution(64, 16, repeats=1, device="cpu")
+    assert sorted(port) == sorted(ref)
+    assert sorted(port["slots_phases"]) == sorted(ref["slots_phases"])
+    assert port["platform"] == ref["platform"] == "cpu"
+    assert port["rank_strategy"] == ref["rank_strategy"]
+    assert all(port[k] >= 0 for k in port if k.endswith("_ms"))
+
+
+# ------------------------------------------------ A14: sums at full width
+
+def test_ranked_sums_do_not_cancel_at_region_width():
+    """At a region's width (the 256 x 4096 counter region's stray-mode
+    inbox: m = 2,113,792 rows, n = 1,056,768 recipients, P = 4, the last
+    column a reply-row id in [0, n)) every per-recipient sum of the
+    ranked kernels must equal the ring kernel's plain version and a
+    float64 oracle exactly: every value is an integer and every
+    recipient's total stays below 2^24. A prefix sum over the whole sorted
+    inbox passes 2^24 early and drops the low bits."""
+    m, n, p, slots = 2_113_792, 1_056_768, 4, 2
+    rng = np.random.default_rng(14)
+    dst = rng.integers(-1, n + 1, size=m).astype(np.int32)
+    valid = rng.random(m) > 0.1
+    mtype = rng.integers(1, 5, size=m).astype(np.int32)
+    payload = np.empty((m, p), np.float32)
+    payload[:, :3] = rng.integers(1, 10, size=(m, 3))
+    payload[:, 3] = rng.integers(0, n, size=m)
+    ok = valid & (dst >= 0) & (dst < n)
+    key = np.where(ok, dst, n)
+    rank = np.empty(m, np.int64)
+    order = np.argsort(key, kind="stable")
+    starts = np.searchsorted(key[order], np.arange(n + 1))
+    rank[order] = np.arange(m) - starts[key[order]]
+
+    def oracle(rows):
+        out = np.zeros((n + 1, p), np.float64)
+        np.add.at(out, key[rows], payload[rows].astype(np.float64))
+        return out[:n]
+
+    everything = oracle(ok)
+    assert everything[:, 3].max() < 2 ** 24 < everything[:, 3].sum()
+    t = [torch.from_numpy(a) for a in (dst, mtype, payload, valid)]
+
+    red = tsg.deliver(t[0], t[2], t[3], n, mode="merge", backend="ranked")
+    counts, sums = cm.ring_reduce_plain(t[0], t[2], t[3], n)
+    np.testing.assert_array_equal(red.sum.numpy(), everything)
+    np.testing.assert_array_equal(sums.numpy(), everything)
+    np.testing.assert_array_equal(red.count.numpy(), counts.numpy())
+
+    bounded = tsg._deliver_slots_ranked(*t, n, slots, False, 0, None, None)
+    plain = cm.ring_slots_plain(*t, n, slots)
+    for f, want in zip(("types", "payload", "valid", "count", "sum",
+                        "dropped"), plain):
+        np.testing.assert_array_equal(getattr(bounded, f).numpy(),
+                                      want.numpy(), err_msg=f)
+    np.testing.assert_array_equal(bounded.sum.numpy(), everything)
+
+    # with a spill region, overflow past the slots is not consumed: the
+    # aggregation covers each recipient's first `slots` rows
+    spill = tsg._deliver_slots_ranked(*t, n, slots, False, 4096, None, None)
+    np.testing.assert_array_equal(spill.sum.numpy(),
+                                  oracle(ok & (rank < slots)))
+    np.testing.assert_array_equal(
+        spill.count.numpy(), np.minimum(counts.numpy(), slots))
+    for f in ("types", "payload", "valid"):
+        np.testing.assert_array_equal(getattr(spill, f).numpy(),
+                                      getattr(bounded, f).numpy(),
+                                      err_msg=f)
