@@ -13,14 +13,20 @@
 // the order they land in. A row j is accepted when valid[j] and
 // 0 <= dst[j] < n; other rows are skipped, not clipped.
 //
-//   ring_sweep<CLAIM=false>  (K1: two memsets, one launch) each thread
-//                   takes ROWS rows, loads them all, then adds 1 to
-//                   counts[d] and the payload row to sums[d, :]. Where
-//                   P % 4 == 0 and the pointers are 16-byte aligned, a row
-//                   moves as one 16-byte load and one float4 vector atomic
-//                   per 4 columns; other widths add column by column.
-//                   Counts are exact; float sums land in a run-dependent
-//                   order.
+//   ring_sweep<CLAIM=false>  (K1 for float and bf16: two memsets, one
+//                   launch) each thread takes ROWS rows, loads them all,
+//                   then adds 1 to counts[d] and the payload row to
+//                   sums[d, :]. Where P % 4 == 0 and the pointers are
+//                   aligned, a row moves as one 16-byte (float) or 8-byte
+//                   (bf16, widened to float4) load and one float4 vector
+//                   atomic per 4 columns; other widths add column by
+//                   column. Counts are exact; float sums land in a
+//                   run-dependent order.
+//   ring_sweep_elems (K1 for int32: two memsets, one launch) one lane per
+//                   payload element e = j * P + c, so a warp covers 32
+//                   consecutive words: each lane adds its word to
+//                   sums[d, c], and the lane of column 0 adds 1 to
+//                   counts[d].
 //   ring_sweep<CLAIM=true>  (K2 launch 1, after one memset of the integer
 //                   scratch and one of the sums) the same sweep, plus a
 //                   cascaded claim: levels first[d, 0..S-1] keep the S
@@ -43,25 +49,36 @@
 // Bound: memory bytes. Each row is read once and each output written once;
 // the work per byte is one add. The sweeps read rows coalesced and send
 // their count and sum atomics as fire-and-forget reductions (RED), which
-// the 50 MB L2 absorbs. What costs most is the stream of atomics into
-// random lines: on random traffic each array a row updates adds one such
-// stream, and K2's claim is a third one (into `first`) whose result the
-// thread waits for. Putting a recipient's count, levels and sums into one
-// 32-byte record measured slower on every pattern: the three atomics then
-// serialise on one sector, and a warp's coalesced atomics spread over 32
-// sectors. ring_fill's gather of type and payload by claimed row is random
-// on random traffic. Hot recipients (fan-in collectors) serialise their
-// atomics in L2.
+// the 50 MB L2 absorbs. What costs most is the stream of atomic requests
+// into random lines: on random traffic each array a row updates adds one
+// such stream, and K2's claim is a third one (into `first`) whose result
+// the thread waits for. Putting a recipient's count, levels and sums into
+// one 32-byte record measured slower on every pattern: the three atomics
+// then serialise on one sector, and a warp's coalesced atomics spread over
+// 32 sectors. ring_fill's gather of type and payload by claimed row is
+// random on random traffic. Hot recipients (fan-in collectors) serialise
+// their atomics in L2.
 //
 // Payload types T (the reference's outputs take the payload's dtype):
 // float, int32 and bf16, each with an accumulator A: float for float and
-// bf16, int for int32 (exact; wraps as int32 arithmetic does). A bf16
-// accumulator would stop growing (256 + 1 rounds to 256 in bf16), so bf16
-// sums land in a float32 scratch [n, p] and are rounded once
-// (__float2bfloat16, round to nearest even): by `round_sums` after K1's
-// sweep, by ring_fill in K2. Only float rows take the 16-byte vector path
-// (float4 loads and vector atomics: no int or bf16 vector atomic exists);
-// int32 and bf16 rows add and copy column by column.
+// bf16, int for int32 (exact; wraps as int32 arithmetic does). What bounds
+// each typed K1, and what its design does about it:
+// - int32: sm_90 has no integer vector reduction (PTX red.v4 takes f32,
+//   f16 and bf16 only), so a row cannot go out as one request as a float
+//   row does. One thread per row would send P scalar REDs, each warp
+//   instruction to 32 separate sum rows: P requests a row. With one lane
+//   per element, a warp instruction covers 32 / P whole rows and sends
+//   one request per distinct sum row, as the float4 path does, and its
+//   payload load uses all 128 bytes. A lane works out its first element's
+//   row and column with one 32-bit division and steps the rest.
+// - bf16: a bf16 accumulator would stop growing (256 + 1 rounds to 256 in
+//   bf16), so bf16 sums land in a float32 scratch [n, p] and are rounded
+//   once (round to nearest even): by `round_sums` after K1's sweep, by
+//   ring_fill in K2. A float32 accumulator takes the float4 vector atomic,
+//   so K1 widens each 8-byte group of 4 bf16 to a float4 and adds it with
+//   one red.global.add.v4.f32; `round_sums` reads 16 bytes and writes 8 a
+//   thread.
+// K2 in int32 and bf16 still adds and copies column by column.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +95,9 @@ constexpr int kThreads = 256;
 // threads resident) measured faster than two or four on random traffic.
 constexpr int kReduceRows = 4;
 constexpr int kClaimRows = 1;
+// Payload elements per thread of the int32 K1 (ring_sweep_elems), all
+// loaded before the first atomic.
+constexpr int kReduceElems = 4;
 
 // the C entries' dtype codes (ops/cuda_mailbox.py DTYPES)
 enum DtypeCode { kF32 = 0, kI32 = 1, kBF16 = 2 };
@@ -121,9 +141,26 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// Adds one payload row into acc. VEC (float only): p % 4 == 0 and 16-byte
-// aligned rows; `head` holds the row's first four columns, loaded ahead by
-// the caller.
+// Four bf16 (8-byte aligned) as one 8-byte load, widened: a bf16 is the
+// high half of the float32 with the same value.
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Two floats rounded to bf16 (nearest even), packed low column first.
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+         static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(hi)))
+             << 16;
+}
+
+// Adds one payload row into acc. VEC (float, and bf16 in K1): p % 4 == 0
+// and aligned rows, four columns a float4 vector atomic; `head` holds the
+// row's first four columns, loaded ahead by the caller.
 template <bool VEC, typename T>
 __device__ __forceinline__ void add_row(const T* __restrict__ src,
                                         typename Acc<T>::type* __restrict__ acc,
@@ -196,12 +233,72 @@ ring_sweep(const int* __restrict__ dst, const T* __restrict__ payload,
   }
 }
 
-// bf16 sums: the float32 accumulator rounded once into the output.
+// int32 K1: one lane per payload element (see the note at the top). Lane
+// t of block b starts at element e = b * kThreads * ELEMS + t and steps
+// kThreads elements: step_rows = kThreads / p rows plus step_cols =
+// kThreads % p columns. Every element is loaded before the first atomic.
+template <int ELEMS>
+__global__ void __launch_bounds__(kThreads)
+ring_sweep_elems(const int* __restrict__ dst, const int* __restrict__ payload,
+                 const uint8_t* __restrict__ valid, int m, int n, int p,
+                 int step_rows, int step_cols, int* __restrict__ counts,
+                 int* __restrict__ sums) {
+  const int64_t e0 = static_cast<int64_t>(blockIdx.x) * kThreads * ELEMS +
+                     threadIdx.x;
+  int64_t j;
+  int c;
+  if (e0 <= 0xffffffffLL) {  // a 32-bit division wherever it suffices
+    const unsigned e = static_cast<unsigned>(e0);
+    const unsigned q = e / static_cast<unsigned>(p);
+    j = q;
+    c = static_cast<int>(e - q * static_cast<unsigned>(p));
+  } else {
+    j = e0 / p;
+    c = static_cast<int>(e0 - j * p);
+  }
+  const int64_t elems = static_cast<int64_t>(m) * p;
+  int d[ELEMS], col[ELEMS], v[ELEMS];
+#pragma unroll
+  for (int k = 0; k < ELEMS; ++k) {
+    const int64_t e = e0 + k * kThreads;
+    d[k] = accept(dst, valid, j, m, n);  // -1 past the last row
+    v[k] = e < elems ? __ldg(payload + e) : 0;
+    col[k] = c;
+    j += step_rows;
+    c += step_cols;
+    if (c >= p) {
+      c -= p;
+      ++j;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < ELEMS; ++k) {
+    if (d[k] < 0) continue;
+    if (col[k] == 0) atomicAdd(counts + d[k], 1);
+    atomicAdd(sums + static_cast<int64_t>(d[k]) * p + col[k], v[k]);
+  }
+}
+
+// bf16 sums: the float32 accumulator rounded once into the output. VEC
+// (16-byte aligned acc, 8-byte aligned out): four elements a thread, the
+// last thread also the count % 4 tail.
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
 round_sums(const float* __restrict__ acc, __nv_bfloat16* __restrict__ out,
            int64_t count) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i < count) out[i] = __float2bfloat16(acc[i]);
+  if constexpr (VEC) {
+    const int64_t e = i * 4;
+    if (e + 4 <= count) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(acc) + i);
+      reinterpret_cast<uint2*>(out)[i] =
+          make_uint2(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w));
+    } else {
+      for (int64_t k = e; k < count; ++k) out[k] = __float2bfloat16(acc[k]);
+    }
+  } else {
+    if (i < count) out[i] = __float2bfloat16(acc[i]);
+  }
 }
 
 // One thread per ring cell. For bf16, the thread of each recipient's first
@@ -272,9 +369,11 @@ int blocks_for(int64_t items, int per_block) {
   return b < 1 ? 1 : static_cast<int>(b);
 }
 
-bool aligned16(const void* ptr) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+bool aligned(const void* ptr, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
 }
+
+bool aligned16(const void* ptr) { return aligned(ptr, 16); }
 
 template <bool CLAIM, typename T>
 void launch_sweep(bool vec, const int* dst, const T* payload,
@@ -283,7 +382,10 @@ void launch_sweep(bool vec, const int* dst, const T* payload,
                   cudaStream_t s) {
   constexpr int rows = CLAIM ? kClaimRows : kReduceRows;
   const int grid = blocks_for(m, kThreads * rows);
-  if constexpr (std::is_same<T, float>::value) {
+  // float4 rows: float in both kernels, bf16 in K1 (K2 adds bf16 rows
+  // column by column)
+  if constexpr (std::is_same<T, float>::value ||
+                (!CLAIM && std::is_same<T, __nv_bfloat16>::value)) {
     if (vec) {
       ring_sweep<rows, true, CLAIM, T><<<grid, kThreads, 0, s>>>(
           dst, payload, valid, m, n, p, slots, counts, sums, first);
@@ -294,8 +396,9 @@ void launch_sweep(bool vec, const int* dst, const T* payload,
       dst, payload, valid, m, n, p, slots, counts, sums, first);
 }
 
-// K1 for payload type T: zero counts and the accumulator, sweep, and for
-// bf16 round the accumulator into sums.
+// K1 for payload type T: zero counts and the accumulator, sweep (int32 by
+// element, the others by row), and for bf16 round the accumulator into
+// sums.
 template <typename T>
 int reduce_impl(const void* dst, const void* payload, const void* valid,
                 int m, int n, int p, void* counts, void* sums, void* acc,
@@ -309,16 +412,34 @@ int reduce_impl(const void* dst, const void* payload, const void* valid,
   if (err == cudaSuccess)
     err = cudaMemsetAsync(into, 0, sizeof(A) * elems, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = p % 4 == 0 && aligned16(payload) && aligned16(into);
-  launch_sweep<false, T>(vec, static_cast<const int*>(dst),
-                         static_cast<const T*>(payload),
-                         static_cast<const uint8_t*>(valid), m, n, p, 0,
-                         static_cast<int*>(counts), into, nullptr, s);
+  const auto* d = static_cast<const int*>(dst);
+  const auto* v = static_cast<const uint8_t*>(valid);
+  if constexpr (std::is_same<T, int>::value) {
+    const int64_t blocks =
+        (int64_t(m) * p + kThreads * kReduceElems - 1) /
+        (kThreads * kReduceElems);
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    ring_sweep_elems<kReduceElems>
+        <<<blocks < 1 ? 1 : static_cast<int>(blocks), kThreads, 0, s>>>(
+            d, static_cast<const int*>(payload), v, m, n, p, kThreads / p,
+            kThreads % p, static_cast<int*>(counts), into);
+  } else {
+    const bool vec = p % 4 == 0 && aligned(payload, 4 * sizeof(T)) &&
+                     aligned16(into);
+    launch_sweep<false, T>(vec, d, static_cast<const T*>(payload), v, m, n,
+                           p, 0, static_cast<int*>(counts), into, nullptr,
+                           s);
+  }
   if constexpr (kRound) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    round_sums<<<blocks_for(elems, kThreads), kThreads, 0, s>>>(
-        into, static_cast<__nv_bfloat16*>(sums), elems);
+    auto* out = static_cast<__nv_bfloat16*>(sums);
+    if (aligned16(into) && aligned(out, 8))
+      round_sums<true><<<blocks_for((elems + 3) / 4, kThreads), kThreads, 0,
+                         s>>>(into, out, elems);
+    else
+      round_sums<false><<<blocks_for(elems, kThreads), kThreads, 0, s>>>(
+          into, out, elems);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -326,9 +326,9 @@ def launch_slots(lib, dst, mtype, payload, valid, n_actors: int, slots: int,
 
 def ring_reduce(dst, payload, valid, n_actors: int):
     """K1: (counts [n] int32, sums [n, P] in the payload's dtype).
-    Launches `ring_sweep` (and for bf16 `round_sums`) on a CUDA tensor,
-    runs `ring_reduce_plain` on a CPU one. Float sums accumulate by float
-    atomics, in no fixed order."""
+    Launches `ring_sweep` (int32: `ring_sweep_elems`; bf16: and
+    `round_sums`) on a CUDA tensor, runs `ring_reduce_plain` on a CPU one.
+    Float sums accumulate by float atomics, in no fixed order."""
     if not dst.is_cuda:
         return ring_reduce_plain(dst, payload, valid, n_actors)
     _, p = _check(dst, payload, valid)

@@ -1,10 +1,11 @@
 """Device time of the ring-mailbox kernels at three traffic patterns.
 
     python3 -m akka_tpu_torch.tools.bench_mailbox [--n 1048576] [--iters 200]
-        [--baseline OLD.cu] [--variant NAME=OTHER.cu ...] [--out FILE]
+        [--dtype float32|int32|bf16] [--baseline OLD.cu]
+        [--variant NAME=OTHER.cu ...] [--out FILE]
 
-Patterns, at n actors, m = n + 8 message rows, P = 4 payload columns and
-S = 2 ring slots (`make_pattern`):
+Patterns, at n actors, m = n + 8 message rows, P = 4 payload columns of
+`--dtype` (default float32) and S = 2 ring slots (`make_pattern`):
 - random: recipients uniform over [-1, n] (-1 and n are dropped), 10% of
   the rows invalid;
 - ring: dst = (i + 1) % n, the last 8 rows invalid (the host-inbox rows);
@@ -12,15 +13,20 @@ S = 2 ring slots (`make_pattern`):
 
 Libraries: the package's `ring_mailbox.cu`; each `--variant`, another
 source with the same C interface; and `--baseline`, a source with the
-three-pass design's interface, in which the caller zeroes counts, sums and
-dropped and fills the claim array `first` [S, n] with INT_MAX before each
-call. Each is built with nvcc (all at once) and held against the plain
-versions on every pattern (integers bit-equal, sums within rtol 1e-4 /
-atol 1e-3). Then each C entry is timed with CUDA events around `iters`
-launches on outputs allocated once, with the zeroing inside the timed
-window: the C entry's own memsets, or the baseline's fills. Libraries take
-turns (baseline, package, variants, then the same in reverse), and every
-reading is printed, with the byte bound at 3.35 TB/s and the card's name
+three-pass design's interface (float32 only), in which the caller zeroes
+counts, sums and dropped and fills the claim array `first` [S, n] with
+INT_MAX before each call. Each is built with nvcc (all at once) and held
+against the plain versions on every pattern (`compare`: integers, int32
+sums included, bit-equal; float32 sums within rtol 1e-4 / atol 1e-3; bf16
+sums within one bf16 ulp plus the float32 reordering allowance), and so
+is K1's yardstick, one `index_add_` (`library_reduce`). Then each C entry
+is timed with CUDA events around `iters` launches on outputs allocated
+once, with the zeroing inside the timed window: the C entry's own
+memsets, or the baseline's fills; libraries with the package's interface
+share one set of outputs. Libraries take turns (baseline,
+package, variants, then the same in reverse), and every reading is
+printed, with the yardstick's time and the byte bound at 3.35 TB/s
+(accepted rows only, at the payload's element size) and the card's name
 and power limit. With `--profile`, each C entry also runs 20 times under
 torch.profiler, and its device time per call is printed by kernel and
 memset.
@@ -42,11 +48,14 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..models.baseline_benches import PAYLOAD_W
 from ..ops import cuda_mailbox as cm
+from ..ops.segment import _DUMP_ROWS, _spread_dead
 from .profile_step import device_us
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 RTOL, ATOL = 1e-4, 1e-3     # sums: float atomics add in no fixed order
 PATTERNS = ("random", "ring", "fan_in")
+DTYPES = {"float32": torch.float32, "int32": torch.int32,
+          "bf16": torch.bfloat16}
 FAN_IN_COLLECTORS = 1000
 HOST_ROWS = 8               # the inbox rows after the n emissions
 SLOTS = 2                   # ring slots of the main path's bounded mailboxes
@@ -164,6 +173,33 @@ def compare(name: str, got, want, slack=None) -> float:
     return err
 
 
+def library_reduce(dst, payload, valid, n: int, native: bool = False):
+    """K1's function as one PyTorch `index_add_`: the yardstick of K1's
+    time, which the port never calls. The accepted rows, with a count
+    column of ones, are prepared here (outside any timing); the returned
+    call adds them into zeroed [n + 1024, P + 1] rows, the other rows
+    spread over the 1024 past n as the plain version spreads them (one
+    drop row would serialise their atomics), and returns (counts [n]
+    int32, sums [n, P] in the payload's dtype). The accumulator takes the
+    payload's dtype for float32 and int32, and float32 for bf16, whose
+    sums are then rounded once, as K1's are. With `native`, bf16 adds in
+    bf16: the yardstick timed before, whose adds each round to bf16 on
+    the card (kept to show that it is not K1's function)."""
+    ok = valid & (dst >= 0) & (dst < n)
+    key = _spread_dead(torch.where(ok, dst, -1), n)
+    acc = torch.float32 if payload.dtype == torch.bfloat16 and not native \
+        else payload.dtype
+    src = torch.cat([torch.where(ok[:, None], payload, 0).to(acc),
+                     ok[:, None].to(acc)], dim=1)
+    p = payload.shape[1]
+
+    def call():
+        out = torch.zeros((n + _DUMP_ROWS, p + 1), dtype=acc,
+                          device=dst.device).index_add_(0, key, src)
+        return out[:n, p].to(torch.int32), out[:n, :p].to(payload.dtype)
+    return call
+
+
 def device_breakdown(fn, calls: int = 20):
     """{kernel or memset name: device ms per call} of fn under
     torch.profiler."""
@@ -179,15 +215,28 @@ def device_breakdown(fn, calls: int = 20):
             if e.device_type == DeviceType.CUDA and device_us(e) > 0}
 
 
-def package_entries(lib, inputs, n: int, slots: int):
-    """(k1, k2, results) for a library with the package's C interface:
-    k1 and k2 call the C entries on outputs allocated here, once; results()
-    returns their outputs in the plain versions' layout."""
-    dst, mtype, payload, valid = inputs
+def entry_outputs(inputs, n: int, slots: int):
+    """The outputs of both C entries (`reduce_outputs`, `slots_outputs`)
+    for `inputs`, allocated once."""
+    dst, _, payload, _ = inputs
     p = payload.shape[1]
-    counts, sums, acc = cm.reduce_outputs(n, p, dst.device, payload.dtype)
-    scratch, sums2, acc2, buf_t, buf_p, buf_v = cm.slots_outputs(
-        n, p, slots, dst.device, payload.dtype)
+    return (cm.reduce_outputs(n, p, dst.device, payload.dtype),
+            cm.slots_outputs(n, p, slots, dst.device, payload.dtype))
+
+
+def package_entries(lib, inputs, n: int, slots: int, outputs=None):
+    """(k1, k2, results) for a library with the package's C interface:
+    k1 and k2 call the C entries on `outputs` (`entry_outputs`; allocated
+    here when None); results() returns their outputs in the plain
+    versions' layout. Libraries timed against each other share one set of
+    outputs: on fan-in, where a thousand hot sum rows take every atomic,
+    the time of one and the same kernel moved with where its outputs lay
+    (PERF.md section 6)."""
+    dst, mtype, payload, valid = inputs
+    if outputs is None:
+        outputs = entry_outputs(inputs, n, slots)
+    (counts, sums, acc), (scratch, sums2, acc2, buf_t, buf_p, buf_v) = \
+        outputs
 
     def k1():
         cm.launch_reduce(lib, dst, payload, valid, n, counts, sums, acc)
@@ -253,6 +302,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--iters", type=int, default=200)
+    ap.add_argument("--dtype", choices=tuple(DTYPES), default="float32")
     ap.add_argument("--baseline", type=Path, default=None)
     ap.add_argument("--variant", action="append", default=[],
                     metavar="NAME=PATH")
@@ -261,6 +311,9 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_mailbox: no CUDA device is available")
+    dtype = DTYPES[args.dtype]
+    if args.baseline is not None and dtype != torch.float32:
+        raise SystemExit("bench_mailbox: --baseline takes float32 only")
     card = card_line()
     print(card)
     n, p, slots = args.n, PAYLOAD_W, SLOTS
@@ -286,30 +339,46 @@ def main() -> None:
     turns += turns[::-1]
 
     report = {"card": card, "n": n, "m": m, "p": p, "slots": slots,
-              "iters": args.iters, "patterns": {}}
-    b1, b2 = bound_bytes(m, n, p, slots)
+              "dtype": args.dtype, "iters": args.iters, "patterns": {}}
     for pattern in PATTERNS:
-        inputs = make_pattern(pattern, m, n, p, seed=PATTERNS.index(pattern))
-        want1 = cm.ring_reduce_plain(inputs[0], inputs[2], inputs[3], n)
+        inputs = make_pattern(pattern, m, n, p, seed=PATTERNS.index(pattern),
+                              dtype=dtype)
+        dst, _, payload, valid = inputs
+        live = int((valid & (dst >= 0) & (dst < n)).sum())
+        b1, b2 = bound_bytes(m, n, p, slots, live, payload.element_size())
+        slack = sum_slack(dst, payload, valid, n) \
+            if dtype == torch.bfloat16 else None
+        want1 = cm.ring_reduce_plain(dst, payload, valid, n)
         want2 = cm.ring_slots_plain(*inputs, n, slots)
+        library = library_reduce(dst, payload, valid, n)
+        compare(f"library K1 {pattern}", library(), want1, slack)
         entries = {}
+        shared = entry_outputs(inputs, n, slots)
         for name, lib in libs.items():
-            make = baseline_entries if name == "baseline" else package_entries
-            k1, k2, results = make(lib, inputs, n, slots)
+            if name == "baseline":
+                k1, k2, results = baseline_entries(lib, inputs, n, slots)
+            else:
+                k1, k2, results = package_entries(lib, inputs, n, slots,
+                                                  shared)
             k1()
             k2()
             got1, got2 = results()
             torch.cuda.synchronize()
-            compare(f"{name} K1 {pattern}", got1, want1)
-            compare(f"{name} K2 {pattern}", got2, want2)
+            compare(f"{name} K1 {pattern}", got1, want1, slack)
+            compare(f"{name} K2 {pattern}", got2, want2, slack)
             entries[name] = (k1, k2)
         readings = {name: {"K1": [], "K2": []} for name in libs}
+        library_ms = []
         for name in turns:
             k1, k2 = entries[name]
             readings[name]["K1"].append(cuda_ms(k1, args.iters, 5))
             readings[name]["K2"].append(cuda_ms(k2, args.iters, 5))
+            if name == "package":
+                library_ms.append(cuda_ms(library, args.iters, 5))
+        print(f"{pattern} {args.dtype} library K1_ms {library_ms}")
         for name, r in readings.items():
-            print(f"{pattern} {name} K1_ms {r['K1']} K2_ms {r['K2']}")
+            print(f"{pattern} {args.dtype} {name} K1_ms {r['K1']} "
+                  f"K2_ms {r['K2']}")
             if args.profile:
                 for k, fn in zip(("K1", "K2"), entries[name]):
                     r[f"{k}_by_kernel"] = device_breakdown(fn)
@@ -317,9 +386,9 @@ def main() -> None:
                           f"{r[f'{k}_by_kernel']}")
         print(f"{pattern} bound_ms K1 {bound_ms(b1)} K2 {bound_ms(b2)}")
         report["patterns"][pattern] = {
-            "readings": readings, "bound_ms": {"K1": bound_ms(b1),
-                                               "K2": bound_ms(b2)}}
-        del inputs, entries
+            "readings": readings, "library_ms": {"K1": library_ms},
+            "bound_ms": {"K1": bound_ms(b1), "K2": bound_ms(b2)}}
+        del inputs, entries, library, shared
     line = json.dumps(report)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -9,16 +9,19 @@
    small ragged shape and at the main path's shape (m = 2^20 + 8 rows,
    n = 2^20 actors, P = 4, S = 2) under three traffic patterns (random,
    ring, 1000-collector fan-in; akka_tpu_torch/tools/bench_mailbox.py),
-   and in int32 and bf16 payloads at the small shape and on the random
-   pattern: integer outputs (int32 sums included) bit-equal, float32 sums
-   within rtol 1e-4 / atol 1e-3 (float atomics add in a run-dependent
-   order), bf16 sums within one bf16 ulp plus the float32 reordering
-   allowance 2 k 2^-24 sum|x| (both sides add in float32, then round
-   once). For each it times the C entry on the card's clock (CUDA events
-   around 200 launches on outputs allocated once, zeroing included:
-   `ms`), the Python wrapper (`wrapper_ms`), the plain version and, for
-   K1, one `index_add_` call in the payload's dtype, and computes the
-   memory-bytes bound at 3.35 TB/s at the payload's element size.
+   in float32, int32 and bf16 payloads (int32 and bf16 also at small
+   shapes with P = 4 and 5): integer outputs (int32 sums included)
+   bit-equal, float32 sums within rtol 1e-4 / atol 1e-3 (float atomics
+   add in a run-dependent order), bf16 sums within one bf16 ulp plus the
+   float32 reordering allowance 2 k 2^-24 sum|x| (both sides add in
+   float32, then round once). For each it times the C entry on the
+   card's clock (CUDA events around 200 launches on outputs allocated
+   once, zeroing included: `ms`), the Python wrapper (`wrapper_ms`), the
+   plain version and, for K1, its yardstick: one `index_add_`
+   (bench_mailbox.library_reduce; float32-widened for bf16 and rounded
+   once, held to the plain version; the bf16 `index_add_` is timed and
+   checked beside it), and computes the memory-bytes bound at 3.35 TB/s
+   at the payload's element size.
 Every path steps through replays of the step's CUDA graph
 (akka_tpu_torch/batched/graphs.py): the systems capture it in warmup(),
 before a path's launch counts are zeroed (the eager warm-up steps before
@@ -157,8 +160,7 @@ from akka_tpu_torch.utils.carry import numpy_carry
 
 RTOL, ATOL = bm.RTOL, bm.ATOL
 TYPED = (torch.int32, torch.bfloat16)   # payload dtypes besides float32
-DTYPE_NAME = {torch.float32: "float32", torch.int32: "int32",
-              torch.bfloat16: "bf16"}
+DTYPE_NAME = {t: name for name, t in bm.DTYPES.items()}
 N = 1 << 20                 # actors on the main path
 M = N + bm.HOST_ROWS        # inbox rows: n * K emissions + host_inbox
 SLOTS = bm.SLOTS
@@ -186,9 +188,12 @@ def kernel_rows(label: str, inputs, n: int, lib,
     sums included, bit-equal; float32 sums within rtol/atol; bf16 sums
     within one bf16 ulp plus the float32 reordering allowance), then
     timed: the C entry on the card's clock (`ms`), the wrapper, the plain
-    version and, for K1, one `index_add_` call in the payload's dtype; the
-    bound counts the bytes of this input's accepted rows at the payload's
-    element size."""
+    version and, for K1, its yardstick `bench_mailbox.library_reduce` (one
+    `index_add_`, float32-widened for bf16; held to the plain version
+    too). For bf16, K1 also times the bf16 `index_add_` the kernel phase
+    timed before and reports whether it computes K1's function
+    (`native_agrees`). The bound counts the bytes of this input's accepted
+    rows at the payload's element size."""
     dst, mtype, payload, valid = inputs
     m, n_p, dt = dst.shape[0], payload.shape[1], payload.dtype
     e1, e2, _ = bm.package_entries(lib, inputs, n, SLOTS)
@@ -199,22 +204,34 @@ def kernel_rows(label: str, inputs, n: int, lib,
         if dt == torch.bfloat16 else None
     rows = {}
     if "K1" in kernels:
+        want = cm.ring_reduce_plain(dst, payload, valid, n)
         err = bm.compare(f"K1 {label}", cm.ring_reduce(dst, payload, valid, n),
-                         cm.ring_reduce_plain(dst, payload, valid, n), slack)
+                         want, slack)
+        library = bm.library_reduce(dst, payload, valid, n)
+        bm.compare(f"library K1 {label}", library(), want, slack)
         torch.cuda.synchronize()
-        key = torch.where(ok, dst, n).long()
-        src = torch.cat([torch.where(ok[:, None], payload, 0),
-                         ok[:, None].to(dt)], dim=1)
         rows["K1"] = {
             "ms": bm.cuda_ms(e1, KERNEL_ITERS, 5),
             "wrapper_ms": bm.cuda_ms(
                 lambda: cm.ring_reduce(dst, payload, valid, n)),
             "plain_ms": bm.cuda_ms(
                 lambda: cm.ring_reduce_plain(dst, payload, valid, n)),
-            "library_ms": bm.cuda_ms(
-                lambda: torch.zeros((n + 1, n_p + 1), dtype=dt, device="cuda")
-                .index_add_(0, key, src)),
+            "library_ms": bm.cuda_ms(library),
             "bound_ms": bm.bound_ms(b1), "max_abs_err": err}
+        if dt == torch.bfloat16:
+            native = bm.library_reduce(dst, payload, valid, n, native=True)
+            got = native()
+            try:
+                bm.compare(f"native library K1 {label}", got, want, slack)
+                agrees = True
+            except RuntimeError:
+                agrees = False
+            rows["K1"].update({
+                "library_native_ms": bm.cuda_ms(native),
+                "native_agrees": agrees,
+                "native_max_count": int(got[0].max()),
+                "native_max_abs_err": float(
+                    (got[1].float() - want[1].float()).abs().max())})
     if "K2" in kernels:
         err = bm.compare(f"K2 {label}", cm.ring_slots(*inputs, n, SLOTS),
                          cm.ring_slots_plain(*inputs, n, SLOTS), slack)
@@ -233,10 +250,12 @@ def kernel_rows(label: str, inputs, n: int, lib,
     return rows
 
 
-def small_check(dtype) -> dict:
-    """K1 and K2 against their plain versions at a small ragged shape;
-    returns {kernel: {"max_abs_err": ...}}."""
-    dst, mtype, payload, valid = bm.make_pattern("random", 37, 11, 3, 37,
+def small_check(dtype, p: int = 3) -> dict:
+    """K1 and K2 against their plain versions at a small ragged shape (P =
+    4 takes the float4 rows of float32 and bf16, P = 3 and 5 their column
+    branch; int32 K1 takes one lane per element at every P); returns
+    {kernel: {"max_abs_err": ...}}."""
+    dst, mtype, payload, valid = bm.make_pattern("random", 37, 11, p, 37,
                                                  dtype=dtype)
     slack = bm.sum_slack(dst, payload, valid, 11) \
         if dtype == torch.bfloat16 else None
@@ -247,18 +266,18 @@ def small_check(dtype) -> dict:
         "K2 m=37", cm.ring_slots(dst, mtype, payload, valid, 11, SLOTS),
         cm.ring_slots_plain(dst, mtype, payload, valid, 11, SLOTS), slack)}
     torch.cuda.synchronize()
-    print(f"kernel_check {DTYPE_NAME[dtype]} m=37 n=11 p=3 S={SLOTS}: "
+    print(f"kernel_check {DTYPE_NAME[dtype]} m=37 n=11 p={p} S={SLOTS}: "
           f"max_abs_err={max(errs.values())}")
     return {k: {"max_abs_err": e} for k, e in errs.items()}
 
 
 def kernel_phase(lib):
     """K1 and K2 at a small ragged shape and, at the main path's shape,
-    at each traffic pattern in float32 and on the random and fan-in
-    patterns in int32 and bf16 (fan-in adds ~1000 rows into each
-    collector: a bf16 accumulator would miss the one-ulp check there);
-    returns the float32 report rows by pattern and the typed rows by
-    dtype name, then pattern."""
+    at each traffic pattern, in float32, int32 and bf16 (int32 and bf16
+    also at small shapes with P = 4 and 5; fan-in adds ~1049 rows into
+    each collector: a bf16 accumulator would miss the one-ulp check
+    there); returns the float32 report rows by pattern and the typed rows
+    by dtype name, then pattern."""
     small_check(torch.float32)
     rows = {pattern: kernel_rows(pattern, bm.make_pattern(
                 pattern, M, N, PAYLOAD_W, seed), N, lib)
@@ -266,12 +285,12 @@ def kernel_phase(lib):
     typed = {}
     for dtype in TYPED:
         name = DTYPE_NAME[dtype]
-        typed[name] = {"small": small_check(dtype)}
-        for pattern in ("random", "fan_in"):
+        typed[name] = {f"small_p{p}": small_check(dtype, p)
+                       for p in (3, 4, 5)}
+        for seed, pattern in enumerate(bm.PATTERNS):
             typed[name][pattern] = kernel_rows(
                 f"{pattern}_{name}", bm.make_pattern(
-                    pattern, M, N, PAYLOAD_W, bm.PATTERNS.index(pattern),
-                    dtype=dtype), N, lib)
+                    pattern, M, N, PAYLOAD_W, seed, dtype=dtype), N, lib)
     return rows, typed
 
 

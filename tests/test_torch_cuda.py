@@ -82,17 +82,21 @@ def test_kernels_match_plain_versions_by_pattern(card, pattern, p, slots):
     assert cm.LAUNCHES == {"ring_reduce": 1, "ring_slots": 1}
 
 
-# int32 and bf16 add column by column (no int or bf16 vector atomic); bf16
-# accumulates in float32 and rounds once. int32 outputs, sums included,
-# are bit-equal to the plain versions; bf16 sums lie within one bf16 ulp
-# plus the float32 reordering allowance (bench_mailbox.compare).
+# K1 in int32 puts one lane on each payload element (every P); K1 in bf16
+# adds rows of P % 4 == 0 as float4 vector atomics into a float32
+# accumulator, other widths column by column, and rounds once; K2 adds
+# int32 and bf16 column by column. m = n + 11 is no multiple of any
+# block's rows or elements. int32 outputs, sums included, are bit-equal to
+# the plain versions; bf16 sums lie within one bf16 ulp plus the float32
+# reordering allowance (bench_mailbox.compare).
 @pytest.mark.parametrize("dtype", [torch.int32, torch.bfloat16])
-@pytest.mark.parametrize("p", [1, 3, 4, 8])
+@pytest.mark.parametrize("p", [1, 3, 4, 5, 8])
 @pytest.mark.parametrize("pattern", bm.PATTERNS)
 def test_typed_kernels_match_plain_versions(card, pattern, p, dtype):
     n = 4096
     dst, mtype, payload, valid = bm.make_pattern(
-        pattern, n + bm.HOST_ROWS, n, p, seed=p, device=card, dtype=dtype)
+        pattern, n + bm.HOST_ROWS + 3, n, p, seed=p, device=card,
+        dtype=dtype)
     slack = bm.sum_slack(dst, payload, valid, n) \
         if dtype == torch.bfloat16 else None
     got = cm.ring_reduce(dst, payload, valid, n)
@@ -104,6 +108,27 @@ def test_typed_kernels_match_plain_versions(card, pattern, p, dtype):
     bm.compare("K2", got, cm.ring_slots_plain(dst, mtype, payload, valid, n,
                                               3), slack)
     assert cm.LAUNCHES == {"ring_reduce": 1, "ring_slots": 1}
+
+
+def test_int32_sums_wrap_as_int32(card):
+    """Sums past 2^31 wrap as int32 arithmetic does, in both kernels and
+    the plain versions: 3000 rows of values near 2^30 onto each of 7
+    recipients."""
+    m, n, p = 21_000, 7, 5
+    g = torch.Generator().manual_seed(2)
+    payload = torch.randint(2 ** 29, 2 ** 30, (m, p), generator=g,
+                            dtype=torch.int32)
+    dst = torch.arange(m, dtype=torch.int32) % n
+    valid = torch.ones((m,), dtype=torch.bool)
+    wide = torch.zeros((n, p), dtype=torch.int64).index_add_(
+        0, dst.long(), payload.long())
+    want = ((wide + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+    assert (wide > 2 ** 31).all()
+    dst, payload, valid = dst.to(card), payload.to(card), valid.to(card)
+    for got in (cm.ring_reduce(dst, payload, valid, n)[1],
+                cm.ring_slots(dst, dst, payload, valid, n, 2)[4],
+                cm.ring_reduce_plain(dst, payload, valid, n)[1]):
+        assert torch.equal(got.cpu(), want)
 
 
 def test_bf16_sums_keep_growing_past_256(card):
@@ -129,6 +154,24 @@ def test_misaligned_payload_takes_the_scalar_path(card):
     shifted.copy_(payload)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
     _assert_kernels_match(dst, mtype, shifted, valid, n, 3)
+
+
+def test_misaligned_bf16_payload_takes_the_column_branch(card):
+    """A bf16 [m, 4] payload 2 bytes past an 8-byte boundary cannot take
+    K1's 8-byte loads: it adds column by column, and both kernels still
+    match their plain versions."""
+    m, n, p = 3001, 500, 4
+    dst, mtype, payload, valid = bm.make_pattern(
+        "random", m, n, p, seed=12, device=card, dtype=torch.bfloat16)
+    shifted = torch.empty(m * p + 1, dtype=torch.bfloat16,
+                          device=card)[1:].view(m, p)
+    shifted.copy_(payload)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 8 != 0
+    slack = bm.sum_slack(dst, shifted, valid, n)
+    bm.compare("K1", cm.ring_reduce(dst, shifted, valid, n),
+               cm.ring_reduce_plain(dst, shifted, valid, n), slack)
+    bm.compare("K2", cm.ring_slots(dst, mtype, shifted, valid, n, 3),
+               cm.ring_slots_plain(dst, mtype, shifted, valid, n, 3), slack)
 
 
 def test_repeated_launches_give_identical_integers(card):

@@ -225,3 +225,25 @@ def test_int32_max_reads_zero_for_an_empty_recipient():
     np.testing.assert_array_equal(port.max.numpy(), want)
     np.testing.assert_array_equal(np.asarray(ref.max), want)
     np.testing.assert_array_equal(port.sum.numpy(), np.asarray(ref.sum))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bf16"])
+@pytest.mark.parametrize("pattern", ["random", "ring", "fan_in"])
+def test_library_reduce_computes_k1(pattern, dtype):
+    """K1's yardstick (`bench_mailbox.library_reduce`, one index_add_)
+    against K1's plain version, 320-500 accepted rows onto each of 5
+    recipients: int32 bit-equal, float32 within rtol 1e-4 / atol 1e-3,
+    bf16 (added in float32, rounded once) within one bf16 ulp plus the
+    float32 reordering allowance (`bench_mailbox.compare`)."""
+    from akka_tpu_torch.tools import bench_mailbox as bm
+
+    n = 5
+    dst, _, payload, valid = bm.make_pattern(
+        pattern, 2500 + bm.HOST_ROWS, n, 4, seed=3, device="cpu",
+        dtype=bm.DTYPES[dtype])
+    want = cm.ring_reduce_plain(dst, payload, valid, n)
+    assert int(want[0].min()) > 256
+    got = bm.library_reduce(dst, payload, valid, n)()
+    assert got[0].dtype == torch.int32 and got[1].dtype == payload.dtype
+    slack = bm.sum_slack(dst, payload, valid, n) if dtype == "bf16" else None
+    bm.compare(f"library {pattern} {dtype}", got, want, slack)
