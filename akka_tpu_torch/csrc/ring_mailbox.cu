@@ -27,8 +27,9 @@
 //                   consecutive words: each lane adds its word to
 //                   sums[d, c], and the lane of column 0 adds 1 to
 //                   counts[d].
-//   ring_sweep<CLAIM=true>  (K2 launch 1, after one memset of the integer
-//                   scratch and one of the sums) the same sweep, plus a
+//   ring_sweep<CLAIM=true>  (K2 launch 1 for float and bf16, after one
+//                   memset of the integer scratch and one of the sums) the
+//                   same sweep, one row a thread, plus a
 //                   cascaded claim: levels first[d, 0..S-1] keep the S
 //                   earliest rows of recipient d, stored as m - j so that
 //                   the empty mark is 0 and "earlier" is "larger"
@@ -41,10 +42,18 @@
 //                   bit-identical to the TPU's. Most rows pay one claim
 //                   atomic; only a recipient's later arrivals pay more, at
 //                   most S.
+//   ring_sweep_claim_elems (K2 launch 1 for int32) one row a lane for the
+//                   accept, the count and the claim, as above; then the
+//                   warp's 32 rows' payload words are added one lane a
+//                   word, as ring_sweep_elems adds them.
 //   ring_fill       (K2 launch 2) one thread per ring cell (d, k): copies
 //                   type and payload of row m - first[d, k] into the cell,
 //                   or zeros when the level is empty, and sums
-//                   max(counts[d] - S, 0) into dropped.
+//                   max(counts[d] - S, 0) into dropped. Where P % 4 == 0
+//                   and the payload and the rings are aligned to 4
+//                   elements, a cell's payload moves as 16-byte (float,
+//                   int32) or 8-byte (bf16) words; other widths move
+//                   column by column.
 //
 // Bound: memory bytes. Each row is read once and each output written once;
 // the work per byte is one add. The sweeps read rows coalesced and send
@@ -62,7 +71,7 @@
 // Payload types T (the reference's outputs take the payload's dtype):
 // float, int32 and bf16, each with an accumulator A: float for float and
 // bf16, int for int32 (exact; wraps as int32 arithmetic does). What bounds
-// each typed K1, and what its design does about it:
+// each typed sweep, and what its design does about it:
 // - int32: sm_90 has no integer vector reduction (PTX red.v4 takes f32,
 //   f16 and bf16 only), so a row cannot go out as one request as a float
 //   row does. One thread per row would send P scalar REDs, each warp
@@ -70,15 +79,22 @@
 //   per element, a warp instruction covers 32 / P whole rows and sends
 //   one request per distinct sum row, as the float4 path does, and its
 //   payload load uses all 128 bytes. A lane works out its first element's
-//   row and column with one 32-bit division and steps the rest.
+//   row and column with one 32-bit division and steps the rest. K2 keeps
+//   one row a lane for the claim, whose round trip it waits on (one row a
+//   thread keeps the most claims in flight), and takes each word's
+//   recipient from the lane that owns its row (__shfl_sync), so its sums
+//   cost what K1's do.
 // - bf16: a bf16 accumulator would stop growing (256 + 1 rounds to 256 in
 //   bf16), so bf16 sums land in a float32 scratch [n, p] and are rounded
 //   once (round to nearest even): by `round_sums` after K1's sweep, by
 //   ring_fill in K2. A float32 accumulator takes the float4 vector atomic,
-//   so K1 widens each 8-byte group of 4 bf16 to a float4 and adds it with
-//   one red.global.add.v4.f32; `round_sums` reads 16 bytes and writes 8 a
-//   thread.
-// K2 in int32 and bf16 still adds and copies column by column.
+//   so both sweeps widen each 8-byte group of 4 bf16 to a float4 and add
+//   it with one red.global.add.v4.f32; `round_sums`, and ring_fill in the
+//   thread of a recipient's first cell, read 16 bytes and write 8 at a
+//   time.
+// What bounds K2 in every dtype is then what it shares: the claim's
+// atomicMax round trips into random lines of `first`, and ring_fill's
+// gather of the claimed rows, random on random traffic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,6 +114,9 @@ constexpr int kClaimRows = 1;
 // Payload elements per thread of the int32 K1 (ring_sweep_elems), all
 // loaded before the first atomic.
 constexpr int kReduceElems = 4;
+// Payload elements of the int32 K2 sweep a lane loads before their
+// atomics (its P elements go in groups of this many).
+constexpr int kClaimElems = 4;
 
 // the C entries' dtype codes (ops/cuda_mailbox.py DTYPES)
 enum DtypeCode { kF32 = 0, kI32 = 1, kBF16 = 2 };
@@ -111,8 +130,18 @@ struct Acc<__nv_bfloat16> {
   using type = float;
 };
 
+// Four payload elements as one word: 16 bytes of float or int32, 8 of
+// bf16 (ring_fill's bit copies).
+template <typename T>
+struct Word4 {
+  using type = uint4;
+};
+template <>
+struct Word4<__nv_bfloat16> {
+  using type = uint2;
+};
+
 __device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ int widen(int x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -158,8 +187,21 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
              << 16;
 }
 
-// Adds one payload row into acc. VEC (float, and bf16 in K1): p % 4 == 0
-// and aligned rows, four columns a float4 vector atomic; `head` holds the
+// The claim below level 0 (see the note at the top): `old` is what level
+// 0 of `level` held before the claim of row value v there.
+__device__ __forceinline__ void claim_down(int* __restrict__ level,
+                                           int slots, int old, int v) {
+  if (old == 0) return;  // took an empty level 0
+  v = min(old, v);       // the later row of the two moves down
+  for (int k = 1; k < slots; ++k) {
+    const int prev = atomicMax(level + k, v);
+    if (prev == 0) break;  // took an empty level
+    v = min(v, prev);      // the later row moves down
+  }
+}
+
+// Adds one payload row into acc. VEC (float and bf16): p % 4 == 0 and
+// aligned rows, four columns a float4 vector atomic; `head` holds the
 // row's first four columns, loaded ahead by the caller.
 template <bool VEC, typename T>
 __device__ __forceinline__ void add_row(const T* __restrict__ src,
@@ -219,18 +261,63 @@ ring_sweep(const int* __restrict__ dst, const T* __restrict__ payload,
   }
   if (CLAIM) {
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      if (old[r] == 0) continue;  // took an empty level 0
-      // the later row of the two moves down
-      int v = min(old[r], m - static_cast<int>(base + r * kThreads));
-      int* level = first + static_cast<int64_t>(d[r]) * slots;
-      for (int k = 1; k < slots; ++k) {
-        const int prev = atomicMax(level + k, v);
-        if (prev == 0) break;     // took an empty level
-        v = min(v, prev);         // the later row moves down
+    for (int r = 0; r < ROWS; ++r)
+      claim_down(first + static_cast<int64_t>(d[r]) * slots, slots, old[r],
+                 m - static_cast<int>(base + r * kThreads));
+  }
+}
+
+// int32 K2 sweep (see the note at the top). Lane l of a warp owns row
+// j = row0 + l for the accept, the count and the claim, then adds
+// elements l, l + 32, ... of the warp's 32 * p payload words: element x
+// lies in row x / p of the warp and column x % p, worked out once (one
+// 32-bit division) and stepped by step_rows = 32 / p rows plus step_cols
+// = 32 % p columns. Every lane reaches every shuffle: rows past m and
+// rejected rows carry d = -1 and add nothing.
+__global__ void __launch_bounds__(kThreads)
+ring_sweep_claim_elems(const int* __restrict__ dst,
+                       const int* __restrict__ payload,
+                       const uint8_t* __restrict__ valid, int m, int n,
+                       int p, int slots, int step_rows, int step_cols,
+                       int* __restrict__ counts, int* __restrict__ sums,
+                       int* __restrict__ first) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int d = accept(dst, valid, j, m, n);
+  const int v = d < 0 ? 0 : m - static_cast<int>(j);
+  int* level = first + static_cast<int64_t>(d) * slots;
+  const int old = d < 0 ? 0 : atomicMax(level, v);
+  if (d >= 0) atomicAdd(counts + d, 1);
+  const int* src = payload + (j - lane) * p + lane;
+  int r = lane / p;
+  int c = lane - r * p;
+  for (int k0 = 0; k0 < p; k0 += kClaimElems) {
+    int dd[kClaimElems], cc[kClaimElems], w[kClaimElems];
+#pragma unroll
+    for (int i = 0; i < kClaimElems; ++i) {
+      dd[i] = -1;
+      if (k0 + i < p) {  // the same for every lane of the warp
+        const int dr = __shfl_sync(0xffffffffu, d, r);
+        if (dr >= 0) {
+          dd[i] = dr;
+          cc[i] = c;
+          w[i] = __ldg(src + (k0 + i) * 32);
+        }
+        r += step_rows;
+        c += step_cols;
+        if (c >= p) {
+          c -= p;
+          ++r;
+        }
       }
     }
+#pragma unroll
+    for (int i = 0; i < kClaimElems; ++i)
+      if (dd[i] >= 0)
+        atomicAdd(sums + static_cast<int64_t>(dd[i]) * p + cc[i], w[i]);
   }
+  claim_down(level, slots, old, v);
 }
 
 // int32 K1: one lane per payload element (see the note at the top). Lane
@@ -301,8 +388,12 @@ round_sums(const float* __restrict__ acc, __nv_bfloat16* __restrict__ out,
   }
 }
 
-// One thread per ring cell. For bf16, the thread of each recipient's first
-// cell also rounds its row of the float32 accumulator `acc` into `sums`.
+// One thread per ring cell. VEC (p % 4 == 0, payload and buf_p aligned to
+// 4 elements): a cell's payload moves as Word4 bit copies. For bf16, the
+// thread of each recipient's first cell also rounds its row of the
+// float32 accumulator `acc` into `sums`: 16 bytes in and 8 out at a time
+// where round_vec (p % 4 == 0, acc 16-byte and sums 8-byte aligned), else
+// column by column.
 template <bool VEC, typename T>
 __global__ void __launch_bounds__(kThreads)
 ring_fill(const int* __restrict__ mtype, const T* __restrict__ payload,
@@ -310,7 +401,8 @@ ring_fill(const int* __restrict__ mtype, const T* __restrict__ payload,
           const int* __restrict__ first, int* __restrict__ buf_t,
           T* __restrict__ buf_p, uint8_t* __restrict__ buf_v,
           int* __restrict__ dropped, const float* __restrict__ acc,
-          T* __restrict__ sums) {
+          T* __restrict__ sums, bool round_vec) {
+  using W = typename Word4<T>::type;
   // 32-bit cell index (the caller keeps n * slots below 2^31): a 64-bit
   // division per thread measured slower
   const unsigned i = blockIdx.x * kThreads + threadIdx.x;
@@ -325,7 +417,8 @@ ring_fill(const int* __restrict__ mtype, const T* __restrict__ payload,
       buf_v[i] = 1;
       if constexpr (VEC) {
         for (int c = 0; c < p; c += 4)
-          *reinterpret_cast<float4*>(out + c) = load4(src + c);
+          *reinterpret_cast<W*>(out + c) =
+              __ldg(reinterpret_cast<const W*>(src + c));
       } else {
         for (int c = 0; c < p; ++c) out[c] = src[c];
       }
@@ -333,8 +426,7 @@ ring_fill(const int* __restrict__ mtype, const T* __restrict__ payload,
       buf_t[i] = 0;
       buf_v[i] = 0;
       if constexpr (VEC) {
-        for (int c = 0; c < p; c += 4)
-          *reinterpret_cast<float4*>(out + c) = make_float4(0, 0, 0, 0);
+        for (int c = 0; c < p; c += 4) *reinterpret_cast<W*>(out + c) = W{};
       } else {
         for (int c = 0; c < p; ++c) out[c] = zero_of<T>();
       }
@@ -344,8 +436,17 @@ ring_fill(const int* __restrict__ mtype, const T* __restrict__ payload,
       over = max(counts[d] - slots, 0);
       if constexpr (std::is_same<T, __nv_bfloat16>::value) {
         const int64_t row = static_cast<int64_t>(d) * p;
-        for (int c = 0; c < p; ++c)
-          sums[row + c] = __float2bfloat16(acc[row + c]);
+        if (round_vec) {
+          for (int c = 0; c < p; c += 4) {
+            const float4 a =
+                __ldg(reinterpret_cast<const float4*>(acc + row + c));
+            *reinterpret_cast<uint2*>(sums + row + c) =
+                make_uint2(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w));
+          }
+        } else {
+          for (int c = 0; c < p; ++c)
+            sums[row + c] = __float2bfloat16(acc[row + c]);
+        }
       }
     }
   }
@@ -375,25 +476,22 @@ bool aligned(const void* ptr, size_t bytes) {
 
 bool aligned16(const void* ptr) { return aligned(ptr, 16); }
 
+// The row sweep of float and bf16 (int32 sweeps one lane per element):
+// float4 rows where vec.
 template <bool CLAIM, typename T>
 void launch_sweep(bool vec, const int* dst, const T* payload,
                   const uint8_t* valid, int m, int n, int p, int slots,
                   int* counts, typename Acc<T>::type* sums, int* first,
                   cudaStream_t s) {
+  static_assert(!std::is_same<T, int>::value, "int32 sweeps by element");
   constexpr int rows = CLAIM ? kClaimRows : kReduceRows;
   const int grid = blocks_for(m, kThreads * rows);
-  // float4 rows: float in both kernels, bf16 in K1 (K2 adds bf16 rows
-  // column by column)
-  if constexpr (std::is_same<T, float>::value ||
-                (!CLAIM && std::is_same<T, __nv_bfloat16>::value)) {
-    if (vec) {
-      ring_sweep<rows, true, CLAIM, T><<<grid, kThreads, 0, s>>>(
-          dst, payload, valid, m, n, p, slots, counts, sums, first);
-      return;
-    }
-  }
-  ring_sweep<rows, false, CLAIM, T><<<grid, kThreads, 0, s>>>(
-      dst, payload, valid, m, n, p, slots, counts, sums, first);
+  if (vec)
+    ring_sweep<rows, true, CLAIM, T><<<grid, kThreads, 0, s>>>(
+        dst, payload, valid, m, n, p, slots, counts, sums, first);
+  else
+    ring_sweep<rows, false, CLAIM, T><<<grid, kThreads, 0, s>>>(
+        dst, payload, valid, m, n, p, slots, counts, sums, first);
 }
 
 // K1 for payload type T: zero counts and the accumulator, sweep (int32 by
@@ -463,12 +561,20 @@ int slots_impl(const void* dst, const void* mtype, const void* payload,
   if (err == cudaSuccess)
     err = cudaMemsetAsync(into, 0, sizeof(A) * int64_t(n) * p, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = std::is_same<T, float>::value && p % 4 == 0 &&
-                   aligned16(payload) && aligned16(into) && aligned16(buf_p);
+  // words of 4 elements: payload rows for the float4 sweep (float, bf16)
+  // and for ring_fill's copies (every type)
+  const bool rows4 = p % 4 == 0 && aligned(payload, 4 * sizeof(T));
+  const bool sweep_vec = rows4 && aligned16(into);
+  const bool fill_vec = rows4 && aligned(buf_p, 4 * sizeof(T));
+  const auto* d = static_cast<const int*>(dst);
   const auto* pay = static_cast<const T*>(payload);
-  launch_sweep<true, T>(vec, static_cast<const int*>(dst), pay,
-                        static_cast<const uint8_t*>(valid), m, n, p, slots,
-                        counts, into, first, s);
+  const auto* v = static_cast<const uint8_t*>(valid);
+  if constexpr (std::is_same<T, int>::value)
+    ring_sweep_claim_elems<<<blocks_for(m, kThreads), kThreads, 0, s>>>(
+        d, pay, v, m, n, p, slots, 32 / p, 32 % p, counts, into, first);
+  else
+    launch_sweep<true, T>(sweep_vec, d, pay, v, m, n, p, slots, counts,
+                          into, first, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = blocks_for(cells, kThreads);
@@ -477,17 +583,21 @@ int slots_impl(const void* dst, const void* mtype, const void* payload,
   auto* bp = static_cast<T*>(buf_p);
   auto* bv = static_cast<uint8_t*>(buf_v);
   const float* round_from = nullptr;
-  if constexpr (kRound) round_from = into;
-  if (vec) {
-    if constexpr (std::is_same<T, float>::value)
-      ring_fill<true, T><<<grid, kThreads, 0, s>>>(
-          t, pay, m, n, p, slots, counts, first, bt, bp, bv, dropped,
-          nullptr, nullptr);
-  } else {
+  T* round_into = nullptr;
+  bool round_vec = false;
+  if constexpr (kRound) {
+    round_from = into;
+    round_into = static_cast<T*>(sums);
+    round_vec = p % 4 == 0 && aligned16(into) && aligned(sums, 8);
+  }
+  if (fill_vec)
+    ring_fill<true, T><<<grid, kThreads, 0, s>>>(
+        t, pay, m, n, p, slots, counts, first, bt, bp, bv, dropped,
+        round_from, round_into, round_vec);
+  else
     ring_fill<false, T><<<grid, kThreads, 0, s>>>(
         t, pay, m, n, p, slots, counts, first, bt, bp, bv, dropped,
-        round_from, static_cast<T*>(sums));
-  }
+        round_from, round_into, round_vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,9 +27,11 @@ share one set of outputs. Libraries take turns (baseline,
 package, variants, then the same in reverse), and every reading is
 printed, with the yardstick's time and the byte bound at 3.35 TB/s
 (accepted rows only, at the payload's element size) and the card's name
-and power limit. With `--profile`, each C entry also runs 20 times under
-torch.profiler, and its device time per call is printed by kernel and
-memset.
+and power limit. With `--profile`, each C entry of each library also
+runs 20 times under torch.profiler, and its device time per call is
+printed by kernel and memset (K2: the memsets, the claiming sweep and
+`ring_fill`, which for bf16 also rounds the sums), one line per library,
+the package's beside each variant's.
 """
 
 from __future__ import annotations
@@ -119,7 +121,10 @@ def bound_bytes(m: int, n: int, p: int, slots: int,
     """Bytes K1 and K2 must move: each input read once (dst and valid of
     every row; payload, and for K2 mtype, of the `live` rows the kernels
     accept, default all m), each output written once (counts, sums; K2
-    also the ring cells and dropped); payload elements of `elem` bytes."""
+    also the ring cells and dropped). Payload, sums and ring payload
+    count `elem` bytes an element, the payload's own size in both
+    kernels; scratch (K2's claim levels, bf16's float32 accumulator) is
+    not an output and counts nothing."""
     live = m if live is None else live
     k1 = m * (4 + 1) + live * elem * p + n * (4 + elem * p)
     return k1, k1 + live * 4 + n * slots * (4 + elem * p + 1) + 4
@@ -173,6 +178,37 @@ def compare(name: str, got, want, slack=None) -> float:
     return err
 
 
+def shifted(t: torch.Tensor, elems: int = 1) -> torch.Tensor:
+    """A contiguous copy of t that starts `elems` elements past the start
+    of its allocation: off every alignment above its element size, so
+    the kernels take their column branch for it."""
+    out = torch.empty(t.numel() + elems, dtype=t.dtype,
+                      device=t.device)[elems:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def shifted_slots(lib, inputs, n: int, slots: int, shift: str):
+    """K2 through `lib`'s C entry with one operand `shifted` off its
+    4-element word: "payload", or the output "buf_p", "sums" or "acc"
+    (bf16's accumulator). Returns the outputs in the plain version's
+    layout."""
+    dst, mtype, payload, valid = inputs
+    if shift == "payload":
+        payload = shifted(payload)
+    out = dict(zip(("scratch", "sums", "acc", "buf_t", "buf_p", "buf_v"),
+                   cm.slots_outputs(n, payload.shape[1], slots, dst.device,
+                                    payload.dtype)))
+    if shift != "payload":
+        out[shift] = shifted(out[shift])
+    moved = payload if shift == "payload" else out[shift]
+    if moved.data_ptr() % (4 * moved.element_size()) == 0:
+        raise RuntimeError(f"shifted {shift} still lies on a 4-element word")
+    cm.launch_slots(lib, dst, mtype, payload, valid, n, slots, **out)
+    return (out["buf_t"], out["buf_p"], out["buf_v"], out["scratch"][:n],
+            out["sums"], out["scratch"][-1])
+
+
 def library_reduce(dst, payload, valid, n: int, native: bool = False):
     """K1's function as one PyTorch `index_add_`: the yardstick of K1's
     time, which the port never calls. The accepted rows, with a count
@@ -200,6 +236,13 @@ def library_reduce(dst, payload, valid, n: int, native: bool = False):
     return call
 
 
+def kernel_name(key: str) -> str:
+    """A profiler key without its namespace, return type and arguments:
+    `ring_fill<true, int>`, `Memset`."""
+    key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return key.split("(")[0].strip()
+
+
 def device_breakdown(fn, calls: int = 20):
     """{kernel or memset name: device ms per call} of fn under
     torch.profiler."""
@@ -210,9 +253,12 @@ def device_breakdown(fn, calls: int = 20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key[:60]: device_us(e) / 1e3 / calls
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and device_us(e) > 0}
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and device_us(e) > 0:
+            name = kernel_name(e.key)
+            out[name] = out.get(name, 0.0) + device_us(e) / 1e3 / calls
+    return out
 
 
 def entry_outputs(inputs, n: int, slots: int):
@@ -379,10 +425,11 @@ def main() -> None:
         for name, r in readings.items():
             print(f"{pattern} {args.dtype} {name} K1_ms {r['K1']} "
                   f"K2_ms {r['K2']}")
-            if args.profile:
-                for k, fn in zip(("K1", "K2"), entries[name]):
-                    r[f"{k}_by_kernel"] = device_breakdown(fn)
-                    print(f"{pattern} {name} {k}_by_kernel "
+        if args.profile:
+            for i, k in enumerate(("K1", "K2")):
+                for name, r in readings.items():
+                    r[f"{k}_by_kernel"] = device_breakdown(entries[name][i])
+                    print(f"{pattern} {args.dtype} {name} {k}_by_kernel "
                           f"{r[f'{k}_by_kernel']}")
         print(f"{pattern} bound_ms K1 {bound_ms(b1)} K2 {bound_ms(b2)}")
         report["patterns"][pattern] = {

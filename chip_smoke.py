@@ -10,7 +10,9 @@
    n = 2^20 actors, P = 4, S = 2) under three traffic patterns (random,
    ring, 1000-collector fan-in; akka_tpu_torch/tools/bench_mailbox.py),
    in float32, int32 and bf16 payloads (int32 and bf16 also at small
-   shapes with P = 4 and 5): integer outputs (int32 sums included)
+   shapes with P = 4 and 5, and K2 with its payload, ring payload, and
+   for bf16 its sums or accumulator, off the alignment of its vector
+   branch): integer outputs (int32 sums included)
    bit-equal, float32 sums within rtol 1e-4 / atol 1e-3 (float atomics
    add in a run-dependent order), bf16 sums within one bf16 ulp plus the
    float32 reordering allowance 2 k 2^-24 sum|x| (both sides add in
@@ -21,7 +23,8 @@
    (bench_mailbox.library_reduce; float32-widened for bf16 and rounded
    once, held to the plain version; the bf16 `index_add_` is timed and
    checked beside it), and computes the memory-bytes bound at 3.35 TB/s
-   at the payload's element size.
+   at the payload's element size. Each K2 row also prints its device
+   time by kernel and memset under torch.profiler (`by_kernel`).
 Every path steps through replays of the step's CUDA graph
 (akka_tpu_torch/batched/graphs.py): the systems capture it in warmup(),
 before a path's launch counts are zeroed (the eager warm-up steps before
@@ -243,7 +246,8 @@ def kernel_rows(label: str, inputs, n: int, lib,
             "plain_ms": bm.cuda_ms(
                 lambda: cm.ring_slots_plain(*inputs, n, SLOTS)),
             "library_ms": None,
-            "bound_ms": bm.bound_ms(b2), "max_abs_err": err}
+            "bound_ms": bm.bound_ms(b2), "max_abs_err": err,
+            "by_kernel": bm.device_breakdown(e2)}
     for k, row in rows.items():
         print(f"{label} m={m} n={n} {k} " + " ".join(
             f"{f} {v}" for f, v in row.items()))
@@ -271,10 +275,38 @@ def small_check(dtype, p: int = 3) -> dict:
     return {k: {"max_abs_err": e} for k, e in errs.items()}
 
 
+def misaligned_check(dtype, lib) -> dict:
+    """K2 at the main path's shape (random traffic) with one operand off
+    the alignment its vector branch needs (bench_mailbox.shifted_slots):
+    the payload one element past its 4-element word (int32 4 bytes past
+    16, bf16 2 past 8), the ring payload `buf_p` one element past, and
+    for bf16 the sums (2 bytes past 8) and the float32 accumulator (4
+    past 16). The kernels take their column branch for it and must still
+    match the plain version; returns {case: {"K2": {"max_abs_err": ...}}}."""
+    inputs = bm.make_pattern("random", M, N, PAYLOAD_W, 3, dtype=dtype)
+    slack = bm.sum_slack(inputs[0], inputs[2], inputs[3], N) \
+        if dtype == torch.bfloat16 else None
+    want = cm.ring_slots_plain(*inputs, N, SLOTS)
+    cases = ["payload", "buf_p"]
+    if dtype == torch.bfloat16:
+        cases += ["sums", "acc"]
+    errs = {}
+    for shift in cases:
+        err = bm.compare(f"K2 misaligned {shift}", bm.shifted_slots(
+            lib, inputs, N, SLOTS, shift), want, slack)
+        torch.cuda.synchronize()
+        print(f"kernel_check {DTYPE_NAME[dtype]} K2 m={M} n={N} "
+              f"p={PAYLOAD_W} S={SLOTS} misaligned {shift}: "
+              f"max_abs_err={err}")
+        errs[f"misaligned_{shift}"] = {"K2": {"max_abs_err": err}}
+    return errs
+
+
 def kernel_phase(lib):
     """K1 and K2 at a small ragged shape and, at the main path's shape,
     at each traffic pattern, in float32, int32 and bf16 (int32 and bf16
-    also at small shapes with P = 4 and 5; fan-in adds ~1049 rows into
+    also at small shapes with P = 4 and 5, and K2 with misaligned
+    operands at the main path's shape; fan-in adds ~1049 rows into
     each collector: a bf16 accumulator would miss the one-ulp check
     there); returns the float32 report rows by pattern and the typed rows
     by dtype name, then pattern."""
@@ -287,6 +319,7 @@ def kernel_phase(lib):
         name = DTYPE_NAME[dtype]
         typed[name] = {f"small_p{p}": small_check(dtype, p)
                        for p in (3, 4, 5)}
+        typed[name].update(misaligned_check(dtype, lib))
         for seed, pattern in enumerate(bm.PATTERNS):
             typed[name][pattern] = kernel_rows(
                 f"{pattern}_{name}", bm.make_pattern(

@@ -82,17 +82,23 @@ def test_kernels_match_plain_versions_by_pattern(card, pattern, p, slots):
     assert cm.LAUNCHES == {"ring_reduce": 1, "ring_slots": 1}
 
 
-# K1 in int32 puts one lane on each payload element (every P); K1 in bf16
-# adds rows of P % 4 == 0 as float4 vector atomics into a float32
-# accumulator, other widths column by column, and rounds once; K2 adds
-# int32 and bf16 column by column. m = n + 11 is no multiple of any
-# block's rows or elements. int32 outputs, sums included, are bit-equal to
-# the plain versions; bf16 sums lie within one bf16 ulp plus the float32
-# reordering allowance (bench_mailbox.compare).
+# int32 puts one lane on each payload element in both kernels (every P;
+# K2 keeps one row a lane for its claim and shuffles each element's
+# recipient across the warp); bf16 adds rows of P % 4 == 0 as float4
+# vector atomics into a float32 accumulator in both kernels, other widths
+# column by column, and rounds once (K2 in ring_fill, 16 bytes in and 8
+# out at a time where P % 4 == 0). K2's ring_fill copies cells of P % 4 ==
+# 0 as 16-byte (int32) or 8-byte (bf16) words, other widths column by
+# column. m = n + 11 is no multiple of 32 or of any block's rows or
+# elements; the fan-in's ~4 rows per collector cascade through every level
+# of S = 5. int32 outputs, sums included, are bit-equal to the plain
+# versions; bf16 sums lie within one bf16 ulp plus the float32 reordering
+# allowance (bench_mailbox.compare).
 @pytest.mark.parametrize("dtype", [torch.int32, torch.bfloat16])
+@pytest.mark.parametrize("slots", [1, 2, 3, 5])
 @pytest.mark.parametrize("p", [1, 3, 4, 5, 8])
 @pytest.mark.parametrize("pattern", bm.PATTERNS)
-def test_typed_kernels_match_plain_versions(card, pattern, p, dtype):
+def test_typed_kernels_match_plain_versions(card, pattern, p, slots, dtype):
     n = 4096
     dst, mtype, payload, valid = bm.make_pattern(
         pattern, n + bm.HOST_ROWS + 3, n, p, seed=p, device=card,
@@ -103,11 +109,35 @@ def test_typed_kernels_match_plain_versions(card, pattern, p, dtype):
     assert got[1].dtype == dtype
     bm.compare("K1", got, cm.ring_reduce_plain(dst, payload, valid, n),
                slack)
-    got = cm.ring_slots(dst, mtype, payload, valid, n, 3)
+    got = cm.ring_slots(dst, mtype, payload, valid, n, slots)
     assert got[1].dtype == got[4].dtype == dtype
     bm.compare("K2", got, cm.ring_slots_plain(dst, mtype, payload, valid, n,
-                                              3), slack)
+                                              slots), slack)
     assert cm.LAUNCHES == {"ring_reduce": 1, "ring_slots": 1}
+
+
+# K2 at P = 4 with one operand off the alignment its vector branch needs:
+# the int32 payload 4 bytes past 16, the bf16 payload 2 bytes past 8
+# (both kernels take the column branch for it), the ring payload `buf_p`
+# one element past (ring_fill copies column by column; the float32 and
+# bf16 sweeps keep their float4 rows), bf16 `sums` 2 bytes past 8
+# (ring_fill rounds column by column) and the bf16 float32 accumulator 4
+# bytes past 16 (the sweep adds column by column). Each must still match
+# the plain version.
+@pytest.mark.parametrize("dtype,shift", [
+    (torch.float32, "buf_p"),
+    (torch.int32, "payload"), (torch.int32, "buf_p"),
+    (torch.bfloat16, "payload"), (torch.bfloat16, "buf_p"),
+    (torch.bfloat16, "sums"), (torch.bfloat16, "acc")])
+@pytest.mark.parametrize("pattern", bm.PATTERNS)
+def test_misaligned_k2_takes_the_column_branch(card, pattern, dtype, shift):
+    n, p, slots = 4096, 4, 3
+    inputs = bm.make_pattern(pattern, n + bm.HOST_ROWS + 3, n, p, seed=13,
+                             device=card, dtype=dtype)
+    slack = bm.sum_slack(inputs[0], inputs[2], inputs[3], n) \
+        if dtype == torch.bfloat16 else None
+    bm.compare("K2", bm.shifted_slots(cm.build(), inputs, n, slots, shift),
+               cm.ring_slots_plain(*inputs, n, slots), slack)
 
 
 def test_int32_sums_wrap_as_int32(card):

@@ -247,3 +247,52 @@ def test_library_reduce_computes_k1(pattern, dtype):
     assert got[0].dtype == torch.int32 and got[1].dtype == payload.dtype
     slack = bm.sum_slack(dst, payload, valid, n) if dtype == "bf16" else None
     bm.compare(f"library {pattern} {dtype}", got, want, slack)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bf16"])
+def test_bound_bytes_counts_the_payload_element_size(dtype):
+    """`bench_mailbox.bound_bytes` counts each kernel's payload, sums and
+    ring payload at the payload's own element size (bf16's float32
+    accumulator and K2's claim levels are scratch, counted nowhere):
+    written out term by term at m = 2^20 + 8, n = 2^20, P = 4, S = 2."""
+    from akka_tpu_torch.tools import bench_mailbox as bm
+
+    m, n, p, slots, live = (1 << 20) + 8, 1 << 20, 4, 2, 943_000
+    elem = {"float32": 4, "int32": 4, "bf16": 2}[dtype]
+    k1, k2 = bm.bound_bytes(m, n, p, slots, live, elem)
+    inputs1 = m * 4 + m * 1 + live * p * elem       # dst, valid, payload
+    outputs1 = n * 4 + n * p * elem                  # counts, sums
+    assert k1 == inputs1 + outputs1
+    ring = n * slots * (4 + p * elem + 1)            # buf_t, buf_p, buf_v
+    assert k2 == k1 + live * 4 + ring + 4            # mtype, rings, dropped
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bf16"])
+def test_shifted_copy_lies_off_its_word(dtype):
+    """`bench_mailbox.shifted` (the misaligned K2 cases' operands): an
+    equal, contiguous copy one element past its allocation's start, off
+    the 4-element word the vector branches need, and K2's plain version
+    gives the same rings and sums for it."""
+    from akka_tpu_torch.tools import bench_mailbox as bm
+
+    inputs = bm.make_pattern("random", 45, 11, 4, 1, device="cpu",
+                             dtype=bm.DTYPES[dtype])
+    moved = bm.shifted(inputs[2])
+    assert moved.is_contiguous() and torch.equal(moved, inputs[2])
+    assert moved.data_ptr() % (4 * moved.element_size()) != 0
+    want = cm.ring_slots_plain(*inputs, 11, 2)
+    got = cm.ring_slots_plain(inputs[0], inputs[1], moved, inputs[3], 11, 2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("key,name", [
+    ("void (anonymous namespace)::ring_fill<true, int>(int const*, int)",
+     "ring_fill<true, int>"),
+    ("(anonymous namespace)::ring_sweep_claim_elems(int const*, int)",
+     "ring_sweep_claim_elems"),
+    ("Memset (Device)", "Memset")])
+def test_kernel_name_of_a_profiler_key(key, name):
+    from akka_tpu_torch.tools import bench_mailbox as bm
+
+    assert bm.kernel_name(key) == name
