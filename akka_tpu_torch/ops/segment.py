@@ -32,7 +32,9 @@ An explicit "cuda" outside the ring kernel's support matrix raises
 ValueError naming the option: it never falls back silently. The sharded
 exchange's bucketing always ranks (`exchange_uses_ranked`). Compiled
 routing over a fixed graph is `StaticTopology` + `deliver_static`. The
-reference's wide "reference" family is not ported yet (ROADMAP A4.3).
+reference's wide "reference" family has no port of its own: "ranked"
+computes the same function, with bit-identical integers and sums that
+never cancel (a deliberate difference, ROADMAP C).
 
 Integer outputs (counts, slots, types, valid, dropped, ranks) are
 bit-identical to the reference. Sums are per-segment scatter-adds (never

@@ -55,6 +55,13 @@ phase's systems, and their graph pools, are freed before the next.
    ranked twin), and the compiled-routing ring and fan-in (ring_static,
    kind shift; fan_in_static, kind mod: no ring kernel launch, each held
    to its dynamic counterpart). Each result is held to its closed form.
+   The reference's supervision bench runs as graphs at 1M actors
+   (ring_plain, ring_supervised with LaneSupervisor(), ring_chaos with
+   crashes injected at 1e-3 per lane and step by
+   akka_tpu_torch.testkit.chaos.inject; 5 interleaved windows of 20
+   steps): the quiet counters must stay zero, and the chaos run's
+   failures, all restarted, must equal the count chaos_hit_np schedules
+   for the lanes that held a token.
 4. Drives the sharded system (ShardedBatchedSystem) at bench config 5,
    256 logical shards x 4096 entities = 2^20 actors, seeded with one token
    each: on one shard (sharded_ring_d1), on 8 shards of the card where
@@ -131,6 +138,7 @@ whose system has that dtype), the card's name and power limit, and
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -145,6 +153,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from akka_tpu_torch.batched import BatchedSystem, LaneSupervisor
 from akka_tpu_torch.gateway import GatewayClient, counter_behavior
 from akka_tpu_torch.models.baseline_benches import (PAYLOAD_W,
                                                     build_cross_shard,
@@ -152,9 +161,11 @@ from akka_tpu_torch.models.baseline_benches import (PAYLOAD_W,
                                                     build_fan_in,
                                                     build_ring,
                                                     build_ring_slots,
+                                                    ring_behavior,
                                                     seed_ring_full)
 from akka_tpu_torch.ops import cuda_mailbox as cm
 from akka_tpu_torch.sharding import DeviceEntity, DeviceShardRegion
+from akka_tpu_torch.testkit.chaos import CRASH_SALT, chaos_hit_np, inject
 from akka_tpu_torch.tools import bench_mailbox as bm
 from akka_tpu_torch.tools import gateway_load as gl
 from akka_tpu_torch.tools import profile_step as ps
@@ -178,6 +189,8 @@ GW_WARM = 64               # warm-up adds (one each) before the clients
 RESTORE_WAVES = 16         # ask waves before and after the checkpoint
 LATE_TELLS = 64            # tells staged, not stepped, at the crash
 KILL9_SECONDS = 25.0       # the load children's run in gateway_kill9
+SUP_WINDOWS = 5            # interleaved timed windows, supervision triple
+CHAOS_SEED, CHAOS_RATE = 7, 1e-3  # ring_chaos: inject(seed, crash_rate)
 
 
 def check(cond, what: str) -> None:
@@ -485,11 +498,12 @@ def step_cell(label: str, kernel: str, build, launches: dict, check_fn,
     return g, e
 
 
-def single_device_paths(launches: dict) -> None:
-    def ring_check(s, steps):
-        check((s.read_state("received") == steps).all(),
-              "ring: every actor received one token per step")
+def ring_check(s, steps):
+    check((s.read_state("received") == steps).all(),
+          "ring: every actor received one token per step")
 
+
+def single_device_paths(launches: dict) -> None:
     def tells(g, e):
         ring_check(g, g._host_step)  # before the tells add tokens
         before = g.read_state("received")
@@ -1164,6 +1178,77 @@ def durability_paths(launches: dict) -> None:
     print(f"gateway_kill9 phase_s {time.perf_counter() - t0}")
 
 
+def chaos_oracle(steps: int) -> int:
+    """The crashes `inject(seed=7, crash_rate=1e-3)` schedules on the
+    seeded ring over `steps` steps: a lane runs while it holds a token,
+    and a crash discards its emission (the default supervisor restarts
+    it in the same step), so its token is gone."""
+    lanes = np.arange(N, dtype=np.uint32)
+    tok = np.ones(N, bool)
+    failed = 0
+    for t in range(steps):
+        hit = chaos_hit_np(CHAOS_SEED, t, lanes, CHAOS_RATE, CRASH_SALT) \
+            & tok
+        failed += int(hit.sum())
+        tok = np.roll(tok & ~hit, 1)
+    return failed
+
+
+def supervision_paths(launches: dict) -> None:
+    """The reference's supervision bench (bench.py bench_supervision) as
+    graphs at 2^20 actors: the bare dynamic ring (ring_plain), the ring
+    with LaneSupervisor() (ring_supervised) and the supervised ring with
+    crashes injected at 1e-3 per lane and step (ring_chaos). Timed in
+    SUP_WINDOWS interleaved windows of STEPS steps (best of each); the
+    quiet run's counters must stay zero and the chaos run's `failed`
+    must equal the count chaos_hit_np schedules for the lanes that ran,
+    every failure restarted."""
+    sup_ring = dataclasses.replace(ring_behavior,
+                                   supervisor=LaneSupervisor())
+    variants = (("ring_plain", ring_behavior), ("ring_supervised", sup_ring),
+                ("ring_chaos", inject(sup_ring, seed=CHAOS_SEED,
+                                      crash_rate=CHAOS_RATE)))
+    systems, counts, best = {}, {}, {}
+    for label, b in variants:
+        s = BatchedSystem(capacity=N, behaviors=[b], payload_width=PAYLOAD_W,
+                          host_inbox=8, device="cuda")
+        s.spawn_block(b, N)
+        seed_ring_full(s)
+        t0 = time.perf_counter()
+        s.warmup()
+        print(f"{label} warmup_s {time.perf_counter() - t0}")
+        systems[label], counts[label], best[label] = s, Launches(), \
+            float("inf")
+    for _ in range(SUP_WINDOWS):
+        for label, s in systems.items():
+            ms = counts[label](lambda: bm.cuda_ms(
+                lambda: s.run(STEPS), iters=1, warmup=0)) / STEPS
+            best[label] = min(best[label], ms)
+    for label, s in systems.items():
+        print(f"{label} graph ms_per_step {best[label]}")
+        graph_line(label, s)
+    plain = best["ring_plain"]
+    for label in ("ring_supervised", "ring_chaos"):
+        print(f"{label} overhead_pct "
+              f"{(best[label] - plain) / plain * 100.0}")
+    steps = systems["ring_chaos"]._host_step
+    for label in ("ring_plain", "ring_supervised"):
+        ring_check(systems[label], steps)
+    quiet = systems["ring_supervised"].supervision_counts
+    check(not any(quiet.values()), f"ring_supervised: quiet counters {quiet}")
+    chaos = systems["ring_chaos"].supervision_counts
+    want = chaos_oracle(steps)
+    print(f"ring_chaos counts {chaos} scheduled_failures {want} "
+          f"steps {steps}")
+    check(chaos["failed"] > 0 and chaos["restarted"] == chaos["failed"]
+          == want, f"ring_chaos: failed {chaos['failed']} == restarted "
+          f"{chaos['restarted']} == chaos_hit_np's {want}")
+    for label, s in systems.items():
+        counts[label].report(label, "ring_reduce", launches, s._host_step)
+    del systems, s
+    free()
+
+
 def path_dtype(label: str) -> str:
     """The payload dtype of a path's system, by the path's name."""
     for name in ("int32", "bf16"):
@@ -1188,6 +1273,9 @@ def main() -> int:
     print(f"kernel_phase_s {time.perf_counter() - t0}")
     launches: Dict[str, dict] = {}
     single_device_paths(launches)
+    t0 = time.perf_counter()
+    supervision_paths(launches)
+    print(f"supervision_phase_s {time.perf_counter() - t0}")
     sharded = sharded_paths(launches)
     region = region_paths(launches)
     gateway = gateway_paths(launches)

@@ -662,3 +662,71 @@ def test_stray_capture_survives_a_concurrent_pressure_poll(card):
     assert not errors, errors[:3]
     assert polls[0] > 0
     assert region.system._graphs.stats()["captures"] == 2
+
+
+# --------------------------------- the region width on the card (A14)
+
+def _region_width_inputs(device):
+    """The region's stray-mode inbox at full width (the pattern of
+    test_ranked_sums_do_not_cancel_at_region_width in
+    tests/test_torch_segment.py): integer payloads, the last column a
+    reply-row id, every recipient's total below 2^24 while the running
+    total over the inbox passes it."""
+    m, n, p = 2_113_792, 1_056_768, 4
+    rng = np.random.default_rng(14)
+    dst = rng.integers(-1, n + 1, size=m).astype(np.int32)
+    valid = rng.random(m) > 0.1
+    mtype = rng.integers(1, 5, size=m).astype(np.int32)
+    payload = np.empty((m, p), np.float32)
+    payload[:, :3] = rng.integers(1, 10, size=(m, 3))
+    payload[:, 3] = rng.integers(0, n, size=m)
+    ok = valid & (dst >= 0) & (dst < n)
+    key = np.where(ok, dst, n)
+    order = np.argsort(key, kind="stable")
+    rank = np.empty(m, np.int64)
+    rank[order] = np.arange(m) - np.searchsorted(key[order],
+                                                 np.arange(n + 1))[key[order]]
+
+    def oracle(rows):
+        out = np.zeros((n + 1, p), np.float64)
+        np.add.at(out, key[rows], payload[rows].astype(np.float64))
+        return out[:n]
+
+    t = [torch.from_numpy(a).to(device) for a in (dst, mtype, payload, valid)]
+    return t, n, ok, rank, oracle
+
+
+def test_ranked_family_at_region_width_is_exact(card):
+    """At the region's width every per-recipient sum of the ranked
+    kernels on the card (reduce in both modes, the bounded slots path and
+    the spill path) equals the float64 oracle exactly, and their integers
+    equal K1/K2's: sums are scatter-adds per segment, never differences
+    of the running total (ROADMAP A14). The reference's wide family,
+    which the port leaves to these kernels, loses those low bits."""
+    (dst, mtype, payload, valid), n, ok, rank, oracle = \
+        _region_width_inputs(card)
+    everything = oracle(ok)
+    assert everything[:, 3].max() < 2 ** 24 < everything[:, 3].sum()
+    counts, _ = cm.ring_reduce(dst, payload, valid, n)
+    for mode in ("merge", "sort"):
+        got = tsg.deliver(dst, payload, valid, n, mode=mode,
+                          backend="ranked")
+        np.testing.assert_array_equal(got.sum.cpu().numpy(), everything,
+                                      err_msg=mode)
+        assert torch.equal(got.count, counts), mode
+    bounded = tsg.deliver_slots(dst, mtype, payload, valid, n, 2,
+                                backend="ranked")
+    ring = cm.ring_slots(dst, mtype, payload, valid, n, 2)
+    for f, want in zip(("types", "payload", "valid", "count", "sum",
+                        "dropped"), ring):
+        if f != "sum":
+            assert torch.equal(getattr(bounded, f), want), f
+    np.testing.assert_array_equal(bounded.sum.cpu().numpy(), everything)
+    spill = tsg.deliver_slots(dst, mtype, payload, valid, n, 2,
+                              spill_cap=4096, backend="ranked")
+    np.testing.assert_array_equal(spill.sum.cpu().numpy(),
+                                  oracle(ok & (rank < 2)))
+    for f in ("types", "payload", "valid"):
+        assert torch.equal(getattr(spill, f), getattr(bounded, f)), f
+    # with a spill region a mailbox consumes its first two, the rest spill
+    assert torch.equal(spill.count, bounded.count.clamp(max=2))

@@ -54,6 +54,8 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "akka_tpu_torch.persistence.entity_journal",
                  "akka_tpu_torch.persistence.slab_snapshot",
                  "akka_tpu_torch.sharding.remember",
+                 "akka_tpu_torch.testkit",
+                 "akka_tpu_torch.testkit.chaos",
                  "akka_tpu_torch.tools.serving_gateway"):
         assert name in MODULES, name
 
@@ -103,3 +105,63 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
         built = build(device="cpu")
         sys_ = getattr(built, "system", built)
         assert sys_.device.type == "cpu"
+
+
+# ------------------------------------------------ exports (ROADMAP C1)
+
+EXPORT_PACKAGES = ("batched", "ops", "sharding", "gateway", "event",
+                   "serialization")
+
+
+def _reference_exports(sub: str) -> set:
+    """The public names akka_tpu/<sub>/__init__.py binds, read from its
+    source: relative imports, definitions, assignments and __all__ (so no
+    akka_tpu module is imported here)."""
+    tree = ast.parse((ROOT / "akka_tpu" / sub / "__init__.py").read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and node.level >= 1:
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name) and t.id == "__all__":
+                    names |= set(ast.literal_eval(node.value))
+                elif isinstance(t, ast.Name):
+                    names.add(t.id)
+    return {n for n in names if not n.startswith("_") and n != "*"}
+
+
+def _port_definitions(sub: str) -> set:
+    """Top-level names defined anywhere in akka_tpu_torch/<sub>."""
+    names = set()
+    for path in (PKG / sub).rglob("*.py"):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                names.add(node.name)
+            elif isinstance(node, ast.Assign):
+                names |= {t.id for t in node.targets
+                          if isinstance(t, ast.Name)}
+            elif isinstance(node, ast.AnnAssign) and \
+                    isinstance(node.target, ast.Name):
+                names.add(node.target.id)
+    return names
+
+
+@pytest.mark.parametrize("sub", EXPORT_PACKAGES)
+def test_port_exports_what_the_reference_exports(sub):
+    """Every name the reference subpackage exports and the port defines
+    imports from the port's subpackage."""
+    import importlib
+
+    port = importlib.import_module(f"akka_tpu_torch.{sub}")
+    shared = _reference_exports(sub) & _port_definitions(sub)
+    missing = sorted(n for n in shared if not hasattr(port, n))
+    assert not missing, f"akka_tpu_torch.{sub} lacks {missing}"
+    if sub == "batched":
+        assert {"StepCore", "ATT_WORDS", "COUNTER_NAMES", "SUP_COLUMNS",
+                "decode_attention", "reply_dst"} <= shared
+        from akka_tpu_torch.batched import (ATT_WORDS, COUNTER_NAMES,  # noqa
+                                            SUP_COLUMNS, StepCore,
+                                            decode_attention, reply_dst)
