@@ -26,6 +26,16 @@ host copy of each step's attention word. Host tells stage in a Python
 list (the reference's C++ NativeStager is not ported yet) and ride into
 the next `step()` with its flush.
 
+Telemetry: with metrics on, the step keeps the metric slab
+(batched/metrics_slab.py) and its epoch word, the slab's running sum as
+a carried int32 scalar that every step writes in place (so the captured
+graph writes it too); `drain_metrics()` reads that one scalar and fetches
+the slab only when it moved. With a `flight_recorder`, `step`/`run` emit
+`device_flush`/`device_step` (dispatch time) and the supervision counters'
+delta, `warmup` a `device_compile`, `read_attention` a `shard_overflow`
+on growth; with none, the hooks cost an attribute read each and no host
+sync.
+
 Durability: with a `TellJournal` in `tell_journal`, every staged batch is
 journaled before it is staged; `checkpoint` snapshots the slabs
 (persistence/slab_snapshot.py) and compacts the journal, and `restore`
@@ -35,17 +45,19 @@ loads a snapshot in place and replays the journal to the crash frontier.
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..event.flight_recorder import trace_span
 from ..utils.device import resolve_device
 from . import graphs
 from .behavior import BatchedBehavior
 from .metrics_slab import (ASK_ARM_COL, ASK_ARM_SPEC, accumulate_step,
-                           empty_slab, slab_dict)
+                           empty_slab, slab_dict, slab_epoch)
 from .step import (StepCore, fault_any_failed, fault_clear_failed,
                    fault_failed_rows, fault_restart_rows, write_back)
 from .supervision import (ATT_WORDS, N_COUNTERS, SUP_COLUMNS, counts_dict,
@@ -121,8 +133,8 @@ def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
 # the carried tensors besides the state columns (graphs.shadow_of clones
 # them for the warm-up)
 CARRY = ("behavior_id", "alive", "step_count", "mail_dropped", "sup_counts",
-         "attention", "metrics", "inbox_dst", "inbox_type", "inbox_payload",
-         "inbox_valid", "inbox_enq")
+         "attention", "metrics", "metrics_epoch", "inbox_dst", "inbox_type",
+         "inbox_payload", "inbox_valid", "inbox_enq")
 
 
 class BatchedSystem:
@@ -210,8 +222,16 @@ class BatchedSystem:
         self.step_count = torch.zeros((), dtype=i32, device=dev)
         self.mail_dropped = torch.zeros((), dtype=i32, device=dev)
         self.sup_counts = torch.zeros((N_COUNTERS,), dtype=i32, device=dev)
+        # the counters the flight recorder last reported (their delta is
+        # the next device_supervision event)
+        self._sup_reported = np.zeros((N_COUNTERS,), np.int64)
         self.attention = torch.zeros((ATT_WORDS,), dtype=i32, device=dev)
         self.metrics = empty_slab(device=dev)
+        # the metrics epoch: the slab's running sum, written in place by
+        # every step (0 while metrics are off); drain_metrics compares it
+        # with the value of its last drain
+        self.metrics_epoch = torch.zeros((), dtype=i32, device=dev)
+        self._metrics_seen_epoch = 0
 
         # inbox layout: [spill_cap | n*K emissions | host_inbox]; spill
         # first so redelivered (older) mail sorts before fresh emissions
@@ -237,6 +257,13 @@ class BatchedSystem:
         self.dead_lettered = 0  # generation-mismatch tells (guarded by _lock)
         self.on_dead_letter: Optional[Callable[[int], None]] = None
         self.on_dropped: Optional[Callable[[int], None]] = None
+        # optional flight recorder (event/flight_recorder.py SPI): step,
+        # flush, compile, supervision and overflow events; None = no cost
+        self.flight_recorder = None
+        # (mailbox_overflow, exchange_dropped) already reported through
+        # shard_overflow: the counters are cumulative, a warning marks
+        # growth
+        self._overflow_reported = (0, 0)
         # host mirror of the dispatched-step counter
         self._host_step = 0
         # write-ahead tell journal (persistence/tell_journal.py): staged
@@ -445,8 +472,12 @@ class BatchedSystem:
             self.inbox_enq[base:] = self.step_count
 
     def _flush_staged(self) -> None:
-        if self._drain_to_pad():
-            self._flush()
+        k = self._drain_to_pad()
+        if k == 0:
+            return
+        self._flush()
+        if self.flight_recorder is not None:
+            self.flight_recorder.device_flush("batched", k)
 
     # ------------------------------------------------------------------ step
     def _step_impl(self, attend: bool = True) -> None:
@@ -498,9 +529,13 @@ class BatchedSystem:
             self._attend()
 
     def _attend(self) -> None:
+        """The words the host reads after a step, from the new carry: the
+        attention word and, with metrics on, the metrics epoch."""
         self.attention.copy_(self._core.attention_word(
             self.state, self.mail_dropped, self.sup_counts,
             self.step_count))
+        if self.metrics_on:
+            self.metrics_epoch.copy_(slab_epoch(self.metrics))
 
     def _warm(self) -> None:
         """Eager warm-up steps over clones of the carry (the live carry is
@@ -526,27 +561,46 @@ class BatchedSystem:
         a side stream over clones of the carry, then the capture. The live
         carry is untouched. A no-op on the CPU and once captured. Raises
         GraphCaptureError, naming the behavior, if a behavior cannot run
-        inside the graph."""
+        inside the graph. With a flight recorder, emits device_compile
+        with the time it took."""
+        t0 = time.perf_counter()
         if not self._eager:
             self._graph()
+        if self.flight_recorder is not None:
+            self.flight_recorder.device_compile(
+                "batched", time.perf_counter() - t0)
 
     def step(self) -> None:
         """One delivery+update step. Staged host tells are flushed into the
         inbox as part of the same step."""
         k = self._drain_to_pad()
-        with torch.profiler.record_function("akka.device.step"):
+        t0 = time.perf_counter()
+        with trace_span("akka.device.step"):
             if k > 0:
                 self._flush()
             self._advance(1)
         self._host_step += 1
+        fr = self.flight_recorder
+        if fr is not None:
+            # elapsed_s is dispatch time: the card may still be running
+            # the step
+            if k > 0:
+                fr.device_flush("batched", k)
+            fr.device_step("batched", 1, time.perf_counter() - t0)
+            self._report_supervision(fr)
 
     def run(self, n_steps: int) -> None:
         """n steps on the device without host syncs (the bench hot loop);
         staged tells are flushed once before the first."""
         self._flush_staged()
-        with torch.profiler.record_function(f"akka.device.run[{n_steps}]"):
+        t0 = time.perf_counter()
+        with trace_span(f"akka.device.run[{n_steps}]"):
             self._advance(n_steps)
         self._host_step += int(n_steps)
+        fr = self.flight_recorder
+        if fr is not None:
+            fr.device_step("batched", n_steps, time.perf_counter() - t0)
+            self._report_supervision(fr)
 
     def run_pipelined(self, n_steps: int, depth: int = 2,
                       on_attention: Optional[Callable[[Dict[str, Any]],
@@ -594,13 +648,21 @@ class BatchedSystem:
         dropped: whatever was staged but not flushed at the crash replays
         from the journal. With `journal`, the journaled batches past the
         snapshot's step are replayed to the crash frontier. Returns the
-        restored host step counter. (The reference also re-arms its
-        metrics epoch here; the port has no epoch yet, ROADMAP A4.4.)"""
+        restored host step counter.
+
+        The metrics epoch is re-armed from the restored slab and the
+        drained value reset to 0, so a restored non-empty slab drains at
+        the next drain_metrics(), before any step. With metrics off the
+        epoch stays 0 (the reference sums a restored slab there too, until
+        its next step writes 0)."""
         from ..persistence.slab_snapshot import restore_slabs
         from ..persistence.tell_journal import replay_journal
         self.block_until_ready()
         restore_slabs(self, path)
         self._host_step = int(self.step_count.item())
+        if self.metrics_on:
+            self.metrics_epoch.copy_(slab_epoch(self.metrics))
+        self._metrics_seen_epoch = 0
         with self._lock:
             self._host_staged = []
         if journal is not None:
@@ -609,12 +671,45 @@ class BatchedSystem:
 
     def read_attention(self) -> Dict[str, Any]:
         """Decode the newest host-attention word (a tiny read that syncs
-        the newest step)."""
-        return decode_attention(self.attention)
+        the newest step). With a flight recorder, growth of the mailbox
+        or exchange overflow since the last read raises one
+        shard_overflow warning (shard 0: the single device)."""
+        word = decode_attention(self.attention)
+        fr = self.flight_recorder
+        if fr is not None:
+            mail = int(word.get("mail_dropped", 0))
+            exch = int(word.get("exchange_dropped", 0))
+            seen_mail, seen_exch = self._overflow_reported
+            if mail > seen_mail or exch > seen_exch:
+                fr.shard_overflow("batched", shard=0, mailbox_overflow=mail,
+                                  dropped=exch)
+                self._overflow_reported = (mail, exch)
+        return word
+
+    # ----------------------------------------------------- in-step metrics
+    def metrics_epoch_value(self) -> int:
+        """One scalar read of the metrics epoch (the slab's running sum;
+        0 while metrics are off). Like read_attention it syncs the newest
+        step."""
+        return int(self.metrics_epoch.item())
 
     def read_metrics(self) -> Dict[str, np.ndarray]:
         """Host copy of the metric slab as named [N_BUCKETS] int64 lanes."""
         return slab_dict(self.metrics)
+
+    def drain_metrics(self):
+        """Epoch-gated slab drain for the registry: `(step, {lane:
+        [N_BUCKETS] int64})` when the slab grew since the last drain,
+        else None (and None while metrics are off). The quiet path costs
+        one scalar read, the epoch; `MetricsRegistry.ingest_device_slab`
+        takes the result."""
+        if not self.metrics_on:
+            return None
+        epoch = self.metrics_epoch_value()
+        if epoch == self._metrics_seen_epoch:
+            return None
+        self._metrics_seen_epoch = epoch
+        return int(self.step_count.item()), slab_dict(self.metrics)
 
     # -------------------------------------------------------- fault handling
     def any_failed(self) -> bool:
@@ -655,6 +750,21 @@ class BatchedSystem:
             return np.empty((0,), np.int32)
         flags = self.state["_escalated"].cpu().numpy()
         return np.nonzero(flags)[0].astype(np.int32)
+
+    def _report_supervision(self, fr) -> None:
+        """Emit the supervision counters' delta since the last report as
+        one device_supervision event, when supervision is compiled in and
+        something happened (a small device read, made only with a
+        recorder attached)."""
+        if not self._core.sup.active:
+            return
+        totals = self.sup_counts.cpu().numpy().astype(np.int64)
+        delta = totals - self._sup_reported
+        if not delta.any():
+            return
+        self._sup_reported = totals
+        fr.device_supervision("batched", int(self.step_count.item()),
+                              *(int(x) for x in delta))
 
     def set_behavior(self, ids, behavior: BatchedBehavior | int) -> None:
         """Host-side become: rewrite the rows' behavior index."""

@@ -134,6 +134,13 @@ def slab_dict(slab) -> Dict[str, np.ndarray]:
     return {name: totals[i] for i, name in enumerate(HIST_NAMES)}
 
 
+def slab_epoch(slab: torch.Tensor) -> torch.Tensor:
+    """The slab's metrics epoch: its running sum as an int32 scalar on the
+    slab's device (no host sync), wrapping modulo 2^32 as the reference's
+    int32 sum does."""
+    return slab.sum(dtype=torch.int64).to(torch.int32)
+
+
 def bucket_upper_bounds() -> tuple:
     """Inclusive upper bounds per bucket for Prometheus-style `le` labels
     (the last bucket is unbounded -> +Inf)."""

@@ -51,26 +51,30 @@ restore drops both. On the CPU the same in-place step runs eagerly.
 Durability is the reference's: a `tell_journal` WAL, `checkpoint`, and
 `restore`/`restore_tree`, which write a snapshot of the same layout into
 the live tensors and re-shard one taken at another shard count (or in the
-hand-off window's wider inbox) through `_restore_resharded`. Not ported
-yet: `metrics_epoch_value`/`drain_metrics` (ROADMAP A4.4) and a mesh of
-several cards (`mesh=`, ROADMAP A10).
+hand-off window's wider inbox) through `_restore_resharded`; both
+re-arm the metrics epoch (the slab's running sum, a carried int32 scalar
+every step writes in place) from the restored slab, so
+`drain_metrics()` hands the restored slab over once. Not ported yet: a
+mesh of several cards (`mesh=`, ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..event.flight_recorder import trace_span
 from ..ops.segment import exchange_uses_ranked, stable_ranks
 from ..utils.device import resolve_device
 from . import graphs
 from .behavior import BatchedBehavior
 from .core import _numpy_dtype, drive_pipelined, host_to_device
 from .metrics_slab import (ASK_ARM_COL, ASK_ARM_SPEC, accumulate_step,
-                           empty_slab, slab_dict)
+                           empty_slab, slab_dict, slab_epoch)
 from .step import (StepCore, fault_any_failed, fault_clear_failed,
                    fault_failed_rows, fault_restart_rows, write_back)
 from .supervision import (ATT_WORDS, N_COUNTERS, SUP_COLUMNS, counts_dict,
@@ -82,7 +86,7 @@ INBOX_FILL = {"inbox_dst": -1, "inbox_type": 0, "inbox_payload": 0,
 # the carried tensors besides the state columns (graphs.shadow_of clones
 # them for the warm-up)
 CARRY = ("behavior_id", "alive", "step_count", "dropped", "mail_dropped",
-         "sup_counts", "metrics", "attention", *INBOX_FILL)
+         "sup_counts", "metrics", "metrics_epoch", "attention", *INBOX_FILL)
 
 
 class ShardedBatchedSystem:
@@ -196,11 +200,17 @@ class ShardedBatchedSystem:
         self.mail_dropped = torch.zeros((d,), dtype=i32, device=dev)
         self.sup_counts = torch.zeros((d, N_COUNTERS), dtype=i32, device=dev)
         self.metrics = empty_slab(d, device=dev)
+        # the metrics epoch: the slab's running sum over every shard,
+        # written in place by every run (0 while metrics are off)
+        self.metrics_epoch = torch.zeros((), dtype=i32, device=dev)
+        self._metrics_seen_epoch = 0
         self.attention = torch.zeros((d, ATT_WORDS), dtype=i32, device=dev)
         # cumulative per-shard overflow already reported through the
         # flight recorder's shard_overflow warning (read_attention)
         self._overflow_reported = np.zeros((d, 2), np.int64)
-        # optional flight recorder (shard_overflow(...)); None = no cost
+        # optional flight recorder (event/flight_recorder.py SPI):
+        # device_flush/device_step from run() and shard_overflow from
+        # read_attention; None = no cost
         self.flight_recorder = None
 
         self._next_row = 0
@@ -317,6 +327,8 @@ class ShardedBatchedSystem:
             pls.append(p)
         if not idxs:
             return
+        if self.flight_recorder is not None:
+            self.flight_recorder.device_flush("sharded", len(idxs))
         # through fresh pinned blocks: no wait for the steps in flight
         dev = self.device
         idx = host_to_device(np.asarray(idxs, np.int64), dev)
@@ -514,9 +526,13 @@ class ShardedBatchedSystem:
         self.step_count.add_(1)
 
     def _attend(self) -> None:
+        """The words the host reads after a run, from the final carry: the
+        attention words and, with metrics on, the metrics epoch."""
         self.attention.copy_(self._core.attention_word(
             self.state, self.mail_dropped, self.sup_counts, self.step_count,
             exch_dropped=self.dropped))
+        if self.metrics_on:
+            self.metrics_epoch.copy_(slab_epoch(self.metrics))
 
     def _graph_step(self) -> None:
         self._step_impl()
@@ -554,10 +570,13 @@ class ShardedBatchedSystem:
     def run(self, n_steps: int = 1) -> None:
         """Flush staged tells, then n steps on the device without host
         syncs: n replays of the step's graph on a card, the eager step on
-        the CPU; the attention words come from the final carry."""
+        the CPU; the attention words come from the final carry. With a
+        flight recorder, the flush and the run emit device_flush and
+        device_step (dispatch time), as BatchedSystem's do (the
+        reference's sharded run emits neither)."""
         self._flush_staged()
-        with torch.profiler.record_function(
-                f"akka.device.sharded.run[{n_steps}]"):
+        t0 = time.perf_counter()
+        with trace_span(f"akka.device.sharded.run[{n_steps}]"):
             if not self._eager and n_steps > 0:
                 self._graph().replay(n_steps)
             else:
@@ -565,6 +584,9 @@ class ShardedBatchedSystem:
                     self._step_impl()
                 self._attend()
         self._host_step += int(n_steps)
+        fr = self.flight_recorder
+        if fr is not None:
+            fr.device_step("sharded", n_steps, time.perf_counter() - t0)
 
     step = run
 
@@ -680,6 +702,24 @@ class ShardedBatchedSystem:
         self.block_until_ready()
         return slab_dict(self.metrics)
 
+    def metrics_epoch_value(self) -> int:
+        """One scalar read of the metrics epoch (the slab's running sum
+        over every shard; 0 while metrics are off); it syncs the newest
+        run."""
+        return int(self.metrics_epoch.item())
+
+    def drain_metrics(self):
+        """`(step, lanes)` when the slab changed since the last drain,
+        else None (and None while metrics are off); the quiet path costs
+        one scalar read."""
+        if not self.metrics_on:
+            return None
+        epoch = self.metrics_epoch_value()
+        if epoch == self._metrics_seen_epoch:
+            return None
+        self._metrics_seen_epoch = epoch
+        return int(self.step_count.item()), slab_dict(self.metrics)
+
     # ------------------------------------------------- checkpoint / recovery
     def checkpoint(self, directory: str, keep: Optional[int] = None,
                    compact: bool = True) -> str:
@@ -710,8 +750,9 @@ class ShardedBatchedSystem:
     def restore_tree(self, tree: Dict[str, Any], journal=None) -> int:
         """Restore from an already-loaded slab tree (`slab_pytree` host
         copies). The host staging list is dropped (its tells replay from
-        the journal). (The reference also re-arms its metrics epoch here;
-        the port has no epoch yet, ROADMAP A4.4.)"""
+        the journal). The metrics epoch is re-armed from the restored slab
+        (either path) and the drained value reset, so the next
+        drain_metrics() hands the restored slab over."""
         from ..persistence.slab_snapshot import restore_slab_pytree
         from ..persistence.tell_journal import replay_journal
         snap_rows = int(np.shape(tree["behavior_id"])[0])
@@ -724,6 +765,9 @@ class ShardedBatchedSystem:
             restore_slab_pytree(self, tree)
         else:
             self._restore_resharded(tree)
+        if self.metrics_on:
+            self.metrics_epoch.copy_(slab_epoch(self.metrics))
+        self._metrics_seen_epoch = 0
         self._host_step = int(self.step_count.item())
         with self._lock:
             self._host_staged = []

@@ -1,2 +1,3 @@
-"""Telemetry helpers of the port: causal-tracing context (`tracing`) and
-runtime pressure signals (`pressure`)."""
+"""The port's telemetry plane: the flight recorder and the profiler
+brackets (`flight_recorder`), the metrics registry (`metrics`), causal
+tracing (`tracing`) and runtime pressure signals (`pressure`)."""

@@ -1,9 +1,11 @@
 """Causal tracing: sampled request → wave → device-step spans.
 
 A copy of `akka_tpu/event/tracing.py` (the port keeps its own copy of
-every module it needs). No tracer is wired into the port's region yet
-(ROADMAP A9); the gateway and the ask front end use the context helpers
-and `NOOP_SPAN`.
+every module it needs). `DeviceShardRegion.attach_tracer` wires a
+`Tracer` into the region's ask engine (the gateway calls it when its
+server has a tracer); the gateway and the ask front end use the context
+helpers and `NOOP_SPAN`, and `tools/trace_export.py` merges the spans
+with the flight recorder's events into one Perfetto document.
 
 The flight recorder (flight_recorder.py) answers "what happened" as
 discrete events; the metrics plane (metrics.py) answers "how is the

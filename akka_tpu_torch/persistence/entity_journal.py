@@ -30,9 +30,10 @@ per event. `compact()` rewrites the log as one snap-all record (tmp +
 fsync + replace); the region calls it at checkpoint(), and the journal
 compacts itself once `compact_every` events have accumulated.
 
-`registry` takes a metrics registry (`histogram(name, help)` with
-`observe`/`observe_many` and a `step` attribute) and may be None: the
-port has none yet (ROADMAP A9). So may the flight recorder.
+`registry` takes a metrics registry (event/metrics.py
+`MetricsRegistry`, or anything with `histogram(name, help)` giving
+`observe`/`observe_many` and a `step` attribute) and may be None, as
+may the flight recorder (event/flight_recorder.py).
 """
 
 from __future__ import annotations

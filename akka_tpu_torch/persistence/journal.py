@@ -7,8 +7,8 @@ these two functions are copied. The format is the reference's, byte for
 byte: each record is an 8-byte little-endian length followed by a pickle
 blob, so either package reads the other's logs.
 
-The flight recorder (`journal_truncated(path, dropped)`) is optional and
-may be None: the port has no flight recorder yet (ROADMAP A9).
+The flight recorder (`journal_truncated(path, dropped)`,
+event/flight_recorder.py) is optional and may be None.
 """
 
 from __future__ import annotations

@@ -38,10 +38,12 @@ at most one ask in flight per destination row; duplicates wait for the
 occupant to resolve and ride a later round, which also linearizes
 per-entity totals.
 
-The tracer hooks are the reference's; the port's region carries
-`tracer = None` until one is wired in (ROADMAP A9). The entity-journal
-commit sites stay behind `getattr(region, "_entity_journal", None)`: a
-region without `attach_entity_journal` pays one attribute read.
+The tracer hooks are the reference's: a region's `tracer` is None (one
+predicate per hook) until `DeviceShardRegion.attach_tracer` wires one
+in, and then sampled asks emit the wave and member spans, stamped on
+the region's step axis. The entity-journal commit sites stay behind
+`getattr(region, "_entity_journal", None)`: a region without
+`attach_entity_journal` pays one attribute read.
 """
 
 from __future__ import annotations

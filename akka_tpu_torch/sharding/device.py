@@ -26,10 +26,13 @@ remembered entities (`DeviceEntity.remember_store`, the entity journal),
 writes the snapshot into the live tensors, replays the WAL and pins the
 durable column to the entity journal's acked frontier.
 
+Observability is the reference's: `attach_tracer` wires a causal tracer
+(event/tracing.py) into the ask engine, whose wave and member spans are
+then stamped on this region's step axis; the journals take the system's
+flight recorder and, for the entity journal, a metrics registry.
+
 Not ported yet: `failover` (more than one card, ROADMAP A10: it raises
-NotImplementedError naming its item) and `attach_tracer` (ROADMAP A9:
-`tracer` stays None, so the ask engine runs the reference's no-tracer
-path).
+NotImplementedError naming its item).
 """
 
 from __future__ import annotations
@@ -62,7 +65,9 @@ class DeviceEntity:
     replay. spill_capacity (a port addition, default None = the system's
     default) is forwarded to the sharded system: with mailbox_slots > 0
     and spill_capacity=0 the mailboxes are bounded, the ring-slots
-    kernel's mode."""
+    kernel's mode. metrics_enabled (a port addition, default False) is
+    forwarded too: it compiles the metric slab and its epoch into the
+    region's step, for `system.drain_metrics()`."""
 
     type_name: str
     behavior: BatchedBehavior
@@ -79,6 +84,7 @@ class DeviceEntity:
     lease: Optional[Any] = None
     remember_store: Optional[Any] = None
     spill_capacity: Optional[int] = None
+    metrics_enabled: bool = False
 
 
 class DeviceEntityRef:
@@ -147,7 +153,8 @@ class DeviceShardRegion:
             delivery_backend=spec.delivery_backend,
             # the latch bit of the attention word says "some promise row
             # replied", so the ask engine reads the promise block only then
-            attention_latch_col="__promise_replied", device=device)
+            attention_latch_col="__promise_replied",
+            metrics_enabled=spec.metrics_enabled, device=device)
         self._ask_latch_wired = True
 
         # initial allocation: shard s -> block s, striped over the shards
@@ -169,9 +176,9 @@ class DeviceShardRegion:
         self._promise_retired: List[int] = []
         self._promise_spawned = False
         self._stat_ask_exhausted = 0  # typed AskPoolExhausted fast-fails
-        # the ask engine reads these: a None tracer keeps it on its
-        # one-predicate quiet path (no tracer is wired in yet, ROADMAP
-        # A9); _wave_seq numbers every wave
+        # the ask engine reads these: a None tracer (attach_tracer wires
+        # one) keeps it on its one-predicate quiet path; _wave_seq numbers
+        # every wave
         self.tracer = None
         self._wave_seq = 0
         self._lock = threading.Lock()
@@ -254,6 +261,17 @@ class DeviceShardRegion:
         if isinstance(out, BaseException):
             raise out
         return out
+
+    def attach_tracer(self, tracer) -> None:
+        """Wire the causal tracer (event/tracing.py) into the ask engine:
+        wave and member spans are emitted for sampled asks, and the
+        tracer's step source becomes this region's system, the step axis
+        of the spans describing its waves (read through `self.system` at
+        each stamp, so it follows a system the region replaces). None
+        detaches it."""
+        self.tracer = tracer
+        if tracer is not None:
+            tracer.step_fn = lambda: self.system._host_step
 
     def ask_many(self, requests: Sequence[Any], steps: int = 2,
                  max_extra_steps: int = 8,
@@ -480,8 +498,9 @@ class DeviceShardRegion:
         restore() then pins each entity's `state_col` to the journal's
         fold (snapshot + event tail), the acked frontier.
         `per_event_fsync=True` is the A/B leg (one record + fsync per
-        event). `registry` may be None (the port has none yet, ROADMAP
-        A9). Returns the EntityJournal."""
+        event). `registry`: an optional MetricsRegistry
+        (event/metrics.py) for the journal's counters and histograms.
+        Returns the EntityJournal."""
         from ..persistence.entity_journal import EntityJournal
         directory = directory or self.checkpoint_dir
         if directory is None:

@@ -123,7 +123,31 @@ phase's systems, and their graph pools, are freed before the next.
    entities, and the restored server's replay must have launched K1 once
    per step (it prints its counts). It prints the wall time from SIGKILL
    to READY.
-8. Holds both kernels against their plain versions once more at the
+8. The observed step (observed_paths). ring_metrics: the reference's
+   metrics-overhead bench (bench.py bench_metrics_overhead) as graphs at
+   2^20 actors, the dynamic ring with the metric slab off and on, quiet
+   (no token) and active (seeded), timed in OBS_WINDOWS interleaved
+   windows of STEPS steps; the quiet-on epoch must stay 0, the active-on
+   drain must hold mailbox_occupancy (one message per actor and step,
+   bucket 1) and sojourn_steps, and equal read_metrics() and an eager
+   twin's lanes bit for bit; it prints quiet_overhead_pct and
+   active_overhead_pct (numbers, not gates). region_observed:
+   region_serve's region with the metric slab on, a Tracer sampling
+   every trace (attach_tracer), a MetricsRegistry on the entity journal
+   and on the ask engine (an AskBatcher whose waves run on the caller's
+   thread) and an InMemoryFlightRecorder on the system, serving
+   region_serve's waves, traced and untraced in turn (asks/s of each);
+   every reply must equal the oracle, the spans and recorder events must
+   export to a Perfetto document with no validate_trace error, every
+   wave span's step stamps lie on the region's step axis, the
+   device_step events account for every step, and one drain_metrics ->
+   ingest_device_slab puts the device lanes into expose(). Then the
+   registry's HTTP endpoint is scraped once and its JSONL emitter writes
+   into a temporary directory; close() must join both threads.
+   profiler_trace: start_trace, run(STEPS) on the ring, stop_trace; the
+   Chrome trace must hold the run's akka.device.run[...] range and K1's
+   ring_sweep kernels inside it.
+9. Holds both kernels against their plain versions once more at the
    shapes these paths gave them: the 8-shard flat inboxes (sharded_d8),
    the region's inbox as a wave's tells land (region) and the gateway
    region's (gateway).
@@ -148,12 +172,17 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from typing import Dict
 
 import numpy as np
 import torch
 
 from akka_tpu_torch.batched import BatchedSystem, LaneSupervisor
+from akka_tpu_torch.event.flight_recorder import (InMemoryFlightRecorder,
+                                                  start_trace, stop_trace)
+from akka_tpu_torch.event.metrics import MetricsRegistry
+from akka_tpu_torch.event.tracing import Tracer
 from akka_tpu_torch.gateway import GatewayClient, counter_behavior
 from akka_tpu_torch.models.baseline_benches import (PAYLOAD_W,
                                                     build_cross_shard,
@@ -164,12 +193,14 @@ from akka_tpu_torch.models.baseline_benches import (PAYLOAD_W,
                                                     ring_behavior,
                                                     seed_ring_full)
 from akka_tpu_torch.ops import cuda_mailbox as cm
-from akka_tpu_torch.sharding import DeviceEntity, DeviceShardRegion
+from akka_tpu_torch.sharding import (AskBatcher, DeviceEntity,
+                                     DeviceShardRegion)
 from akka_tpu_torch.testkit.chaos import CRASH_SALT, chaos_hit_np, inject
 from akka_tpu_torch.tools import bench_mailbox as bm
 from akka_tpu_torch.tools import gateway_load as gl
 from akka_tpu_torch.tools import profile_step as ps
 from akka_tpu_torch.tools import serving_gateway as sg
+from akka_tpu_torch.tools import trace_export
 from akka_tpu_torch.utils.carry import numpy_carry
 
 RTOL, ATOL = bm.RTOL, bm.ATOL
@@ -191,6 +222,7 @@ LATE_TELLS = 64            # tells staged, not stepped, at the crash
 KILL9_SECONDS = 25.0       # the load children's run in gateway_kill9
 SUP_WINDOWS = 5            # interleaved timed windows, supervision triple
 CHAOS_SEED, CHAOS_RATE = 7, 1e-3  # ring_chaos: inject(seed, crash_rate)
+OBS_WINDOWS = 5             # interleaved timed windows, ring_metrics
 
 
 def check(cond, what: str) -> None:
@@ -843,15 +875,17 @@ def region_paths(launches: dict) -> dict:
     return flat
 
 
-def gateway_region(slots: int, spill: bool = False) -> DeviceShardRegion:
+def gateway_region(slots: int, spill: bool = False,
+                   metrics: bool = False) -> DeviceShardRegion:
     """The full-width counter region of the region and gateway phases; a
-    slots region is bounded (spill_capacity=0) unless `spill`."""
+    slots region is bounded (spill_capacity=0) unless `spill`; `metrics`
+    compiles the metric slab into its step."""
     return DeviceShardRegion(DeviceEntity(
         "counter", counter_behavior(PAYLOAD_W), n_shards=256,
         entities_per_shard=4096, n_devices=1, spare_blocks=2,
         mailbox_slots=slots,
-        spill_capacity=0 if slots and not spill else None),
-        device="cuda")
+        spill_capacity=0 if slots and not spill else None,
+        metrics_enabled=metrics), device="cuda")
 
 
 def gateway_serve(label: str, region, continuous: bool, traces,
@@ -1249,6 +1283,293 @@ def supervision_paths(launches: dict) -> None:
     free()
 
 
+def ring_metrics(launches: dict) -> None:
+    """The reference's metrics-overhead bench (bench.py
+    bench_metrics_overhead) as graphs at 2^20 actors: the dynamic ring
+    with the slab off and on, quiet and active, timed in OBS_WINDOWS
+    interleaved windows of STEPS steps (best and median of each). The
+    quiet slab must stay empty (epoch 0, no drain); the active one must
+    drain once, equal to read_metrics() and to an eager twin's lanes, with
+    one message per actor and step in bucket 1 of mailbox_occupancy."""
+    variants = (("quiet_off", False, False), ("quiet_on", True, False),
+                ("active_off", False, True), ("active_on", True, True))
+    systems, counts, times = {}, {}, {}
+
+    def build(metrics, seeded):
+        s = BatchedSystem(capacity=N, behaviors=[ring_behavior],
+                          payload_width=PAYLOAD_W, host_inbox=8,
+                          metrics_enabled=metrics, device="cuda")
+        s.spawn_block(ring_behavior, N)
+        if seeded:
+            seed_ring_full(s)
+        return s
+
+    for label, metrics, seeded in variants:
+        s = build(metrics, seeded)
+        t0 = time.perf_counter()
+        s.warmup()
+        print(f"ring_metrics {label} warmup_s {time.perf_counter() - t0}")
+        systems[label], counts[label], times[label] = s, Launches(), []
+    for _ in range(OBS_WINDOWS):
+        for label, s in systems.items():
+            times[label].append(counts[label](lambda: bm.cuda_ms(
+                lambda: s.run(STEPS), iters=1, warmup=0)) / STEPS)
+    best = {label: min(ts) for label, ts in times.items()}
+    for label, ts in times.items():
+        print(f"ring_metrics {label} ms_per_step {best[label]} median "
+              f"{float(np.median(ts))} windows {ts}")
+    for kind in ("quiet", "active"):
+        off, on = best[f"{kind}_off"], best[f"{kind}_on"]
+        print(f"ring_metrics {kind}_overhead_pct {(on - off) / off * 100.0}")
+    # where the slab's time goes: device ms per step by kernel, profiled
+    # over PROFILE_STEPS single-step runs (after one warm run)
+    for label in ("active_off", "active_on"):
+        s = systems[label]
+        ms = counts[label](lambda: bm.device_breakdown(
+            lambda: s.run(1), calls=PROFILE_STEPS))
+        top = sorted(((k, v) for k, v in ms.items()
+                      if not k.startswith("akka.")), key=lambda kv: -kv[1])
+        print(f"ring_metrics {label} device_ms_per_step "
+              f"{sum(v for _, v in top)} by_kernel {dict(top[:8])}")
+
+    quiet = systems["quiet_on"]
+    check(quiet.metrics_epoch_value() == 0, "ring_metrics: the quiet-on "
+          "epoch stays 0")
+    check(quiet.drain_metrics() is None, "ring_metrics: no quiet drain")
+    on = systems["active_on"]
+    steps = on._host_step
+    drained = on.drain_metrics()
+    check(drained is not None and drained[0] == steps,
+          f"ring_metrics: the active-on drain at step {steps}")
+    lanes = drained[1]
+    read = on.read_metrics()
+    check(sorted(lanes) == sorted(read) and all(
+        np.array_equal(lanes[k], read[k]) for k in read),
+        "ring_metrics: the drained lanes == read_metrics()")
+    total = sum(int(v.sum()) for v in read.values())
+    check(on.metrics_epoch_value() == total, "ring_metrics: the epoch is "
+          "the slab's sum")
+    check(on.drain_metrics() is None, "ring_metrics: a second drain is "
+          "gated")
+    occ = lanes["mailbox_occupancy"]
+    check(int(occ[1]) == int(occ.sum()) == N * steps, "ring_metrics: one "
+          "message per actor and step in mailbox_occupancy bucket 1")
+    check(int(lanes["sojourn_steps"].sum()) > 0, "ring_metrics: "
+          "sojourn_steps sampled")
+    twin = eager_twin(build(True, True))
+    twin.run(steps)
+    twin_drain = twin.drain_metrics()
+    check(twin_drain is not None and twin_drain[0] == steps and all(
+        np.array_equal(twin_drain[1][k], lanes[k]) for k in lanes),
+        "ring_metrics: the graph's lanes == the eager twin's")
+    check(twin.metrics_epoch_value() == total, "ring_metrics: the eager "
+          "twin's epoch")
+    sums = {k: int(v.sum()) for k, v in lanes.items()}
+    print(f"ring_metrics active_on lanes {sums} epoch {total} steps {steps}")
+    for label, s in systems.items():
+        if label.startswith("active"):
+            ring_check(s, steps)
+        graph_line(f"ring_metrics_{label}", s)
+        counts[label].report(f"ring_metrics_{label}", "ring_reduce",
+                             launches, s._host_step)
+    del systems, s, on, quiet, twin
+
+
+def region_observed(launches: dict) -> None:
+    """region_serve's region observed: the metric slab on, a Tracer
+    sampling every trace, a MetricsRegistry on the entity journal and on
+    the ask engine, an InMemoryFlightRecorder on the system. The first
+    wave is traced; the WAVES timed waves are traced and untraced in turn
+    (asks/s of each). Then the spans and events export to Perfetto, the
+    slab drains into the registry, and the registry's two sinks start and
+    stop."""
+    label = "region_observed"
+    trace = make_trace()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_")
+    reg = MetricsRegistry()
+    try:
+        region = gateway_region(0, metrics=True)
+        sys_ = region.system
+        fr = InMemoryFlightRecorder(capacity=1 << 16)
+        sys_.flight_recorder = fr
+        region.attach_entity_journal(directory, registry=reg)
+        batcher = AskBatcher(region, max_batch=WAVE_ASKS, registry=reg)
+        tracer = Tracer(sample_rate=1.0, seed=7, capacity=1 << 17)
+        t0 = time.perf_counter()
+        sys_.warmup()
+        print(f"{label} warmup_s {time.perf_counter() - t0}")
+        refs = {n: region.entity_ref(n) for w in trace for n, _ in w}
+        oracle = {n: 0.0 for n in refs}
+        count = Launches()
+        steps0 = sys_._host_step
+        times = {"traced": [], "untraced": []}
+        traced_waves = 0
+        for i, asks in enumerate(trace[:WAVES + 1]):
+            traced = i % 2 == 0  # the warm wave, then every other one
+            region.attach_tracer(tracer if traced else None)
+            reqs = [(refs[n].shard, refs[n].index, [v]) for n, v in asks]
+            t0 = time.perf_counter()
+            roots = [tracer.begin("gw.request", tracer.start_trace(),
+                                  parent=0) for _ in asks] if traced else []
+            ctxs = [r.ctx for r in roots] if traced else None
+            out = count(lambda: batcher.ask_many(reqs, ctxs=ctxs))
+            for r in roots:
+                r.finish()
+            dt = time.perf_counter() - t0
+            traced_waves += traced
+            if i > 0:
+                times["traced" if traced else "untraced"].append(dt)
+            for (n, v), o in zip(asks, out):
+                check(not isinstance(o, BaseException), f"{label}: {o!r}")
+                oracle[n] += v
+                check(float(o[0]) == oracle[n], f"{label}: reply {o[0]} == "
+                      f"oracle {oracle[n]} for {n}")
+        region.attach_tracer(None)
+        steps = sys_._host_step - steps0
+        rate = {m: len(ts) * WAVE_ASKS / sum(ts) for m, ts in times.items()}
+        for m, ts in times.items():
+            print(f"{label} {m} asks_per_s {rate[m]} wave_ms_p50 "
+                  f"{np.percentile(ts, 50) * 1e3} waves {len(ts)}")
+        slower = (rate["untraced"] - rate["traced"]) / rate["untraced"]
+        print(f"{label} tracing_overhead_pct {slower * 100.0}")
+
+        spans, events = tracer.spans(), fr.events()
+        doc = trace_export.to_perfetto(spans, events)
+        errs = trace_export.validate_trace(doc)
+        print(f"{label} spans {len(spans)} recorder_events {len(events)} "
+              f"perfetto_events {len(doc['traceEvents'])} "
+              f"validate_errors {len(errs)}")
+        check(not errs, f"{label}: the Perfetto document validates "
+              f"({errs[:3]})")
+        names = [s["name"] for s in spans]
+        check(names.count("ask.wave") == traced_waves and
+              names.count("ask.member") == traced_waves * WAVE_ASKS and
+              names.count("gw.request") == traced_waves * WAVE_ASKS,
+              f"{label}: one wave span per traced wave and one member "
+              f"span per traced ask")
+        waves = [s for s in spans if s["name"] == "ask.wave"
+                 or s["name"].startswith("wave.")]
+        check(all(steps0 <= s["step0"] <= s["step1"] <= sys_._host_step
+                  for s in waves), f"{label}: every wave span's step "
+              f"stamps lie on the region's step axis")
+        rounds = [s for s in waves if s["name"] == "wave.step_round"]
+        check(rounds and all(s["step1"] - s["step0"] == s["n_steps"] and
+                             s["host_step"] == s["step1"] for s in rounds),
+              f"{label}: every step round spans its own steps")
+        ran = sum(e["n_steps"] for e in events if e["event"] == "device_step")
+        check(ran == steps, f"{label}: device_step events add up to {ran} "
+              f"steps, the system ran {steps}")
+
+        drained = sys_.drain_metrics()
+        check(drained is not None and drained[0] == sys_._host_step,
+              f"{label}: the slab drains at the system's step")
+        step, lanes = drained
+        reg.ingest_device_slab(lanes, step)
+        text = reg.expose()
+        occ = int(lanes["mailbox_occupancy"].sum())
+        check(occ > 0 and all(
+            f"akka_device_{k}_count {int(v.sum())}" in text
+            for k, v in lanes.items()), f"{label}: expose() holds the "
+            "device lanes")
+        for series in ("akka_gateway_ask_batch_size_count",
+                       "akka_ask_batch_batches",
+                       "akka_entity_journal_batch_size_count"):
+            check(series in text, f"{label}: expose() holds {series}")
+        sums = {k: int(v.sum()) for k, v in lanes.items()}
+        print(f"{label} lanes {sums} step {step} expose_lines "
+              f"{len(text.splitlines())}")
+
+        port = reg.serve_http(0)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as resp:
+            body = resp.read().decode()
+        check(f"akka_device_mailbox_occupancy_count {occ}" in body,
+              f"{label}: the HTTP scrape holds the device lanes")
+        path = os.path.join(directory, "metrics", "metrics.jsonl")
+        reg.start_jsonl(path, interval_s=0.05)
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline and (
+                not os.path.exists(path) or
+                sum(1 for _ in open(path)) < 2):
+            time.sleep(0.05)
+        threads = (reg._http_thread, reg._jsonl_thread)
+        reg.close()
+        check(all(t is not None and not t.is_alive() for t in threads),
+              f"{label}: close() joined the HTTP and JSONL threads")
+        with open(path) as fh:
+            rows = [json.loads(line) for line in fh if line.strip()]
+        check(len(rows) >= 3 and rows[-1]["device"][
+            "device_mailbox_occupancy"]["count"] == occ,
+            f"{label}: the JSONL rows ({len(rows)}) end with the lanes")
+        print(f"{label} http_bytes {len(body)} jsonl_rows {len(rows)}")
+        check(region.ask_pool_stats()["in_flight"] == 0,
+              f"{label}: no ask left in flight")
+        batcher.close()
+        graph_line(label, sys_)
+        count.report(label, "ring_reduce", launches, steps)
+        del region, sys_, batcher
+    finally:
+        reg.close()
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def profiler_trace(launches: dict) -> None:
+    """start_trace, run(STEPS) on the dynamic ring at 2^20 actors,
+    stop_trace: both must return True, and the Chrome trace written must
+    hold the run's akka.device.run[STEPS] range and K1's ring_sweep
+    kernels, none before the range began."""
+    s = build_ring(N, static=False, device="cuda")
+    seed_ring_full(s)
+    s.warmup()
+    count = Launches()
+    count(lambda: s.run(STEPS))
+    directory = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        torch.cuda.synchronize()
+        started = start_trace(directory)
+        time.sleep(ps.TRACE_MARGIN_S)
+        count(lambda: s.run(STEPS))
+        torch.cuda.synchronize()
+        time.sleep(ps.TRACE_MARGIN_S)
+        stopped = stop_trace()
+        check(started and stopped, f"profiler_trace: start_trace "
+              f"{started}, stop_trace {stopped}")
+        check(stop_trace() is False, "profiler_trace: no second stop")
+        files = [f for f in os.listdir(directory) if f.endswith(".json")]
+        check(len(files) == 1, f"profiler_trace: one trace file ({files})")
+        with open(os.path.join(directory, files[0])) as fh:
+            evs = json.load(fh).get("traceEvents", [])
+        name = f"akka.device.run[{STEPS}]"
+        ranges = [e for e in evs if e.get("name") == name]
+        host = [e for e in ranges if e.get("cat") == "user_annotation"]
+        kernels = [e for e in evs if e.get("cat") == "kernel"
+                   and "ring_sweep" in e.get("name", "")]
+        print(f"profiler_trace {name} ranges {len(ranges)} (host "
+              f"{len(host)}) ring_sweep kernels {len(kernels)} over "
+              f"{STEPS} replayed steps, {len(evs)} trace events")
+        check(host, f"profiler_trace: the trace holds {name}")
+        check(kernels, "profiler_trace: the trace holds K1's ring_sweep")
+        start = min(float(e["ts"]) for e in host)
+        check(all(float(e["ts"]) >= start for e in kernels),
+              "profiler_trace: every ring_sweep lies inside the run's "
+              "window")
+        ring_check(s, s._host_step)
+        count.report("profiler_trace", "ring_reduce", launches, s._host_step)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def observed_paths(launches: dict) -> None:
+    """ring_metrics, region_observed and profiler_trace."""
+    for label, phase in (("ring_metrics", ring_metrics),
+                         ("region_observed", region_observed),
+                         ("profiler_trace", profiler_trace)):
+        t0 = time.perf_counter()
+        phase(launches)
+        print(f"{label} phase_s {time.perf_counter() - t0}")
+        free()
+
+
 def path_dtype(label: str) -> str:
     """The payload dtype of a path's system, by the path's name."""
     for name in ("int32", "bf16"):
@@ -1280,6 +1601,7 @@ def main() -> int:
     region = region_paths(launches)
     gateway = gateway_paths(launches)
     durability_paths(launches)
+    observed_paths(launches)
     # both kernels at the shapes the new paths gave them
     t0 = time.perf_counter()
     for label, flat in (("sharded_d8", sharded), ("region", region),

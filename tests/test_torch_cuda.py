@@ -730,3 +730,99 @@ def test_ranked_family_at_region_width_is_exact(card):
         assert torch.equal(getattr(spill, f), getattr(bounded, f)), f
     # with a spill region a mailbox consumes its first two, the rest spill
     assert torch.equal(spill.count, bounded.count.clamp(max=2))
+
+
+# ------------------------------------------ the observed step (telemetry)
+
+@pytest.mark.parametrize("cell", ["ring", "cross_shard_d8"])
+def test_graph_epoch_and_drain_match_the_eager_twin(card, cell):
+    """With the metric slab on, the epoch the captured step writes in
+    place and the lanes drain_metrics() hands over equal the eager step's,
+    run after run; a quiet system keeps its epoch at 0."""
+    build = {"ring": lambda: tbb.build_ring(2048, static=False, device=card,
+                                            metrics_enabled=True),
+             "cross_shard_d8": lambda: tbb.build_cross_shard(
+                 16, 64, n_devices=8, device=card,
+                 metrics_enabled=True)}[cell]
+    g, e, quiet = build(), _eager_twin(build()), build()
+    for s in (g, e):
+        tbb.seed_ring_full(s)
+    word = g.metrics_epoch.data_ptr()
+    g.warmup()
+    quiet.warmup()
+    assert g.metrics_epoch_value() == 0  # the warm-up ran on clones
+    for k in (5, 3):
+        for s in (g, e, quiet):
+            s.run(k)
+        assert g.metrics_epoch_value() == e.metrics_epoch_value() > 0
+        got, want = g.drain_metrics(), e.drain_metrics()
+        assert got is not None and got[0] == want[0] == g._host_step
+        for lane, buckets in want[1].items():
+            np.testing.assert_array_equal(got[1][lane], buckets)
+        assert g.drain_metrics() is None and e.drain_metrics() is None
+        assert quiet.metrics_epoch_value() == 0
+        assert quiet.drain_metrics() is None
+    assert g.metrics_epoch.data_ptr() == word
+    assert g._graphs.stats()["captures"] == 1
+
+
+def test_registry_sinks_start_and_close_joins_them(card, tmp_path):
+    """The registry's HTTP endpoint answers a scrape with the drained
+    device lanes, its JSONL emitter writes rows, and close() joins both
+    threads."""
+    import json
+    import time
+    import urllib.request
+
+    from akka_tpu_torch.event.metrics import MetricsRegistry
+
+    s = tbb.build_ring(2048, static=False, device=card,
+                       metrics_enabled=True)
+    tbb.seed_ring_full(s)
+    s.run(4)
+    step, lanes = s.drain_metrics()
+    reg = MetricsRegistry()
+    reg.ingest_device_slab(lanes, step)
+    try:
+        port = reg.serve_http(0)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as resp:
+            body = resp.read().decode()
+        assert f"akka_device_mailbox_occupancy_count {4 * 2048}" in body
+        path = tmp_path / "m" / "metrics.jsonl"
+        reg.start_jsonl(str(path), interval_s=0.05)
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline and (
+                not path.exists() or len(path.read_text().splitlines()) < 2):
+            time.sleep(0.05)
+        threads = (reg._http_thread, reg._jsonl_thread)
+    finally:
+        reg.close()
+    assert all(t is not None and not t.is_alive() for t in threads)
+    rows = [json.loads(ln) for ln in path.read_text().splitlines()]
+    assert len(rows) >= 3
+    assert rows[-1]["device"]["device_mailbox_occupancy"]["step"] == step
+
+
+def test_profiler_trace_holds_the_step(card, tmp_path):
+    """start_trace/stop_trace return True, the Chrome trace holds the
+    akka.device.step range and the K1 launch of the replayed step, and a
+    second stop returns False."""
+    import json
+
+    from akka_tpu_torch.event.flight_recorder import start_trace, stop_trace
+
+    s = tbb.build_ring(2048, static=False, device=card)
+    tbb.seed_ring_full(s)
+    s.warmup()
+    s.step()
+    assert start_trace(str(tmp_path))
+    assert not start_trace(str(tmp_path))  # one trace at a time
+    s.step()
+    assert stop_trace()
+    assert not stop_trace()
+    (path,) = tmp_path.glob("*.json")
+    evs = json.loads(path.read_text())["traceEvents"]
+    assert any(e.get("name") == "akka.device.step" for e in evs)
+    assert any(e.get("cat") == "kernel" and "ring_sweep" in e.get("name", "")
+               for e in evs)

@@ -46,6 +46,10 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "akka_tpu_torch.gateway.slo",
                  "akka_tpu_torch.event.tracing",
                  "akka_tpu_torch.event.pressure",
+                 "akka_tpu_torch.event.flight_recorder",
+                 "akka_tpu_torch.event.metrics",
+                 "akka_tpu_torch.config",
+                 "akka_tpu_torch.tools.trace_export",
                  "akka_tpu_torch.serialization.frames",
                  "akka_tpu_torch.pattern.backoff",
                  "akka_tpu_torch.persistence",
