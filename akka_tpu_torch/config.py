@@ -174,6 +174,9 @@ def reference_config() -> Config:
                     # The flagship batched dispatcher (BASELINE north star):
                     # SoA actor slabs stepped on-device; see akka_tpu/dispatch/batched.py
                     "type": "tpu-batched",
+                    # where the handle's runtime runs (a port addition):
+                    # "cuda" raises without a card; "cpu" on request
+                    "device": "cuda",
                     "capacity": 1 << 20,
                     "payload-width": 8,
                     "out-degree": 1,

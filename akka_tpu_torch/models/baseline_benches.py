@@ -33,6 +33,21 @@ def ring_behavior(state, inbox, ctx):
             Emit.single(nxt, inbox.sum, 1, PAYLOAD_W, when=inbox.count > 0))
 
 
+def make_block_ring_behavior(n: int):
+    """The ring over a block of n actors spawned first (rows 0..n-1): each
+    forwards its token to (id + 1) % n. A ring spawned through a runtime
+    handle wraps at its own block's end, so it never feeds the promise
+    rows placed after the block (ring_behavior wraps at capacity)."""
+
+    @behavior(f"ring{n}", {"received": ((), torch.int32)})
+    def ring_n(state, inbox, ctx):
+        return ({"received": state["received"] + inbox.count},
+                Emit.single((ctx.actor_id + 1) % n, inbox.sum, 1, PAYLOAD_W,
+                            when=inbox.count > 0))
+
+    return ring_n
+
+
 def make_fan_in_leaf(n_collectors: int = 1000):
     """Leaf behavior sending [1, 0, 0, 0] to collector `id % n_collectors`
     every step."""

@@ -1,1 +1,2 @@
-"""Retry patterns of the port (`backoff.backoff_delay`)."""
+"""Patterns of the port: ask (`ask`), the circuit breaker
+(`circuit_breaker`) and retry backoff (`backoff.backoff_delay`)."""

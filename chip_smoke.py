@@ -147,10 +147,35 @@ phase's systems, and their graph pools, are freed before the next.
    profiler_trace: start_trace, run(STEPS) on the ring, stop_trace; the
    Chrome trace must hold the run's akka.device.run[...] range and K1's
    ring_sweep kernels inside it.
-9. Holds both kernels against their plain versions once more at the
+9. Device actors through the public API (actor_paths).
+   actor_ring: an ActorSystem whose akka.actor.tpu-dispatcher holds
+   2^20 rows (P = 4, reduce, 256 promise rows, a host inbox of
+   2^20 - 256 rows); system.actor_of(device_props(ring_n, n=2^20 - 256))
+   with ring_n a ring that wraps at its block
+   (make_block_ring_behavior), one DeviceBlockRef.tell seeding every
+   row, then handle.step(20) three times on CUDA events (ms/step printed
+   beside ring_reduce's); every actor must hold one token per step and
+   K1 must launch once a step (the counts and the step counter read
+   under the handle's step lock, so a pump step falls wholly inside or
+   outside the window). actor_ask: a second tpu-batched dispatcher of
+   the same system (2^20 rows, 4 bounded slots, depth 4) with 4096
+   counter actors; the reference's bridge-latency pair (bench.py
+   bench_bridge_latency: the sync round against the depth-4 round, 200
+   rounds each, and steps/s), then 32 rounds of 256 concurrent tell +
+   ref.ask pairs through the pump thread, every reply held to a host
+   oracle, ask p50/p99 µs, pipeline_stats() and ask_pool_stats(); K2
+   must launch once a step. actor_lifecycle: a system whose default
+   dispatcher is tpu-batched: a host Echo actor beside device actors,
+   asks, deathwatch (Terminated to a TestProbe, a late tell a
+   DeadLetter), a poisoned row restarted to its spawn-time init
+   (DeviceActorFailed), a new behavior type spawned with 7 asks in
+   flight (a rebuild: every reply and the state held, the captures
+   printed), and a bf16 handle at 256 rows asked once (bf16 K1).
+10. Holds both kernels against their plain versions once more at the
    shapes these paths gave them: the 8-shard flat inboxes (sharded_d8),
-   the region's inbox as a wave's tells land (region) and the gateway
-   region's (gateway).
+   the region's inbox as a wave's tells land (region), the gateway
+   region's (gateway) and the actor paths' inboxes (actor_ring,
+   actor_ask at S = 4, actor_lifecycle_bf16).
 
 Any failure raises and the exit code is non-zero. The last lines are the
 kernel report (JSON, one row per kernel and payload dtype; `ms` and the
@@ -173,12 +198,19 @@ import sys
 import tempfile
 import time
 import urllib.request
+from collections import deque
+from concurrent.futures import Future
 from typing import Dict
 
 import numpy as np
 import torch
 
-from akka_tpu_torch.batched import BatchedSystem, LaneSupervisor
+from akka_tpu_torch import (Actor, ActorSystem, DeadLetter, Props)
+from akka_tpu_torch.batched import (BatchedRuntimeHandle, BatchedSystem,
+                                    DeviceBlockRef, Emit, LaneSupervisor,
+                                    behavior, device_props, get_handle,
+                                    reply_dst)
+from akka_tpu_torch.batched.bridge import DeviceActorFailed
 from akka_tpu_torch.event.flight_recorder import (InMemoryFlightRecorder,
                                                   start_trace, stop_trace)
 from akka_tpu_torch.event.metrics import MetricsRegistry
@@ -190,11 +222,13 @@ from akka_tpu_torch.models.baseline_benches import (PAYLOAD_W,
                                                     build_fan_in,
                                                     build_ring,
                                                     build_ring_slots,
+                                                    make_block_ring_behavior,
                                                     ring_behavior,
                                                     seed_ring_full)
 from akka_tpu_torch.ops import cuda_mailbox as cm
 from akka_tpu_torch.sharding import (AskBatcher, DeviceEntity,
                                      DeviceShardRegion)
+from akka_tpu_torch.testkit import TestProbe
 from akka_tpu_torch.testkit.chaos import CRASH_SALT, chaos_hit_np, inject
 from akka_tpu_torch.tools import bench_mailbox as bm
 from akka_tpu_torch.tools import gateway_load as gl
@@ -231,7 +265,7 @@ def check(cond, what: str) -> None:
 
 
 def kernel_rows(label: str, inputs, n: int, lib,
-                kernels=("K1", "K2")) -> dict:
+                kernels=("K1", "K2"), slots: int = SLOTS) -> dict:
     """`kernels` against their plain versions on `inputs` (integers, int32
     sums included, bit-equal; float32 sums within rtol/atol; bf16 sums
     within one bf16 ulp plus the float32 reordering allowance), then
@@ -241,12 +275,12 @@ def kernel_rows(label: str, inputs, n: int, lib,
     too). For bf16, K1 also times the bf16 `index_add_` the kernel phase
     timed before and reports whether it computes K1's function
     (`native_agrees`). The bound counts the bytes of this input's accepted
-    rows at the payload's element size."""
+    rows at the payload's element size. K2 keeps `slots` slots."""
     dst, mtype, payload, valid = inputs
     m, n_p, dt = dst.shape[0], payload.shape[1], payload.dtype
-    e1, e2, _ = bm.package_entries(lib, inputs, n, SLOTS)
+    e1, e2, _ = bm.package_entries(lib, inputs, n, slots)
     ok = valid & (dst >= 0) & (dst < n)
-    b1, b2 = bm.bound_bytes(m, n, n_p, SLOTS, live=int(ok.sum()),
+    b1, b2 = bm.bound_bytes(m, n, n_p, slots, live=int(ok.sum()),
                             elem=payload.element_size())
     slack = bm.sum_slack(dst, payload, valid, n) \
         if dt == torch.bfloat16 else None
@@ -281,15 +315,15 @@ def kernel_rows(label: str, inputs, n: int, lib,
                 "native_max_abs_err": float(
                     (got[1].float() - want[1].float()).abs().max())})
     if "K2" in kernels:
-        err = bm.compare(f"K2 {label}", cm.ring_slots(*inputs, n, SLOTS),
-                         cm.ring_slots_plain(*inputs, n, SLOTS), slack)
+        err = bm.compare(f"K2 {label}", cm.ring_slots(*inputs, n, slots),
+                         cm.ring_slots_plain(*inputs, n, slots), slack)
         torch.cuda.synchronize()
         rows["K2"] = {
             "ms": bm.cuda_ms(e2, KERNEL_ITERS, 5),
             "wrapper_ms": bm.cuda_ms(
-                lambda: cm.ring_slots(*inputs, n, SLOTS)),
+                lambda: cm.ring_slots(*inputs, n, slots)),
             "plain_ms": bm.cuda_ms(
-                lambda: cm.ring_slots_plain(*inputs, n, SLOTS)),
+                lambda: cm.ring_slots_plain(*inputs, n, slots)),
             "library_ms": None,
             "bound_ms": bm.bound_ms(b2), "max_abs_err": err,
             "by_kernel": bm.device_breakdown(e2)}
@@ -443,6 +477,11 @@ def graph_line(label: str, system) -> None:
           f"{st['graphs']} memory_reserved {torch.cuda.memory_reserved()}")
 
 
+# median graph ms/step of each step cell (the actor ring prints
+# ring_reduce's beside its own)
+GRAPH_MS: Dict[str, float] = {}
+
+
 def timed_pairs(label: str, g, e, steps: int, msgs_per_step: int,
                 count: Launches) -> None:
     """PAIRS interleaved timings, graph then eager twin, of run(steps)
@@ -455,6 +494,7 @@ def timed_pairs(label: str, g, e, steps: int, msgs_per_step: int,
             lambda: g.run(steps), iters=1, warmup=0)) / steps)
         times["eager"].append(bm.cuda_ms(lambda: e.run(steps), iters=1,
                                          warmup=0) / steps)
+    GRAPH_MS[label] = float(np.median(times["graph"]))
     for mode, ts in times.items():
         ms = float(np.median(ts))
         print(f"{label} {mode} ms_per_step {ms} pairs {ts}")
@@ -1570,6 +1610,496 @@ def observed_paths(launches: dict) -> None:
         free()
 
 
+# ------------------------------------------------------------ actor paths
+ACTOR_N = N - 256           # the actor ring's block; promise rows follow
+ASK_ACTORS, ASK_CONC, ASK_ROUNDS = 4096, 256, 32  # actor_ask's trace
+ASK_SLOTS = 4               # actor_ask's mailbox slots (bounded: K2)
+BLAT_ROUNDS = 200           # rounds per leg of the bridge-latency pair
+ACTOR_TIMEOUT = 30.0        # every ask, result() and probe wait
+ADD, GET = 0, 1
+
+
+@behavior("counter", {"count": ((), torch.float32)}, inbox="slots")
+def slots_counter(state, mailbox, ctx):
+    """tests/test_bridge.py's counter: ADD adds payload[0], GET replies
+    the count after the step's messages to the reply row."""
+    def apply(carry, t, pl):
+        cnt, rdst = carry
+        return (torch.where(t == ADD, cnt + pl[:, 0], cnt),
+                torch.where(t == GET, reply_dst(pl), rdst))
+
+    n = ctx.actor_id.shape[0]
+    cnt, rdst = mailbox.fold(
+        (state["count"], torch.full((n,), -1, dtype=torch.int32,
+                                    device=ctx.actor_id.device)), apply)
+    reply = torch.zeros((n, PAYLOAD_W), device=ctx.actor_id.device)
+    reply[:, 0] = cnt
+    return ({"count": cnt},
+            Emit.single(rdst, reply, 1, PAYLOAD_W, when=rdst >= 0))
+
+
+def system_inputs(s):
+    """A BatchedSystem's delivery inputs as its next step will read them
+    (the carried inbox, cloned), and its recipient count."""
+    return (s.inbox_dst.clone(), s.inbox_type.clone(),
+            s.inbox_payload.clone(), s.inbox_valid.clone()), s.capacity
+
+
+class StepProbe:
+    """For one stretch of a path, wraps a handle's runtime `_advance` (the
+    graph replay of each step): CUDA events around each replay, whose
+    times sum to the stretch's device-busy time in its steps, and, with
+    `live`, after each step a count of the carried inbox's valid rows (a
+    sync a step) and a clone of the fullest inbox, the delivery input of
+    the step after it."""
+
+    def __init__(self, h, live: bool = False):
+        self.rt, self.live = h.runtime, live
+        self.events, self.rows, self.inputs = [], 0, None
+        self.busy_ms = 0.0
+
+    def __enter__(self):
+        rt, advance = self.rt, self.rt._advance
+
+        def probed(n_steps: int) -> None:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            advance(n_steps)
+            end.record()
+            self.events.append((start, end))
+            if self.live:
+                rows = int(rt.inbox_valid.sum())
+                if rows > self.rows:
+                    self.rows, self.inputs = rows, system_inputs(rt)
+
+        rt._advance = probed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        del self.rt._advance
+        torch.cuda.synchronize()
+        self.busy_ms = sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def handle_window(h, fn):
+    """fn() between two readings of the handle's step counter and the
+    launch counts, each under the handle's step lock, so that a step of
+    its pump thread falls wholly inside or outside the window. Returns
+    (fn's result, steps taken, the window's Launches)."""
+    count = Launches()
+    with h._step_lock:
+        cm.reset_launches()
+        steps0 = h._runtime._host_step
+    out = fn()
+    with h._step_lock:
+        steps = h._runtime._host_step - steps0
+        for k, v in cm.LAUNCHES.items():
+            count.counts[k] += v
+    return out, steps, count
+
+
+def pcts_us(xs) -> dict:
+    return {"p50_us": float(np.percentile(xs, 50) * 1e6),
+            "p99_us": float(np.percentile(xs, 99) * 1e6)}
+
+
+def actor_ring(system, launches: dict, flat: dict) -> None:
+    """A ring of ACTOR_N device actors spawned through
+    system.actor_of(device_props(...)) on the tpu-dispatcher (capacity
+    2^20, 256 promise rows after the block), seeded with one token a row
+    by one DeviceBlockRef.tell, then handle.step(STEPS) as graph replays,
+    PAIRS times on CUDA events; every actor must hold one token per step
+    taken (the pump may take the seed's step), and K1 must launch once a
+    step. Each timed h.step(STEPS) is paired with a run(STEPS) of the
+    handle's own BatchedSystem under its step lock (the same inbox, no
+    handle), which splits the gap to the bare ring_reduce cell into the
+    handle's work a step and the larger inbox."""
+    ring_n = make_block_ring_behavior(ACTOR_N)
+    block = system.actor_of(device_props(ring_n, n=ACTOR_N), "ring")
+    check(isinstance(block, DeviceBlockRef) and len(block) == ACTOR_N,
+          "actor_ring: a DeviceBlockRef of the block")
+    h = get_handle(system)
+    t0 = time.perf_counter()
+    rt = h.runtime  # built: the spawn replayed, the step captured
+    print(f"actor_ring warmup_s {time.perf_counter() - t0}")
+    times, bare = [], []
+
+    def drive():
+        t0 = time.perf_counter()
+        block.tell((0, [1.0, 0.0, 0.0, 0.0]))
+        h.step(1)
+        print(f"actor_ring seed_s {time.perf_counter() - t0} (one tell of "
+              f"{ACTOR_N} rows, staged and flushed)")
+        for _ in range(PAIRS):
+            times.append(bm.cuda_ms(lambda: h.step(STEPS), iters=1,
+                                    warmup=0) / STEPS)
+            with h._step_lock:
+                bare.append(bm.cuda_ms(lambda: h._runtime.run(STEPS),
+                                       iters=1, warmup=0) / STEPS)
+
+    _, steps, count = handle_window(h, drive)
+    rt = h.runtime
+    ms, run_ms = float(np.median(times)), float(np.median(bare))
+    print(f"actor_ring graph ms_per_step {ms} runs {times} "
+          f"system_run_ms_per_step {run_ms} runs {bare} "
+          f"ring_reduce_ms_per_step {GRAPH_MS.get('ring_reduce')} "
+          f"(inbox {rt.inbox_dst.shape[0]} rows against {M})")
+    print(f"actor_ring msgs_per_s {ACTOR_N / (ms * 1e-3)}")
+    print(f"actor_ring pipeline {h.pipeline_stats()}")
+    received = block.read_state("received")
+    check(np.array_equal(received, np.full(ACTOR_N, steps, np.int32)),
+          f"actor_ring: every actor received one token per step ({steps})")
+    check(not h.read_state(h.PROMISE_REPLIED).any(),
+          "actor_ring: no promise row latched")
+    graph_line("actor_ring", rt)
+    count.report("actor_ring", "ring_reduce", launches, steps)
+    flat["actor_ring"] = ("K1", system_inputs(rt), SLOTS)
+
+
+def bridge_latency(h, row: int) -> dict:
+    """The reference's bridge-latency pair (bench.py
+    bench_bridge_latency) on a handle before its pump starts: the sync
+    round (a step, a full synchronise and the promise-block readback,
+    with one never-resolving waiter outstanding) against the depth-k
+    round (enqueue + the oldest attention word), BLAT_ROUNDS of each,
+    then the best steps/s of three windows of each."""
+    with h._lock:
+        slot = h._promise_free.pop()
+        prow = h._promise_base + slot
+    h._clear_latches([slot])
+    with h._lock:
+        h._waiters[prow] = (Future(), h.default_codec)
+        h._waiter_deadlines[prow] = (time.monotonic() + 3600.0, 3600.0)
+
+    def old_round():
+        with h._step_lock:
+            h._runtime.step()
+        h._runtime.block_until_ready()
+        h._resolve_waiters()
+
+    dq: deque = deque()
+
+    def new_round():
+        h._enqueue_step(dq)
+        h._drain_one(dq)
+
+    def rounds(fn):
+        fn()
+        fn()
+        ts = []
+        for _ in range(BLAT_ROUNDS):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return ts
+
+    def best_rate(window):
+        best = 0.0
+        for _ in range(3):
+            t0 = time.perf_counter()
+            window(BLAT_ROUNDS)
+            best = max(best, BLAT_ROUNDS / (time.perf_counter() - t0))
+        return best
+
+    old_ts, new_ts = rounds(old_round), rounds(new_round)
+    sync_rate = best_rate(lambda k: [old_round() for _ in range(k)])
+    pipe_rate = best_rate(lambda k: h.step(k, depth=4))
+    with h._lock:  # retire the synthetic waiter
+        h._waiters.pop(prow, None)
+        h._waiter_deadlines.pop(prow, None)
+        h._promise_free.append(slot)
+    out = {"rounds": BLAT_ROUNDS, "depth": 4,
+           "sync": {"dispatch": pcts_us(old_ts), "steps_per_sec": sync_rate},
+           "pipelined": {"dispatch": pcts_us(new_ts),
+                         "steps_per_sec": pipe_rate}}
+    out["dispatch_speedup_p50"] = out["sync"]["dispatch"]["p50_us"] / \
+        out["pipelined"]["dispatch"]["p50_us"]
+    out["overlap_speedup"] = pipe_rate / sync_rate
+    return out
+
+
+def actor_ask(system, launches: dict, flat: dict) -> None:
+    """ASK_ACTORS counter actors on a second tpu-batched dispatcher of the
+    same system (capacity 2^20, ASK_SLOTS bounded slots: K2), first the
+    bridge-latency pair (pump-free), then ASK_ROUNDS rounds of ASK_CONC
+    concurrent ref.ask()s through the pump thread, each after a tell of
+    an add to the same actor, with CUDA events around each step's replay
+    (the rounds' device-busy share); every reply must equal the host
+    oracle's running total, and K2 must launch once a step. One more
+    round, untimed, takes K2's delivery input from the step that leaves
+    the most messages in the carried inbox."""
+    did = "akka.actor.ask-dispatcher"
+    block = system.actor_of(device_props(slots_counter, n=ASK_ACTORS,
+                                         dispatcher=did), "counters")
+    refs = [block[i] for i in range(ASK_ACTORS)]
+    h = get_handle(system, did)
+    t0 = time.perf_counter()
+    rt = h.runtime
+    print(f"actor_ask warmup_s {time.perf_counter() - t0}")
+    check(rt.spill_cap == 0 and rt.mailbox_slots == ASK_SLOTS,
+          "actor_ask: bounded slots mailboxes")
+    rng = np.random.default_rng(5)
+    oracle = np.zeros(ASK_ACTORS)
+    lat, bad = [], []
+
+    def ask_round(lat_out):
+        pick = rng.choice(ASK_ACTORS, ASK_CONC, replace=False)
+        vals = rng.integers(1, 100, ASK_CONC).astype(np.float64)
+        futs = []
+        for i, v in zip(pick, vals):
+            oracle[i] += v
+            refs[i].tell((ADD, [v]))
+            t_ask = time.perf_counter()
+            f = refs[i].ask((GET, [0.0]), timeout=ACTOR_TIMEOUT)
+            f.add_done_callback(
+                lambda _f, t=t_ask: lat_out.append(time.perf_counter() - t))
+            futs.append((i, f))
+        for i, f in futs:
+            got = f.result(ACTOR_TIMEOUT)
+            if got[0] != oracle[i]:
+                bad.append((int(i), float(got[0]), oracle[i]))
+
+    def drive():
+        st0 = h.pipeline_stats()
+        blat = bridge_latency(h, refs[0].row)
+        print(f"actor_ask bridge_latency {json.dumps(blat)}")
+        st1 = h.pipeline_stats()
+        with StepProbe(h) as probe:
+            t0 = time.perf_counter()
+            for _ in range(ASK_ROUNDS):
+                ask_round(lat)
+            wall = time.perf_counter() - t0
+        st2 = h.pipeline_stats()
+        with StepProbe(h, live=True) as live:
+            ask_round([])
+        return wall, (st0, st1, st2), probe, live
+
+    (wall, (st0, st1, st2), probe, live), steps, count = handle_window(
+        h, drive)
+    check(not bad, f"actor_ask: replies equal the oracle ({bad[:4]})")
+    check(len(lat) == ASK_ROUNDS * ASK_CONC, "actor_ask: every ask resolved")
+    keys = ("steps", "drains", "wide_resolves", "host_checks")
+    blat_d = {k: st1[k] - st0[k] for k in keys}
+    rounds_d = {k: st2[k] - st1[k] for k in keys}
+    print(f"actor_ask asks_per_s {ASK_ROUNDS * ASK_CONC / wall} "
+          f"ask {json.dumps(pcts_us(lat))}")
+    print(f"actor_ask pipeline_stats {h.pipeline_stats()} bridge_latency "
+          f"{blat_d} rounds {rounds_d} steps_per_round "
+          f"{rounds_d['steps'] / ASK_ROUNDS}")
+    replays = len(probe.events)
+    print(f"actor_ask rounds replays {replays} wall_ms {wall * 1e3} busy_ms {probe.busy_ms} "
+          f"busy_share {probe.busy_ms / (wall * 1e3)} busy_ms_per_step "
+          f"{probe.busy_ms / replays} wall_ms_per_step "
+          f"{wall * 1e3 / replays} (CUDA events around each replay)")
+    pool = h.ask_pool_stats()
+    print(f"actor_ask ask_pool_stats {pool}")
+    check(pool["in_flight"] == 0, "actor_ask: no ask left in flight")
+    counts = block.read_state("count")
+    check(np.array_equal(counts, oracle.astype(np.float32)),
+          "actor_ask: every counter equals the oracle")
+    inputs, n = live.inputs if live.inputs is not None else (None, 0)
+    check(live.rows > 0 and int(inputs[3].sum()) > 0,
+          f"actor_ask: K2's input carries messages ({live.rows} rows)")
+    print(f"actor_ask kernel_input live_rows {live.rows} of "
+          f"{inputs[0].shape[0]} (the fullest inbox of "
+          f"{len(live.events)} steps)")
+    graph_line("actor_ask", h.runtime)
+    count.report("actor_ask", "ring_slots", launches, steps)
+    flat["actor_ask"] = ("K2", (inputs, n), ASK_SLOTS)
+
+
+@behavior("fragile", {"n": ((), torch.int32), "_failed": ((), torch.bool)})
+def fragile(state, inbox, ctx):
+    """Counts its messages; a negative payload[0] raises its error lane."""
+    poison = (inbox.count > 0) & (inbox.sum[:, 0] < 0)
+    return ({"n": state["n"] + inbox.count,
+             "_failed": state["_failed"] | poison},
+            Emit.none(ctx.actor_id.shape[0], 1, PAYLOAD_W,
+                      device=ctx.actor_id.device))
+
+
+@behavior("late", {"seen": ((), torch.float32)})
+def late(state, inbox, ctx):
+    """A behavior type spawned after the build (a rebuild)."""
+    return ({"seen": state["seen"] + inbox.sum[:, 0]},
+            Emit.none(ctx.actor_id.shape[0], 1, PAYLOAD_W,
+                      device=ctx.actor_id.device))
+
+
+@behavior("echo", {})
+def echo2(state, inbox, ctx):
+    """Replies twice the request's payload to the reply row."""
+    return state, Emit.single(reply_dst(inbox.sum), inbox.sum * 2, 1,
+                              PAYLOAD_W, when=inbox.count > 0,
+                              dtype=inbox.sum.dtype)
+
+
+def actor_lifecycle(launches: dict, flat: dict) -> None:
+    """A system whose default dispatcher is tpu-batched: a host Echo actor
+    beside device actors; a watched device actor stopped (Terminated to a
+    TestProbe, a late tell to DeadLetter); a poisoned row under
+    failure_policy restart (DeviceActorFailed, back to its spawn-time
+    init); a new behavior type spawned with asks in flight (a rebuild:
+    every reply and the state held to the oracle, the captures printed);
+    then a bf16 handle at capacity 256 answering an ask (bf16 K1)."""
+    cfg = {"akka": {"stdout-loglevel": "OFF", "log-dead-letters": 0,
+                    "actor": {"default-dispatcher": {
+                        "type": "tpu-batched", "capacity": 4096,
+                        "payload-width": PAYLOAD_W, "mailbox-slots": 0,
+                        "promise-rows": 64, "host-inbox": 256,
+                        "failure-policy": "restart"}}}}
+    system = ActorSystem.create("actor-lifecycle", cfg)
+    count = Launches()
+    try:
+        host = system.actor_of(Props.create(Echo), "host-echo")
+        probe = TestProbe(system)
+        host.tell("hi", probe.ref)
+        check(probe.receive_one(ACTOR_TIMEOUT) == "hi",
+              "actor_lifecycle: the host actor answers")
+        # reduce-mode counters: one ask per counter and step (a reduce
+        # inbox sums the reply ids of asks that land together)
+        counters = system.actor_of(device_props(
+            counter_behavior(PAYLOAD_W), n=8), "counters")
+        counter = counters[0]
+        frag = system.actor_of(device_props(fragile, n=8, init_state={
+            "n": np.int32(5)}), "fragile")
+        mortal = system.actor_of(device_props(late), "mortal")
+        h = get_handle(system)
+        t0 = time.perf_counter()
+        rt = h.runtime
+        print(f"actor_lifecycle warmup_s {time.perf_counter() - t0}")
+
+        def leg():
+            total = 0.0
+            for v in (3.0, 4.0):
+                total += v
+                got = counter.ask_sync([v], timeout=ACTOR_TIMEOUT)
+                check(got[0] == total, f"actor_lifecycle: ask {got[0]} == "
+                      f"{total}")
+            # deathwatch and dead letters
+            probe.watch(mortal)
+            dl = TestProbe(system)
+            system.event_stream.subscribe(dl.ref, DeadLetter)
+            mortal.stop()
+            term = probe.expect_terminated(mortal, ACTOR_TIMEOUT)
+            check(term.actor is mortal, "actor_lifecycle: Terminated")
+            mortal.tell([1.0])
+            check(isinstance(dl.receive_one(ACTOR_TIMEOUT), DeadLetter),
+                  "actor_lifecycle: a late tell is a DeadLetter")
+            # the error lane under failure_policy restart
+            failed = TestProbe(system)
+            system.event_stream.subscribe(failed.ref, DeviceActorFailed)
+            frag.tell([1.0])
+            h.step(1)
+            frag[0].tell([-1.0])
+            ev = failed.receive_one(ACTOR_TIMEOUT)
+            check(list(ev.rows) == [int(frag.rows[0])] and
+                  ev.action == "restart", f"actor_lifecycle: {ev}")
+            h.step(1)
+            n = frag.read_state("n")
+            check(n.tolist() == [5] + [6] * 7, f"actor_lifecycle: the "
+                  f"restarted row is back at its init ({n.tolist()})")
+            # a rebuild with asks in flight, one to each other counter
+            before = h.runtime._graphs.stats()
+            vals = [1.0, 2.0, 5.0, 7.0, 11.0, 13.0, 17.0]
+            futs = [counters[i + 1].ask([v], timeout=ACTOR_TIMEOUT)
+                    for i, v in enumerate(vals)]
+            fresh = system.actor_of(device_props(echo2), "late-echo")
+            after = h.runtime._graphs.stats()
+            print(f"actor_lifecycle rebuild captures before {before} "
+                  f"after {after}")
+            check(h.runtime is not rt, "actor_lifecycle: rebuilt")
+            got = [float(f.result(ACTOR_TIMEOUT)[0]) for f in futs]
+            check(got == vals, f"actor_lifecycle: replies across the "
+                  f"rebuild {got}")
+            check(frag.read_state("n").tolist() == n.tolist(),
+                  "actor_lifecycle: state kept across the rebuild")
+            got = fresh.ask_sync([21.0], timeout=ACTOR_TIMEOUT)
+            check(got[0] == 42.0, "actor_lifecycle: the new behavior "
+                  "answers")
+            check(counters.read_state("total").tolist() == [total] + vals,
+                  "actor_lifecycle: the counters' totals")
+
+        count(leg)
+        graph_line("actor_lifecycle", h.runtime)
+        count.report("actor_lifecycle", "ring_reduce", launches)
+    finally:
+        system.terminate()
+        check(system.await_termination(ACTOR_TIMEOUT),
+              "actor_lifecycle: the system terminated")
+    # a bf16 handle within its exact reply ids
+    # (host_inbox 1024: an inbox of more than SCATTER_MAX_M rows, which
+    # the ring kernel delivers; a smaller one is scattered)
+    bf = BatchedRuntimeHandle(capacity=256, payload_width=PAYLOAD_W,
+                              payload_dtype=torch.bfloat16, promise_rows=8,
+                              host_inbox=1024)
+    try:
+        row = int(bf.spawn(echo2, 1)[0])
+        bf.runtime
+
+        def ask():
+            with StepProbe(bf, live=True) as live:
+                got = bf.ask_sync(row, (0, [3.0, 0, 0, 0]),
+                                  timeout=ACTOR_TIMEOUT)
+            return got, live
+
+        (got, live), steps, count = handle_window(bf, ask)
+        check(float(got[0]) == 6.0, f"actor_lifecycle_bf16: reply {got}")
+        check(bf.runtime.inbox_payload.dtype == torch.bfloat16,
+              "actor_lifecycle_bf16: bf16 payloads")
+        check(live.rows > 0, "actor_lifecycle_bf16: K1's input carries "
+              "the reply")
+        print(f"actor_lifecycle_bf16 kernel_input live_rows {live.rows} of "
+              f"{live.inputs[0][0].shape[0]}")
+        count.report("actor_lifecycle_bf16", "ring_reduce", launches, steps)
+        flat["actor_lifecycle_bf16"] = ("K1", live.inputs, SLOTS)
+    finally:
+        bf.shutdown()
+
+
+class Echo(Actor):
+    def receive(self, message):
+        self.sender.tell(message, self.self_ref)
+
+
+def actor_paths(launches: dict) -> dict:
+    """actor_ring and actor_ask in one ActorSystem (two tpu-batched
+    dispatchers), then actor_lifecycle; returns each path's delivery
+    inputs as (kernel, (inputs, n), slots) by label."""
+    cfg = {"akka": {"stdout-loglevel": "OFF", "log-dead-letters": 0,
+                    "actor": {
+                        "tpu-dispatcher": {
+                            "capacity": N, "payload-width": PAYLOAD_W,
+                            "mailbox-slots": 0, "promise-rows": 256,
+                            "host-inbox": ACTOR_N},
+                        "ask-dispatcher": {
+                            "type": "tpu-batched", "capacity": N,
+                            "payload-width": PAYLOAD_W,
+                            "mailbox-slots": ASK_SLOTS, "spill-capacity": 0,
+                            "promise-rows": 256, "host-inbox": 4096,
+                            "pipeline-depth": 4}}}}
+    flat: dict = {}
+    system = ActorSystem.create("actor-paths", cfg)
+    try:
+        for label, phase in (("actor_ring", actor_ring),
+                             ("actor_ask", actor_ask)):
+            t0 = time.perf_counter()
+            phase(system, launches, flat)
+            print(f"{label} phase_s {time.perf_counter() - t0}")
+    finally:
+        system.terminate()
+        check(system.await_termination(ACTOR_TIMEOUT),
+              "actor_paths: the system terminated")
+    del system
+    free()
+    t0 = time.perf_counter()
+    actor_lifecycle(launches, flat)
+    print(f"actor_lifecycle phase_s {time.perf_counter() - t0}")
+    free()
+    return flat
+
+
 def path_dtype(label: str) -> str:
     """The payload dtype of a path's system, by the path's name."""
     for name in ("int32", "bf16"):
@@ -1602,6 +2132,7 @@ def main() -> int:
     gateway = gateway_paths(launches)
     durability_paths(launches)
     observed_paths(launches)
+    actor = actor_paths(launches)
     # both kernels at the shapes the new paths gave them
     t0 = time.perf_counter()
     for label, flat in (("sharded_d8", sharded), ("region", region),
@@ -1609,7 +2140,12 @@ def main() -> int:
         for k, (inputs, n) in flat.items():
             rows.setdefault(label, {})[k] = kernel_rows(
                 label, inputs, n, lib, kernels=(k,))[k]
-    del sharded, region, gateway
+    for label, (k, (inputs, n), slots) in actor.items():
+        table = rows if label == "actor_ring" or label == "actor_ask" \
+            else typed[path_dtype(label)]
+        table.setdefault(label, {})[k] = kernel_rows(
+            label, inputs, n, lib, kernels=(k,), slots=slots)[k]
+    del sharded, region, gateway, actor
     print(f"path_kernels_s {time.perf_counter() - t0}")
 
     entry = {"K1": ("ring_reduce", "_run(with_slots=False)"),

@@ -826,3 +826,122 @@ def test_profiler_trace_holds_the_step(card, tmp_path):
     assert any(e.get("name") == "akka.device.step" for e in evs)
     assert any(e.get("cat") == "kernel" and "ring_sweep" in e.get("name", "")
                for e in evs)
+
+
+# ------------------------------------------- device actors (the bridge)
+def _actor_config(**dispatcher):
+    return {"akka": {"stdout-loglevel": "OFF", "log-dead-letters": 0,
+                     "actor": {"tpu-dispatcher": dispatcher}}}
+
+
+def test_actor_ring_matches_a_bare_ring_at_full_width(card):
+    """system.actor_of(device_props(ring)) at 2^20 rows (256 promise rows
+    after the block), seeded by one DeviceBlockRef.tell and stepped by
+    the handle, against a bare BatchedSystem ring of the same behavior:
+    the received counts bit-equal, one K1 launch a step."""
+    from akka_tpu_torch import ActorSystem
+    from akka_tpu_torch.batched import BatchedSystem, device_props, get_handle
+    n = 1 << 20
+    block_n = n - 256
+    ring_n = tbb.make_block_ring_behavior(block_n)
+    system = ActorSystem.create("cuda-actor-ring", _actor_config(
+        capacity=n, **{"payload-width": tbb.PAYLOAD_W, "promise-rows": 256,
+                       "host-inbox": block_n}))
+    try:
+        block = system.actor_of(device_props(ring_n, n=block_n), "ring")
+        h = get_handle(system)
+        h.runtime  # built and captured
+        cm.reset_launches()
+        block.tell((0, [1.0, 0.0, 0.0, 0.0]))
+        h.step(8)
+        steps = h.runtime._host_step
+        assert cm.LAUNCHES["ring_reduce"] == steps >= 8
+        got = block.read_state("received")
+    finally:
+        system.terminate()
+        assert system.await_termination(30.0)
+    bare = BatchedSystem(capacity=block_n, behaviors=[ring_n],
+                         payload_width=tbb.PAYLOAD_W, host_inbox=8,
+                         device="cuda")
+    bare.spawn_block(ring_n, block_n)
+    tbb.seed_ring_full(bare)
+    bare.run(steps)
+    np.testing.assert_array_equal(got, bare.read_state("received"))
+    assert (got == steps).all()
+
+
+def test_pump_attention_words_are_each_their_own_step(card):
+    """The graph writes each step's attention word into one carried
+    tensor: the depth-4 pipeline retires, in order, the word each step
+    wrote (its step lane 1, 2, ...), never the newest one four times."""
+    from akka_tpu_torch.batched.bridge import BatchedRuntimeHandle
+    from akka_tpu_torch.batched.supervision import ATT_STEP
+    h = BatchedRuntimeHandle(capacity=1024, payload_width=tbb.PAYLOAD_W,
+                             host_inbox=16, promise_rows=8, pipeline_depth=4)
+    try:
+        h.spawn(tbb.ring_behavior, 16)
+        h.runtime
+        retired = []
+        drain = h._drain_one
+
+        def record(inflight):
+            host, copied = inflight[0]
+            if copied is not None:  # the word's copy has landed
+                copied.synchronize()
+            retired.append(int(host[ATT_STEP]))
+            return drain(inflight)
+
+        h._drain_one = record
+        h.step(32)
+        assert retired == list(range(1, 33))
+    finally:
+        h.shutdown()
+
+
+def test_rebuild_under_a_live_pump(card):
+    """A new behavior type spawned while the pump serves asks: the system
+    is rebuilt (a new capture over the same tensors), every ask resolves
+    with its own reply, the always-on rows count every step through the
+    rebuild, and a tell to the new behavior lands once."""
+    from akka_tpu_torch.batched import Emit, behavior
+    from akka_tpu_torch.batched.bridge import BatchedRuntimeHandle, reply_dst
+    P = tbb.PAYLOAD_W
+
+    @behavior("cuda-acc", {"acc": ((), torch.int32)}, always_on=True)
+    def acc(state, inbox, ctx):
+        return ({"acc": state["acc"] + 1},
+                Emit.none(ctx.actor_id.shape[0], 1, P,
+                          device=ctx.actor_id.device))
+
+    @behavior("cuda-echo", {})
+    def echo(state, inbox, ctx):
+        return state, Emit.single(reply_dst(inbox.sum), inbox.sum * 2, 1, P,
+                                  when=inbox.count > 0)
+
+    @behavior("cuda-late", {"seen": ((), torch.float32)})
+    def late(state, inbox, ctx):
+        return ({"seen": state["seen"] + inbox.sum[:, 0]},
+                Emit.none(ctx.actor_id.shape[0], 1, P,
+                          device=ctx.actor_id.device))
+
+    h = BatchedRuntimeHandle(capacity=4096, payload_width=P, host_inbox=64,
+                             promise_rows=64, pipeline_depth=4)
+    try:
+        rows = h.spawn(acc, 64)
+        echoes = h.spawn(echo, 32)
+        old = h.runtime
+        futs = [(h.ask(int(r), (0, [float(i + 1)]), timeout=30.0), i + 1)
+                for i, r in enumerate(echoes)]
+        lrow = h.spawn(late, 1)  # rebuild with the pump live
+        assert h.runtime is not old
+        assert h.runtime._graphs.captures == 1
+        h.tell(int(lrow[0]), (0, [5.0]))
+        for f, v in futs:
+            assert float(f.result(30.0)[0]) == 2.0 * v
+        h.step(2)
+        a = h.read_state("acc", rows)
+        assert np.unique(a).size == 1
+        assert int(a[0]) == h.runtime._host_step
+        assert float(h.read_state("seen", lrow)[0]) == 5.0
+    finally:
+        h.shutdown()

@@ -60,7 +60,36 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "akka_tpu_torch.sharding.remember",
                  "akka_tpu_torch.testkit",
                  "akka_tpu_torch.testkit.chaos",
-                 "akka_tpu_torch.tools.serving_gateway"):
+                 "akka_tpu_torch.tools.serving_gateway",
+                 # the host actor core and the bridge
+                 "akka_tpu_torch.actor.actor",
+                 "akka_tpu_torch.actor.cell",
+                 "akka_tpu_torch.actor.deploy",
+                 "akka_tpu_torch.actor.fsm",
+                 "akka_tpu_torch.actor.messages",
+                 "akka_tpu_torch.actor.path",
+                 "akka_tpu_torch.actor.props",
+                 "akka_tpu_torch.actor.provider",
+                 "akka_tpu_torch.actor.ref",
+                 "akka_tpu_torch.actor.scheduler",
+                 "akka_tpu_torch.actor.supervision",
+                 "akka_tpu_torch.actor.system",
+                 "akka_tpu_torch.dispatch.batched",
+                 "akka_tpu_torch.dispatch.dispatcher",
+                 "akka_tpu_torch.dispatch.mailbox",
+                 "akka_tpu_torch.dispatch.sysmsg",
+                 "akka_tpu_torch.event.event_stream",
+                 "akka_tpu_torch.event.logging",
+                 "akka_tpu_torch.pattern.ask",
+                 "akka_tpu_torch.pattern.circuit_breaker",
+                 "akka_tpu_torch.routing.router",
+                 "akka_tpu_torch.routing.routed_cell",
+                 "akka_tpu_torch.serialization.serialization",
+                 "akka_tpu_torch.serialization.codec",
+                 "akka_tpu_torch.remote.failure_detector",
+                 "akka_tpu_torch.testkit.probe",
+                 "akka_tpu_torch.batched.sentinel",
+                 "akka_tpu_torch.batched.bridge"):
         assert name in MODULES, name
 
 
@@ -114,13 +143,13 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
 # ------------------------------------------------ exports (ROADMAP C1)
 
 EXPORT_PACKAGES = ("batched", "ops", "sharding", "gateway", "event",
-                   "serialization")
+                   "serialization", "testkit")
 
 
 def _reference_exports(sub: str) -> set:
-    """The public names akka_tpu/<sub>/__init__.py binds, read from its
-    source: relative imports, definitions, assignments and __all__ (so no
-    akka_tpu module is imported here)."""
+    """The public names akka_tpu/<sub>/__init__.py binds (akka_tpu's own
+    with sub ""), read from its source: relative imports, definitions,
+    assignments and __all__ (so no akka_tpu module is imported here)."""
     tree = ast.parse((ROOT / "akka_tpu" / sub / "__init__.py").read_text())
     names = set()
     for node in tree.body:
@@ -169,3 +198,25 @@ def test_port_exports_what_the_reference_exports(sub):
         from akka_tpu_torch.batched import (ATT_WORDS, COUNTER_NAMES,  # noqa
                                             SUP_COLUMNS, StepCore,
                                             decode_attention, reply_dst)
+        # the bridge's names (akka_tpu/batched/__init__.py:20-22)
+        bridge = {"BatchedRuntimeHandle", "DefaultCodec", "DeviceActorRef",
+                  "DeviceBlockRef", "MessageCodec", "device_props",
+                  "get_handle"}
+        assert bridge <= shared
+        assert all(hasattr(port, n) for n in bridge)
+
+
+def test_package_exports_what_the_reference_package_exports():
+    """Every public name akka_tpu/__init__.py binds (the actor system,
+    actors, props, refs, messages, supervision, ask) imports from
+    akka_tpu_torch, beside the port's own names."""
+    import akka_tpu_torch
+
+    names = _reference_exports("")
+    assert {"ActorSystem", "Actor", "Props", "ask_sync",
+            "OneForOneStrategy", "Terminated"} <= names
+    missing = sorted(n for n in names if not hasattr(akka_tpu_torch, n))
+    assert not missing, f"akka_tpu_torch lacks {missing}"
+    for n in ("BatchedBehavior", "BatchedSystem", "Ctx", "Emit", "Inbox",
+              "Mailbox", "behavior"):
+        assert hasattr(akka_tpu_torch, n), n
