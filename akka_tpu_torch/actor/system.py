@@ -5,10 +5,13 @@ the port keeps its own copy of every module it needs). Where the
 reference falls back silently, the port refuses: the `tpu-batched`
 dispatcher type is registered unconditionally, and the configurations
 whose modules the port lacks raise `ValueError` naming the ROADMAP item
-that ports them, before anything is built (`_refuse_unported`): the
-native scheduler and native mailboxes (A4.6), `akka.jax-distributed`
-(A10) and a remote or cluster provider (A12). The defaults reach none of
-them.
+that ports them, before anything is built (`_refuse_unported`):
+`akka.jax-distributed` (A10) and a remote or cluster provider (A12). The
+defaults reach none of them. The native scheduler
+(`akka.scheduler.implementation = native`) and the native mailboxes
+(`akka.actor.native-mailboxes`) build the native library (native/) and
+raise RuntimeError when it cannot be built; the reference falls back to
+the Python scheduler and queues there.
 
 Reference parity: akka-actor/src/main/scala/akka/actor/ActorSystem.scala —
 ctor sequence eventStream → scheduler → provider → mailboxes → dispatchers
@@ -41,14 +44,6 @@ from .scheduler import Scheduler
 def _refuse_unported(cfg: Config, provider_kind: str) -> None:
     """Raise ValueError for a configuration that needs a module the port
     does not have yet, naming the ROADMAP item that ports it."""
-    if cfg.get_string("akka.scheduler.implementation", "default") == "native":
-        raise ValueError(
-            "akka.scheduler.implementation = native: the native scheduler "
-            "is not ported (ROADMAP A4.6); use the default scheduler")
-    if cfg.get_bool("akka.actor.native-mailboxes", False):
-        raise ValueError(
-            "akka.actor.native-mailboxes: the native mailboxes are not "
-            "ported (ROADMAP A4.6)")
     if cfg.get_bool("akka.jax-distributed.enabled", False):
         raise ValueError(
             "akka.jax-distributed.enabled: multi-process meshes are not "
@@ -190,16 +185,35 @@ class ActorSystem:
             # default step source: the registry's shared ATT_STEP axis
             self.tracer.step_fn = lambda: self.metrics_registry.step
 
-        self.scheduler = Scheduler(
-            tick_duration=cfg.get_duration("akka.scheduler.tick-duration", "10ms"),
-            ticks_per_wheel=cfg.get_int("akka.scheduler.ticks-per-wheel", 512),
-            name=f"akka-tpu-scheduler-{name}")
+        if cfg.get_string("akka.scheduler.implementation",
+                          "default") == "native":
+            # the C++ hashed wheel (LightArrayRevolverScheduler parity);
+            # raises when the native library cannot be built
+            from ..native.integration import NativeScheduler
+            self.scheduler = NativeScheduler(
+                tick_duration=cfg.get_duration(
+                    "akka.scheduler.tick-duration", "10ms"),
+                ticks_per_wheel=cfg.get_int(
+                    "akka.scheduler.ticks-per-wheel", 512))
+        else:
+            self.scheduler = Scheduler(
+                tick_duration=cfg.get_duration("akka.scheduler.tick-duration", "10ms"),
+                ticks_per_wheel=cfg.get_int("akka.scheduler.ticks-per-wheel", 512),
+                name=f"akka-tpu-scheduler-{name}")
 
         self.dispatchers = Dispatchers(self.settings, self)
         # register the flagship device dispatcher type, unconditionally
         # (extension seam; reference: dispatch/Dispatchers.scala:235-259)
         register_tpu_dispatcher_type(self.dispatchers)
         self.mailboxes = Mailboxes(self.settings, self.event_stream)
+        if cfg.get_bool("akka.actor.native-mailboxes"):
+            # raises when the native library cannot be built
+            from ..native.integration import register_native_mailbox
+            try:
+                register_native_mailbox(self.mailboxes)
+            except RuntimeError:
+                self.scheduler.shutdown()
+                raise
         self.provider = LocalActorRefProvider(name, self.settings, self.event_stream)
 
         self.dead_letters = self.provider.dead_letters

@@ -45,8 +45,9 @@ Where the port differs from the reference:
 - bf16 payloads have no numpy dtype: the default codec encodes them as
   float32 rows (staging casts them), and replies and reads come back as
   float32.
-- Host tells stage in the system's Python list (the native stager is not
-  ported, ROADMAP A4.6).
+- Host tells stage in the system's native stager or Python list
+  (`native_staging`, forwarded to BatchedSystem); a rebuild's new system
+  shares the old one's staging buffer.
 """
 
 from __future__ import annotations
@@ -217,7 +218,8 @@ class BatchedRuntimeHandle:
                  sentinel_depth_recovery_rounds: int = 64,
                  metrics_enabled: bool = False,
                  metrics_registry=None, device=None,
-                 spill_capacity: Optional[int] = None):
+                 spill_capacity: Optional[int] = None,
+                 native_staging: Optional[bool] = None):
         self.capacity = capacity
         self.payload_width = payload_width
         self.out_degree = out_degree
@@ -238,6 +240,9 @@ class BatchedRuntimeHandle:
         # ranked kernels); 0 bounds each mailbox at its slots, which the
         # ring-mailbox kernel K2 delivers
         self.spill_capacity = spill_capacity
+        # where tells stage (BatchedSystem's native_staging: None takes the
+        # native stager when its library builds, True requires it)
+        self.native_staging = native_staging
         # ask reply routing rides a VALUE CAST of the reply row id into the
         # payload dtype's last column: refuse any capacity whose ids would
         # round (a bf16 payload system with 1M rows would misroute replies)
@@ -393,6 +398,7 @@ class BatchedRuntimeHandle:
             host_inbox=self.host_inbox, payload_dtype=self.payload_dtype,
             device=self.device, mailbox_slots=self.mailbox_slots,
             spill_capacity=self.spill_capacity,
+            native_staging=self.native_staging,
             delivery_backend=self.delivery_backend,
             # the promise-latch column feeds ATT_LATCH_BIT of the attention
             # word: the pump pays the promise-block readback only when some
@@ -560,8 +566,9 @@ class BatchedRuntimeHandle:
         rt.behavior_id.masked_fill_(rt.behavior_id == old_promise_idx,
                                     new_promise_idx)
         # host bookkeeping carries over: supervision and metrics report
-        # marks, allocation, staging (shared list and lock, so a tell
-        # staged through a stale reference lands in the next flush),
+        # marks, allocation, staging (the shared staging buffer and lock,
+        # so a tell staged through a stale reference lands in the next
+        # flush),
         # incarnations, dead letters, the step counter and the WAL
         rt._sup_reported = old._sup_reported
         rt._overflow_reported = old._overflow_reported
@@ -569,8 +576,8 @@ class BatchedRuntimeHandle:
         with old._lock:
             rt._next_row = old._next_row
             rt._free_rows = list(old._free_rows)
-            rt._host_staged = old._host_staged
-            rt._dropped_host = old._dropped_host
+            fresh, rt._staging = rt._staging, old._staging
+            fresh.close()
             rt.dead_lettered = old.dead_lettered
         rt._lock = old._lock
         rt._generation = old._generation
@@ -758,15 +765,13 @@ class BatchedRuntimeHandle:
         return bool(self._waiters) or self._fresh_tells()
 
     def _fresh_tells(self) -> bool:
-        """Staged-but-unflushed tells: the staging list itself plus the
-        `_pending_tells` wake hint (the list is authoritative, so a hint
-        lost to a race never strands staged mail)."""
+        """Staged-but-unflushed tells: the `_pending_tells` wake hint or
+        the staging buffer's own length (the buffer is authoritative, so a
+        hint lost to a race never strands staged mail)."""
         rt = self._runtime
         if rt is None:
             return False
-        if self._pending_tells > 0:
-            return True
-        return bool(rt._host_staged)
+        return self._pending_tells > 0 or len(rt._staging) > 0
 
     def _pump_loop(self) -> None:
         """While host work is pending, step the device; otherwise park on

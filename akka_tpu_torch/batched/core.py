@@ -22,9 +22,10 @@ call). On the CPU the same in-place step runs eagerly. The flush copies
 the staged tells through fresh pinned host blocks, so the pads can be
 refilled while an earlier flush's copy is still in flight.
 `run_pipelined` keeps up to `depth` steps in flight, synchronising on a
-host copy of each step's attention word. Host tells stage in a Python
-list (the reference's C++ NativeStager is not ported yet) and ride into
-the next `step()` with its flush.
+host copy of each step's attention word. Host tells stage in the native
+stager (native/, a preallocated C++ buffer: one atomic reserve and a
+memcpy a batch) or in a Python list (`native_staging`), and ride into the
+next `step()` with its flush.
 
 Telemetry: with metrics on, the step keeps the metric slab
 (batched/metrics_slab.py) and its epoch word, the slab's running sum as
@@ -58,6 +59,7 @@ from . import graphs
 from .behavior import BatchedBehavior
 from .metrics_slab import (ASK_ARM_COL, ASK_ARM_SPEC, accumulate_step,
                            empty_slab, slab_dict, slab_epoch)
+from .staging import ListStaging, NativeStaging
 from .step import (StepCore, fault_any_failed, fault_clear_failed,
                    fault_failed_rows, fault_restart_rows, write_back)
 from .supervision import (ATT_WORDS, N_COUNTERS, SUP_COLUMNS, counts_dict,
@@ -153,6 +155,18 @@ class BatchedSystem:
     device: where the system runs; defaults to CUDA and raises without a
     card unless device="cpu" is passed. On a card every step is a replay
     of the step's CUDA graph.
+    native_staging: where host tells stage until the next flush. None
+    takes the native stager (native/queues.py NativeStager) when its
+    library is built or can be built now, else the Python list; True
+    takes the stager and raises RuntimeError when the library cannot be
+    built; False takes the Python list. In slots mode a staged row
+    carries its type tag bitcast into the staging dtype, which is exact
+    only for a 4-byte staging dtype: float32, int32 and bf16 (which stages
+    as float32) take the stager there, and float16 or 8-byte payloads keep
+    the Python list (True raises ValueError). A full stager drops a whole
+    batch (all or nothing, counted in `dropped_messages`); the Python list
+    drops what passes `host_inbox` at the flush. No environment variable
+    switches it.
     """
 
     def __init__(self, capacity: int, behaviors: Sequence[BatchedBehavior],
@@ -161,6 +175,7 @@ class BatchedSystem:
                  device=None, delivery: str = "auto",
                  need_max: bool = False, topology=None,
                  mailbox_slots: int = 0,
+                 native_staging: Optional[bool] = None,
                  spill_capacity: Optional[int] = None,
                  delivery_backend: Optional[str] = None,
                  attention_latch_col: Optional[str] = None,
@@ -248,9 +263,7 @@ class BatchedSystem:
 
         self._next_row = 0
         self._free_rows: List[int] = []
-        self._host_staged: List[Tuple[int, int, np.ndarray]] = []
         self._lock = threading.Lock()
-        self._dropped_host = 0  # guarded by _lock
         # per-row incarnation counter: bumped on stop and restart, checked
         # by tells that carry expect_gen (host-authoritative)
         self._generation = np.zeros((n,), np.int64)
@@ -270,6 +283,7 @@ class BatchedSystem:
         # batches are journaled BEFORE staging; None = no WAL
         self.tell_journal = None
         self._np_payload_dtype = _numpy_dtype(payload_dtype)
+        self._staging = self._make_staging(native_staging)
         # the step's CUDA graph on a card; the eager step on the CPU (and
         # in a comparison's eager twin, which sets _eager itself)
         self._eager = dev.type != "cuda"
@@ -292,6 +306,35 @@ class BatchedSystem:
                               delivery_backend=delivery_backend,
                               attention_latch_col=attention_latch_col,
                               device=dev)
+
+    def _make_staging(self, native_staging: Optional[bool]):
+        """The staging buffer (batched/staging.py) that `native_staging`
+        picks; see the class docstring."""
+        slots = self.mailbox_slots > 0
+        exact = not slots or self._np_payload_dtype.itemsize == 4
+        if native_staging and not exact:
+            raise ValueError(
+                f"native_staging=True: a slots-mode stager row carries "
+                f"its type tag bitcast into the staging dtype, exact "
+                f"only for 4 bytes, not {self._np_payload_dtype}")
+        if native_staging is None:
+            from ..native import lib as native_lib
+            native_staging = exact and native_lib.available()
+        if native_staging:
+            return NativeStaging(self.host_inbox, self.payload_width,
+                                 self._np_payload_dtype, slots,
+                                 self._report_dropped)
+        return ListStaging(self.host_inbox, self.payload_width,
+                           self._np_payload_dtype, self._report_dropped)
+
+    def _report_dropped(self, n: int) -> None:
+        if self.on_dropped is not None:
+            self.on_dropped(n)
+
+    @property
+    def native_staging(self) -> bool:
+        """Whether host tells stage in the native stager."""
+        return self._staging.native
 
     def _index(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
@@ -335,10 +378,11 @@ class BatchedSystem:
                 arr[ridx] = reserved_fill(col)
             stale = torch.isin(self.inbox_dst, ridx.to(torch.int32))
             self.inbox_valid.masked_fill_(stale, False)
-            with self._lock:
-                rec_set = set(int(i) for i in rec_arr)
-                self._host_staged = [e for e in self._host_staged
-                                     if e[0] not in rec_set]
+
+            def scrub(d, t, p):
+                keep = ~np.isin(d, rec_arr)
+                return d[keep], t[keep], p[keep]
+            self._staging.rewrite(scrub)
         for col, value in (init_state or {}).items():
             if col not in self.state:
                 raise KeyError(f"unknown state column {col!r}")
@@ -407,9 +451,7 @@ class BatchedSystem:
             # staged; recovery re-stages exactly this batch at this step
             # counter, with no expect_gen re-check
             self.tell_journal.append(self._host_step, "tell", dst_arr, pl, mt)
-        with self._lock:
-            for d, t, p in zip(dst_arr, mt, pl):
-                self._host_staged.append((int(d), int(t), p))
+        self._staging.stage(dst_arr, mt, pl)
 
     def seed_inbox(self, dst, payload, mtype=0) -> None:
         """Bulk device-side injection: overwrite the first len(dst) inbox
@@ -435,23 +477,19 @@ class BatchedSystem:
         self.inbox_valid[:k] = True
 
     def _drain_to_pad(self) -> int:
-        """Drain staged host tells into the reusable pads, applying
-        overflow-drop accounting. Returns the number of staged rows."""
-        with self._lock:
-            staged, self._host_staged = self._host_staged, []
-        if not staged:
+        """Drain the staged host tells into the reusable pads (each
+        staging path applies its own drops). The native stager's
+        reduce-mode rows carry no type, and the pad's type column is left
+        as it was, as the reference leaves it. Returns the number of
+        staged rows."""
+        dsts, types, payloads = self._staging.drain()
+        k = dsts.shape[0]
+        if k == 0:
             return 0
-        if len(staged) > self.host_inbox:
-            n_drop = len(staged) - self.host_inbox
-            with self._lock:
-                self._dropped_host += n_drop
-            if self.on_dropped is not None:
-                self.on_dropped(n_drop)
-            staged = staged[: self.host_inbox]
-        k = len(staged)
-        self._flush_dst[:k] = [d for d, _, _ in staged]
-        self._flush_type[:k] = [t for _, t, _ in staged]
-        self._flush_payload[:k] = np.stack([p for _, _, p in staged])
+        self._flush_dst[:k] = dsts
+        if types is not None:
+            self._flush_type[:k] = types
+        self._flush_payload[:k] = payloads
         self._flush_valid[:k] = True
         self._flush_valid[k:] = False
         self._flush_dst[k:] = -1
@@ -644,7 +682,7 @@ class BatchedSystem:
         counter from its step_count. The caller builds a same-config
         system and re-runs its spawns first: behaviors are code, not
         snapshot data, so the host allocation state (free rows,
-        generations) comes from the spawns. The host staging list is
+        generations) comes from the spawns. The staged host tells are
         dropped: whatever was staged but not flushed at the crash replays
         from the journal. With `journal`, the journaled batches past the
         snapshot's step are replayed to the crash frontier. Returns the
@@ -663,8 +701,7 @@ class BatchedSystem:
         if self.metrics_on:
             self.metrics_epoch.copy_(slab_epoch(self.metrics))
         self._metrics_seen_epoch = 0
-        with self._lock:
-            self._host_staged = []
+        self._staging.clear()
         if journal is not None:
             replay_journal(self, journal)
         return self._host_step
@@ -787,9 +824,9 @@ class BatchedSystem:
 
     @property
     def dropped_messages(self) -> int:
-        """Total host tells dropped on host-inbox overflow."""
-        with self._lock:
-            return self._dropped_host
+        """Total host tells dropped on host-inbox overflow, by the
+        staging path's own rule (batched/staging.py)."""
+        return self._staging.dropped
 
     @property
     def mailbox_overflow(self) -> int:

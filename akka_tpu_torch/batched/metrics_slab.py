@@ -53,6 +53,13 @@ def bucket_of(v: torch.Tensor) -> torch.Tensor:
                                                    dtype=torch.int32)
 
 
+def bucket_of_np(v: np.ndarray) -> np.ndarray:
+    """Numpy twin of bucket_of (int64 bucket indices)."""
+    v = np.asarray(v, np.int64)
+    b = np.asarray(BOUNDARIES, np.int64)
+    return (v[:, None] >= b[None, :]).sum(axis=1).astype(np.int64)
+
+
 def masked_hist(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """[N_BUCKETS] int32 histogram of values where mask holds, or for
     [D, L] values one histogram per row ([D, N_BUCKETS]); masked-out
@@ -68,6 +75,13 @@ def masked_hist(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                       device=values.device)
     out.index_add_(0, safe.reshape(-1), mask.reshape(-1).to(torch.int32))
     return out.reshape(lead + (N_BUCKETS + 1,))[..., :N_BUCKETS]
+
+
+def masked_hist_np(values: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """Numpy oracle of masked_hist (int64 counts; compare with ==)."""
+    mask = np.asarray(mask, bool)
+    buckets = bucket_of_np(np.asarray(values))[mask]
+    return np.bincount(buckets, minlength=N_BUCKETS).astype(np.int64)
 
 
 def accumulate_step(metrics: torch.Tensor, old_state, new_state, old_alive,
@@ -127,10 +141,18 @@ def empty_slab(n_shards: int = 0, device=None) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.int32, device=device)
 
 
+def slab_totals(slab) -> np.ndarray:
+    """Host side: collapse a (possibly per-shard) slab, a tensor or a host
+    array, to one [N_HIST, N_BUCKETS] int64 total."""
+    if isinstance(slab, torch.Tensor):
+        slab = slab.cpu().numpy()
+    a = np.asarray(slab, np.int64)
+    return a.reshape((-1, N_HIST, N_BUCKETS)).sum(axis=0)
+
+
 def slab_dict(slab) -> Dict[str, np.ndarray]:
     """Host side: named histogram lanes (HIST_NAMES -> [N_BUCKETS] int64)."""
-    totals = np.asarray(torch.as_tensor(slab).cpu(), np.int64) \
-        .reshape((-1, N_HIST, N_BUCKETS)).sum(axis=0)
+    totals = slab_totals(slab)
     return {name: totals[i] for i, name in enumerate(HIST_NAMES)}
 
 
@@ -139,6 +161,17 @@ def slab_epoch(slab: torch.Tensor) -> torch.Tensor:
     slab's device (no host sync), wrapping modulo 2^32 as the reference's
     int32 sum does."""
     return slab.sum(dtype=torch.int64).to(torch.int32)
+
+
+def bucket_label(i: int) -> str:
+    """Human-readable bucket range, e.g. '0', '1', '4-7', '>=16384'."""
+    if i == 0:
+        return "0"
+    lo = BOUNDARIES[i - 1]
+    if i == N_BUCKETS - 1:
+        return f">={lo}"
+    hi = BOUNDARIES[i] - 1
+    return str(lo) if hi == lo else f"{lo}-{hi}"
 
 
 def bucket_upper_bounds() -> tuple:

@@ -112,6 +112,7 @@ class TpuBatchedDispatcher(Dispatcher):
                         "spill_capacity",
                         c.get_int("spill-capacity")
                         if c.has_path("spill-capacity") else None),
+                    native_staging=overrides.get("native_staging"),
                 )
             return self._handle
 

@@ -8,8 +8,9 @@ status bitfield constants (:37-45), `run` (:227-237), the throughput-bounded
 `processMailbox` loop (:260-277), `processAllSystemMessages` (:286-330), and
 the pluggable mailbox types (:638-1036). The reference's Unsafe CAS on the
 status word (dispatch/Mailbox.scala:115-138 via AbstractMailbox field offsets)
-becomes an `AtomicInt` here; the optional C++ substrate (akka_tpu/native)
-provides a lock-free MPSC queue for the user-message queue.
+becomes an `AtomicInt` here; the optional C++ substrate (native/, the
+`native-unbounded` mailbox type) provides a lock-free MPSC queue for the
+user-message queue.
 """
 
 from __future__ import annotations

@@ -9,6 +9,12 @@ Port of `akka_tpu/models/baseline_benches.py`:
 - cross_shard (bench config 5): 256 logical shards x 4096 entities on a
   ShardedBatchedSystem, every token forwarded to the same slot of the next
   shard, so all traffic rides the exchange
+- router (bench config 4): a RoundRobinPool of 100k routees fed by 2^20
+  producers every step, as a hand-written index map (`build_router`) or
+  through `routing.batched.BatchedRouter` (`build_router_api`); the
+  (id + step) term keeps it off the static-topology compiler, so it
+  delivers dynamically (through the ring-mailbox kernel on a card)
+- ping_pong (bench config 1): two actors bouncing one token
 - ring_slots, cross_shard_slots: the ring and the cross-shard ring over
   ordered per-message mailboxes (port-side additions that put the bounded
   slots mailbox on the main path)
@@ -161,6 +167,89 @@ def build_fan_in(n_leaves: int = 1 << 20, n_collectors: int = 1000,
                         topology=topo, **kwargs)
     sys.spawn_block(fan_in_collector, n_collectors)
     sys.spawn_block(leaf, n_leaves)
+    return sys
+
+
+def make_router_producer(routee_base: int, n_routees: int):
+    """RoundRobinPool semantics as an index map applied at emission: each
+    producer's successive messages hit successive routees. The (id +
+    step) term keeps the static-topology compiler off on purpose: this
+    bench measures dynamic delivery."""
+
+    @behavior(f"producer{n_routees}", {}, always_on=True)
+    def producer(state, inbox, ctx):
+        dst = routee_base + (ctx.actor_id + ctx.step) % n_routees
+        return {}, Emit.single(dst, [1.0, 0.0, 0.0, 0.0], 1, PAYLOAD_W,
+                               when=ctx.actor_id >= routee_base + n_routees)
+
+    return producer
+
+
+@behavior("routee", {"hits": ((), torch.int32)})
+def routee(state, inbox, ctx):
+    return ({"hits": state["hits"] + inbox.count},
+            Emit.none(ctx.actor_id.shape[0], 1, PAYLOAD_W,
+                      device=ctx.actor_id.device))
+
+
+def _router(producer, n_producers: int, n_routees: int, device,
+            **kwargs) -> BatchedSystem:
+    sys = BatchedSystem(capacity=n_routees + n_producers,
+                        behaviors=[routee, producer],
+                        payload_width=PAYLOAD_W, host_inbox=8,
+                        device=device, **kwargs)
+    sys.spawn_block(routee, n_routees)
+    sys.spawn_block(producer, n_producers)
+    return sys
+
+
+def build_router(n_producers: int = 1 << 20, n_routees: int = 100_000,
+                 device=None, **kwargs) -> BatchedSystem:
+    """Bench config 4: a RoundRobin router pool of n_routees routees (rows
+    [0, n_routees)), the producers (the rest) telling every step.
+    `kwargs` go to BatchedSystem."""
+    return _router(make_router_producer(0, n_routees), n_producers,
+                   n_routees, device, **kwargs)
+
+
+def make_router_api_producer(routee_base: int, n_routees: int):
+    """make_router_producer's traffic through the public routing seam: the
+    routee row comes from `BatchedRouter.route` (round-robin). Still
+    dynamic: the step term keeps the static-topology compiler off."""
+    from ..routing.batched import BatchedRouter
+
+    router = BatchedRouter("round-robin", routee_base, n_routees)
+
+    @behavior(f"producer-api{n_routees}", {}, always_on=True)
+    def producer(state, inbox, ctx):
+        dst = router.route(ctx.actor_id, ctx.step)
+        return {}, Emit.single(dst, [1.0, 0.0, 0.0, 0.0], 1, PAYLOAD_W,
+                               when=ctx.actor_id >= routee_base + n_routees)
+
+    return producer
+
+
+def build_router_api(n_producers: int = 1 << 20, n_routees: int = 100_000,
+                     device=None, **kwargs) -> BatchedSystem:
+    """build_router, but the producers emit through BatchedRouter (bench
+    config 'router-api'). `kwargs` go to BatchedSystem."""
+    return _router(make_router_api_producer(0, n_routees), n_producers,
+                   n_routees, device, **kwargs)
+
+
+def build_ping_pong(device=None, **kwargs) -> BatchedSystem:
+    """Bench config 1: two actors, each forwarding what it receives to the
+    other (seed one with a host tell). `kwargs` go to BatchedSystem."""
+
+    @behavior("pp", {"hits": ((), torch.int32)})
+    def pp(state, inbox, ctx):
+        return ({"hits": state["hits"] + inbox.count},
+                Emit.single(1 - ctx.actor_id, inbox.sum, 1, PAYLOAD_W,
+                            when=inbox.count > 0))
+
+    sys = BatchedSystem(capacity=2, behaviors=[pp], payload_width=PAYLOAD_W,
+                        host_inbox=8, device=device, **kwargs)
+    sys.spawn_block(pp, 2)
     return sys
 
 

@@ -67,8 +67,8 @@ channel; binary frames addressed to the admin tenant get a typed error).
 
 Decoding is bounds-checked and type-safe by construction: records are
 fixed-width scalars/bytes — there is no tag dispatch, no object graph,
-nothing allowlisted to resolve (contrast the reference's general object
-codec, `akka_tpu/serialization/codec.py`, not ported).
+nothing allowlisted to resolve (contrast the general object codec,
+`serialization/codec.py`).
 """
 
 from __future__ import annotations

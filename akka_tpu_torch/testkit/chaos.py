@@ -26,8 +26,9 @@ never observes the chaos. The hash is tensor arithmetic only (no sync), so
 an injected behavior stays capturable in a CUDA graph.
 
 torch has no general uint32 arithmetic: the tensor hash runs in int64 on
-values kept in [0, 2^32), and every 32 x 32-bit product is split into
-16-bit halves so that no intermediate passes 2^48.
+values kept in [0, 2^32), through the helpers of utils/u32.py (every
+32 x 32-bit product split into 16-bit halves, so that no intermediate
+passes 2^48).
 """
 
 from __future__ import annotations
@@ -39,6 +40,9 @@ import numpy as np
 import torch
 
 from ..batched.behavior import BatchedBehavior, Emit, rows
+from ..utils.u32 import MASK32 as _MASK32
+from ..utils.u32 import mul32 as _mul32
+from ..utils.u32 import u32 as _u32
 
 # murmur3 fmix32 constants: chosen for avalanche, not secrecy
 _C1 = 0x85EBCA6B
@@ -46,7 +50,6 @@ _C2 = 0xC2B2AE35
 _STEP_MUL = 0x85EBCA77
 _LANE_MUL = 0xC2B2AE3D
 _SALT_MUL = 0x9E3779B9
-_MASK32 = 0xFFFFFFFF
 
 
 def _fmix32_np(h) -> np.ndarray:
@@ -80,24 +83,6 @@ def chaos_uniform_np(seed: int, step, lane, salt: int = 0) -> np.ndarray:
     numerator over a power-of-two divisor)."""
     return _hash_np(seed, step, lane, salt).astype(np.float64) \
         / float(1 << 32)
-
-
-def _u32(x, device=None) -> torch.Tensor:
-    """int64 tensor of x's values taken as uint32 (a negative int32 wraps,
-    as jnp's astype(uint32) does)."""
-    if isinstance(x, torch.Tensor):
-        t = x.to(device=device or x.device, dtype=torch.int64)
-    else:
-        t = torch.as_tensor(np.asarray(x).astype(np.int64), device=device)
-    return t & _MASK32
-
-
-def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
-    """(h * c) mod 2^32 for h in [0, 2^32) and a constant c < 2^32, in
-    int64 without overflow: c splits into 16-bit halves, so h * c_lo stays
-    below 2^48, and of h * c_hi only the low 16 bits matter."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _MASK32
 
 
 def _fmix32(h: torch.Tensor) -> torch.Tensor:

@@ -176,6 +176,31 @@ phase's systems, and their graph pools, are freed before the next.
    the region's inbox as a wave's tells land (region), the gateway
    region's (gateway) and the actor paths' inboxes (actor_ring,
    actor_ask at S = 4, actor_lifecycle_bf16).
+11. BASELINE configs 4 and 1 (baseline_paths). router and router_api:
+   build_router / build_router_api at 2^20 producers and 100k routees
+   (1,148,576 rows), step cells against their eager twins; every routee
+   hit closes to (steps - 1) * 2^20 (deliveries lag a step,
+   bench.py:145-165), round robin spreads within a hit a step, the two
+   builders' hits are bit-equal, K1 launches once a step; K1 is held to
+   its plain version on the router's inbox (~10.5 messages a recipient,
+   pattern `router`). ping_pong: bench.py bench_latency (2000 rounds of
+   tell -> step() -> sync, p50/p99 of the round and its tell, dispatch
+   and block parts; then step() + sync against run_pipelined(depth=2) in
+   steps/s) for the native stager and the Python list, in 3 interleaved
+   pairs; hits[0] + hits[1] equal a host replay of the exchange; two
+   actors deliver by scatter, so no ring kernel launches.
+12. device_pipeline (pipeline_paths): a map -> filter -> map -> scan
+   chain over 64 stacked chunks of 2^20 float32 (256 MiB) as CUDA-graph
+   replays against the same chain run eagerly, 3 interleaved pairs (ms
+   per chunk); outputs, masks and carry bit-equal, compact() equal to a
+   numpy oracle of the chain.
+13. The native stager against the Python list (staging_paths), in 3
+   interleaved pairs: actor_ask's rounds on two dispatchers of one
+   system (handles with native_staging true and false; 8 rounds of 256
+   tell + ask a leg) and the ring's tell_step at 2^20 actors (200 rounds of three
+   tells, step() and a sync a leg); each prints tell p50/p99 and asks/s
+   (steps/s), holds its oracle, must have staged through its buffer (it
+   held tells before a flush) and dropped nothing; K2 (K1) once a step.
 
 Any failure raises and the exit code is non-zero. The last lines are the
 kernel report (JSON, one row per kernel and payload dtype; `ms` and the
@@ -220,14 +245,18 @@ from akka_tpu_torch.models.baseline_benches import (PAYLOAD_W,
                                                     build_cross_shard,
                                                     build_cross_shard_slots,
                                                     build_fan_in,
+                                                    build_ping_pong,
                                                     build_ring,
                                                     build_ring_slots,
+                                                    build_router,
+                                                    build_router_api,
                                                     make_block_ring_behavior,
                                                     ring_behavior,
                                                     seed_ring_full)
 from akka_tpu_torch.ops import cuda_mailbox as cm
 from akka_tpu_torch.sharding import (AskBatcher, DeviceEntity,
                                      DeviceShardRegion)
+from akka_tpu_torch.stream import DevicePipeline
 from akka_tpu_torch.testkit import TestProbe
 from akka_tpu_torch.testkit.chaos import CRASH_SALT, chaos_hit_np, inject
 from akka_tpu_torch.tools import bench_mailbox as bm
@@ -1722,7 +1751,8 @@ def actor_ring(system, launches: dict, flat: dict) -> None:
     h = get_handle(system)
     t0 = time.perf_counter()
     rt = h.runtime  # built: the spawn replayed, the step captured
-    print(f"actor_ring warmup_s {time.perf_counter() - t0}")
+    print(f"actor_ring warmup_s {time.perf_counter() - t0} staging "
+          f"{'native' if rt.native_staging else 'list'}")
     times, bare = [], []
 
     def drive():
@@ -1836,7 +1866,8 @@ def actor_ask(system, launches: dict, flat: dict) -> None:
     h = get_handle(system, did)
     t0 = time.perf_counter()
     rt = h.runtime
-    print(f"actor_ask warmup_s {time.perf_counter() - t0}")
+    print(f"actor_ask warmup_s {time.perf_counter() - t0} staging "
+          f"{'native' if rt.native_staging else 'list'}")
     check(rt.spill_cap == 0 and rt.mailbox_slots == ASK_SLOTS,
           "actor_ask: bounded slots mailboxes")
     rng = np.random.default_rng(5)
@@ -2100,6 +2131,377 @@ def actor_paths(launches: dict) -> dict:
     return flat
 
 
+# ------------------------------------------- BASELINE configs 4 and 1
+ROUTER_PRODUCERS, ROUTEES = 1 << 20, 100_000   # bench config 4
+PP_ROUNDS = 2000            # ping_pong latency rounds a leg and pair
+PIPE_CHUNKS, PIPE_LEN = 64, 1 << 20   # device_pipeline: 256 MiB float32
+
+
+def staged_probe(rt) -> dict:
+    """Wrap a BatchedSystem's drain for the rest of its life: the most rows
+    its staging buffer (native stager or Python list) held before a
+    flush, and the drains that found any."""
+    seen = {"max_staged": 0, "drains": 0}
+    drain = rt._drain_to_pad
+
+    def probed() -> int:
+        n = len(rt._staging)
+        seen["max_staged"] = max(seen["max_staged"], n)
+        seen["drains"] += n > 0
+        return drain()
+
+    rt._drain_to_pad = probed
+    return seen
+
+
+def staging_check(label: str, rt, native: bool, seen: dict) -> None:
+    """A staging leg took the path it asked for, staged through it, and
+    dropped nothing."""
+    check(rt.native_staging is native, f"{label}: native_staging {native}")
+    check(seen["max_staged"] > 0, f"{label}: tells staged through the "
+          f"{'stager' if native else 'list'} before a flush")
+    check(rt.dropped_messages == 0, f"{label}: no tell dropped")
+    print(f"{label} staging {'native' if native else 'list'} max_staged "
+          f"{seen['max_staged']} drains {seen['drains']} dropped "
+          f"{rt.dropped_messages}")
+
+
+def baseline_paths(launches: dict) -> dict:
+    """BASELINE configs 4 and 1 (bench.py:145-165, :226-294). router and
+    router_api: 2^20 producers round-robin over 100k routees, every
+    producer telling every step, as step cells (graph against eager
+    twin); every routee hit closes to (steps - 1) * producers (deliveries
+    lag a step), the two builders' hits bit-equal, K1 once a step.
+    ping_pong: the latency loop, with the native stager and the Python
+    list in interleaved pairs. Returns K1's delivery input of the router
+    (its carried inbox after the cells)."""
+    hits = {}
+
+    def router_check(label):
+        def check_fn(s, steps):
+            h = s.read_state("hits")[:ROUTEES]
+            want = (steps - 1) * ROUTER_PRODUCERS
+            check(int(h.astype(np.int64).sum()) == want,
+                  f"{label}: hits sum {int(h.sum())} == {want}")
+            check(int(h.max() - h.min()) <= steps - 1,
+                  f"{label}: round robin spreads evenly")
+            hits[label] = h
+        return check_fn
+
+    flat = {}
+    for label, build in (("router", build_router),
+                         ("router_api", build_router_api)):
+        g, _ = step_cell(label, "ring_reduce", lambda: build(
+            ROUTER_PRODUCERS, ROUTEES, device="cuda"), launches,
+            router_check(label), ROUTER_PRODUCERS, seed=lambda s: None)
+        if label == "router":
+            inputs, n = system_inputs(g)
+            live = int(inputs[3].sum())
+            print(f"router kernel_input live_rows {live} of "
+                  f"{inputs[0].shape[0]} recipients {n} routees {ROUTEES} "
+                  f"msgs_per_routee {live / ROUTEES}")
+            check(live == ROUTER_PRODUCERS, "router: K1's input holds "
+                  "one message per producer")
+            flat["K1"] = (inputs, n)
+        del g
+        free()
+    check(np.array_equal(hits["router"], hits["router_api"]),
+          "router_api: hits bit-equal to router's")
+    ping_pong(launches)
+    free()
+    return flat
+
+
+def ping_pong(launches: dict) -> None:
+    """bench.py bench_latency on the card, for each staging leg (native
+    stager, Python list) in PAIRS interleaved pairs: PP_ROUNDS rounds of
+    tell -> step() -> sync, split into tell, dispatch and block (p50/p99),
+    then PP_ROUNDS steps of step() + sync against run_pipelined(depth=2)
+    (steps/s). hits[0] + hits[1] must equal a host replay of the
+    two-actor exchange (tests/test_baseline_benches.py:49)."""
+    legs = {}
+    for native in (True, False):
+        s = build_ping_pong(device="cuda", native_staging=native)
+        s.warmup()
+        legs[native] = {"s": s, "seen": staged_probe(s),
+                        "inbox": [0, 0], "hits": 0, "count": Launches(),
+                        "round": [], "tell": [], "dispatch": [],
+                        "block": [], "sync": [], "depth2": []}
+
+    def host_step(leg, told: int) -> None:
+        """The exchange on the host: leg["inbox"][a] messages reach actor
+        a at the next step (each actor forwards one message, the sum of
+        what it got, to the other); `told` host tells to actor 0 join."""
+        m0, m1 = leg["inbox"][0] + told, leg["inbox"][1]
+        leg["hits"] += m0 + m1
+        leg["inbox"] = [1 if m1 else 0, 1 if m0 else 0]
+
+    for leg in legs.values():  # bench.py's warm-up: a tell, two steps
+        s = leg["s"]
+        s.tell(0, [1.0, 0, 0, 0])
+        s.step()
+        s.step()
+        s.block_until_ready()
+        host_step(leg, 1)
+        host_step(leg, 0)
+
+    for _ in range(PAIRS):
+        for native, leg in legs.items():
+            s = leg["s"]
+
+            def rounds():
+                for _ in range(PP_ROUNDS):
+                    t0 = time.perf_counter()
+                    s.tell(0, [1.0, 0, 0, 0])
+                    t1 = time.perf_counter()
+                    s.step()
+                    t2 = time.perf_counter()
+                    s.block_until_ready()
+                    t3 = time.perf_counter()
+                    leg["round"].append(t3 - t0)
+                    leg["tell"].append(t1 - t0)
+                    leg["dispatch"].append(t2 - t1)
+                    leg["block"].append(t3 - t2)
+                    host_step(leg, 1)
+
+                t0 = time.perf_counter()
+                for _ in range(PP_ROUNDS):
+                    s.step()
+                    s.block_until_ready()
+                    host_step(leg, 0)
+                leg["sync"].append(PP_ROUNDS / (time.perf_counter() - t0))
+                t0 = time.perf_counter()
+                s.run_pipelined(PP_ROUNDS, depth=2)
+                s.block_until_ready()
+                for _ in range(PP_ROUNDS):
+                    host_step(leg, 0)
+                leg["depth2"].append(PP_ROUNDS / (time.perf_counter() - t0))
+
+            leg["count"](rounds)
+    for native, leg in legs.items():
+        s, name = leg["s"], f"ping_pong_{'native' if native else 'list'}"
+        h = s.read_state("hits")
+        check(int(h[0]) + int(h[1]) == leg["hits"],
+              f"{name}: hits {int(h[0]) + int(h[1])} == {leg['hits']}")
+        staging_check(name, s, native, leg["seen"])
+        out = {k: pcts_us(leg[k])
+               for k in ("round", "tell", "dispatch", "block")}
+        print(f"{name} rounds {PAIRS * PP_ROUNDS} {json.dumps(out)}")
+        print(f"{name} steps_per_s sync {leg['sync']} depth2 "
+              f"{leg['depth2']} overlap_speedup "
+              f"{float(np.median(leg['depth2']) / np.median(leg['sync']))}")
+        # two actors deliver by scatter (M <= SCATTER_MAX_M): no ring kernel
+        leg["count"].report(name, None, launches)
+
+
+def pipeline_paths(launches: dict) -> None:
+    """device_pipeline: map -> filter -> map -> scan over PIPE_CHUNKS
+    stacked chunks of PIPE_LEN float32 on the card, as CUDA-graph replays
+    (one capture) against the same chain run eagerly, PAIRS interleaved
+    pairs: outputs, masks and the carry bit-equal, and compact() equal to
+    a numpy oracle of the chain. Prints ms per chunk for both."""
+    def build():
+        return (DevicePipeline(device="cuda")
+                .map(lambda x: x * 3.0 - 1.0)
+                .filter(lambda x: x > 0.5)
+                .map(lambda x: x * 0.5)
+                .scan(lambda c, x: ((c[0] + (x != 0).sum(),
+                                     torch.maximum(c[1], x.max())),
+                                    x + c[0].to(torch.float32)),
+                      (torch.tensor(0, dtype=torch.int32),
+                       torch.tensor(0.0))))
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    chunks = torch.randn((PIPE_CHUNKS, PIPE_LEN), generator=gen,
+                         device="cuda")
+    g, e = build(), build()
+    e._eager = True
+    count = Launches()
+    t0 = time.perf_counter()
+    count(lambda: g.run(chunks[:2]))  # the capture
+    print(f"device_pipeline capture_s {time.perf_counter() - t0} captures "
+          f"{g.compile().captures}")
+    times = {"graph": [], "eager": []}
+    res = {}
+    for _ in range(PAIRS):
+        for mode, p in (("graph", g), ("eager", e)):
+            def one(p=p, mode=mode):
+                res[mode] = p.run(chunks)
+            ms = bm.cuda_ms(one, iters=1, warmup=0) if mode == "eager" \
+                else count(lambda: bm.cuda_ms(one, iters=1, warmup=0))
+            times[mode].append(ms / PIPE_CHUNKS)
+    for mode, ts in times.items():
+        print(f"device_pipeline {mode} ms_per_chunk "
+              f"{float(np.median(ts))} pairs {ts}")
+    (go, gm, (gc_, gx)), (eo, em, (ec, ex)) = res["graph"], res["eager"]
+    check(torch.equal(go, eo) and torch.equal(gm, em),
+          "device_pipeline: graph outputs and masks bit-equal to eager")
+    check(int(gc_) == int(ec) and torch.equal(gx, ex),
+          "device_pipeline: graph carry bit-equal to eager")
+    x = chunks.cpu().numpy()
+    count_ = np.int64(0)
+    want = []
+    for c in x:
+        y = c * np.float32(3.0) - np.float32(1.0)
+        keep = y > np.float32(0.5)
+        y = np.where(keep, y, np.float32(0)) * np.float32(0.5)
+        want.append((y + np.float32(count_))[keep])
+        count_ += int((y != 0).sum())
+    want = np.concatenate(want)
+    got = DevicePipeline.compact(go, gm)
+    check(got.dtype == np.float32 and np.array_equal(got, want),
+          f"device_pipeline: compact equals the numpy oracle "
+          f"({got.shape[0]} lanes)")
+    check(int(gc_) == int(count_), "device_pipeline: carry count")
+    print(f"device_pipeline kept {got.shape[0]} of {x.size} carry "
+          f"({int(gc_)}, {float(gx)}) memory_reserved "
+          f"{torch.cuda.memory_reserved()}")
+    count.report("device_pipeline", None, launches)
+    del g, e, chunks, res
+    free()
+
+
+STAGE_ROUNDS = 8            # ask rounds a staging leg and pair
+TELL_ROUNDS = 200           # tell_step rounds a staging leg and pair
+
+
+def staging_paths(launches: dict) -> None:
+    """The native stager against the Python list on the paths that stage
+    host tells, in PAIRS interleaved pairs a path: actor_ask's rounds
+    (two tpu-batched dispatchers of one system, their handles built
+    with native_staging true and false, ASK_ACTORS counters each,
+    STAGE_ROUNDS rounds of ASK_CONC tell + ref.ask pairs a leg) and the ring's tell_step (2^20 actors,
+    TELL_ROUNDS rounds of three tells, step() and a sync). Each leg
+    prints tell p50/p99 and asks/s (steps/s for the ring), must hold its
+    oracle, stage through its buffer and drop nothing; K2 (K1) once a
+    step."""
+    disp = {}
+    for native in (True, False):
+        disp[native] = {
+            "type": "tpu-batched", "capacity": N, "payload-width": PAYLOAD_W,
+            "mailbox-slots": ASK_SLOTS, "spill-capacity": 0,
+            "promise-rows": 256, "host-inbox": 4096, "pipeline-depth": 4}
+    cfg = {"akka": {"stdout-loglevel": "OFF", "log-dead-letters": 0,
+                    "actor": {"ask-native": disp[True],
+                              "ask-list": disp[False]}}}
+    system = ActorSystem.create("staging-paths", cfg)
+    try:
+        legs = {}
+        rng = np.random.default_rng(6)
+        for native in (True, False):
+            did = f"akka.actor.ask-{'native' if native else 'list'}"
+            # the handle is built here, with its staging path, before the
+            # first actor_of would build it with the default
+            h = system.dispatchers.lookup(did).handle(
+                system, native_staging=native)
+            block = system.actor_of(device_props(
+                slots_counter, n=ASK_ACTORS, dispatcher=did),
+                f"counters-{native}")
+            check(get_handle(system, did) is h,
+                  f"ask-{native}: actor_of used the built handle")
+            legs[native] = {"h": h, "refs": [block[i]
+                                             for i in range(ASK_ACTORS)],
+                            "block": block, "oracle": np.zeros(ASK_ACTORS),
+                            "seen": staged_probe(h.runtime), "tell": [],
+                            "ask": [], "rate": [], "steps": 0,
+                            "count": Launches(), "bad": []}
+
+        def ask_round(leg):
+            pick = rng.choice(ASK_ACTORS, ASK_CONC, replace=False)
+            vals = rng.integers(1, 100, ASK_CONC).astype(np.float64)
+            futs = []
+            for i, v in zip(pick, vals):
+                leg["oracle"][i] += v
+                t0 = time.perf_counter()
+                leg["refs"][i].tell((ADD, [v]))
+                t1 = time.perf_counter()
+                f = leg["refs"][i].ask((GET, [0.0]), timeout=ACTOR_TIMEOUT)
+                f.add_done_callback(lambda _f, t=t1: leg["ask"].append(
+                    time.perf_counter() - t))
+                leg["tell"].append(t1 - t0)
+                futs.append((i, f))
+            for i, f in futs:
+                got = f.result(ACTOR_TIMEOUT)
+                if got[0] != leg["oracle"][i]:
+                    leg["bad"].append((int(i), float(got[0])))
+
+        for _ in range(PAIRS):
+            for native, leg in legs.items():
+                def rounds(leg=leg):
+                    t0 = time.perf_counter()
+                    for _ in range(STAGE_ROUNDS):
+                        ask_round(leg)
+                    return time.perf_counter() - t0
+                wall, steps, count = handle_window(leg["h"], rounds)
+                leg["rate"].append(STAGE_ROUNDS * ASK_CONC / wall)
+                leg["steps"] += steps
+                for k, v in count.counts.items():
+                    leg["count"].counts[k] += v
+        for native, leg in legs.items():
+            name = f"actor_ask_{'native' if native else 'list'}"
+            h, rt = leg["h"], leg["h"].runtime
+            check(not leg["bad"], f"{name}: replies equal the oracle "
+                  f"({leg['bad'][:4]})")
+            check(np.array_equal(leg["block"].read_state("count"),
+                                 leg["oracle"].astype(np.float32)),
+                  f"{name}: every counter equals the oracle")
+            check(h.ask_pool_stats()["in_flight"] == 0,
+                  f"{name}: no ask left in flight")
+            staging_check(name, rt, native, leg["seen"])
+            print(f"{name} asks_per_s {leg['rate']} median "
+                  f"{float(np.median(leg['rate']))} tell "
+                  f"{json.dumps(pcts_us(leg['tell']))} ask "
+                  f"{json.dumps(pcts_us(leg['ask']))}")
+            leg["count"].report(name, "ring_slots", launches, leg["steps"])
+    finally:
+        system.terminate()
+        check(system.await_termination(ACTOR_TIMEOUT),
+              "staging_paths: the system terminated")
+    del system, legs
+    free()
+
+    rings = {}
+    told = [0, 5, 7]
+    for native in (True, False):
+        s = build_ring(N, static=False, device="cuda", native_staging=native)
+        seed_ring_full(s)
+        s.warmup()
+        rings[native] = {"s": s, "seen": staged_probe(s), "tell": [],
+                         "rate": [], "count": Launches(),
+                         "extra": np.zeros(N, np.int64)}
+    for _ in range(PAIRS):
+        for native, leg in rings.items():
+            s = leg["s"]
+
+            def rounds():
+                t0 = time.perf_counter()
+                for _ in range(TELL_ROUNDS):
+                    t1 = time.perf_counter()
+                    s.tell(told, [1.0, 0.0, 0.0, 0.0])
+                    leg["tell"].append(time.perf_counter() - t1)
+                    s.step()
+                    s.block_until_ready()
+                return time.perf_counter() - t0
+            wall = leg["count"](rounds)
+            leg["rate"].append(TELL_ROUNDS / wall)
+            leg["extra"][told] += TELL_ROUNDS
+    for native, leg in rings.items():
+        s, name = leg["s"], f"tell_step_{'native' if native else 'list'}"
+        steps = s._host_step
+        got = s.read_state("received").astype(np.int64)
+        check(np.array_equal(got, steps + leg["extra"]),
+              f"{name}: every actor one token a step, told rows one more "
+              f"a tell")
+        staging_check(name, s, native, leg["seen"])
+        print(f"{name} steps_per_s {leg['rate']} median "
+              f"{float(np.median(leg['rate']))} tell "
+              f"{json.dumps(pcts_us(leg['tell']))}")
+        leg["count"].report(name, "ring_reduce", launches,
+                            PAIRS * TELL_ROUNDS)
+    del rings
+    free()
+
+
 def path_dtype(label: str) -> str:
     """The payload dtype of a path's system, by the path's name."""
     for name in ("int32", "bf16"):
@@ -2133,10 +2535,18 @@ def main() -> int:
     durability_paths(launches)
     observed_paths(launches)
     actor = actor_paths(launches)
+    t0 = time.perf_counter()
+    router = baseline_paths(launches)
+    print(f"baseline_phase_s {time.perf_counter() - t0}")
+    for label, phase in (("pipeline", pipeline_paths),
+                         ("staging", staging_paths)):
+        t0 = time.perf_counter()
+        phase(launches)
+        print(f"{label}_phase_s {time.perf_counter() - t0}")
     # both kernels at the shapes the new paths gave them
     t0 = time.perf_counter()
     for label, flat in (("sharded_d8", sharded), ("region", region),
-                        ("gateway", gateway)):
+                        ("gateway", gateway), ("router", router)):
         for k, (inputs, n) in flat.items():
             rows.setdefault(label, {})[k] = kernel_rows(
                 label, inputs, n, lib, kernels=(k,))[k]
@@ -2145,7 +2555,7 @@ def main() -> int:
             else typed[path_dtype(label)]
         table.setdefault(label, {})[k] = kernel_rows(
             label, inputs, n, lib, kernels=(k,), slots=slots)[k]
-    del sharded, region, gateway, actor
+    del sharded, region, gateway, actor, router
     print(f"path_kernels_s {time.perf_counter() - t0}")
 
     entry = {"K1": ("ring_reduce", "_run(with_slots=False)"),

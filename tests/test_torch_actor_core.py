@@ -353,13 +353,10 @@ def test_scheduler_tell(system):
 
 # ------------------------------------------------- what the port refuses
 @pytest.mark.parametrize("config, item", [
-    ({"akka": {"scheduler": {"implementation": "native"}}}, "A4.6"),
-    ({"akka": {"actor": {"native-mailboxes": True}}}, "A4.6"),
     ({"akka": {"jax-distributed": {"enabled": True}}}, "A10"),
     ({"akka": {"actor": {"provider": "remote"}}}, "A12"),
     ({"akka": {"actor": {"provider": "cluster"}}}, "A12"),
-], ids=["native-scheduler", "native-mailboxes", "jax-distributed",
-        "remote", "cluster"])
+], ids=["jax-distributed", "remote", "cluster"])
 def test_unported_configurations_raise_naming_their_item(config, item):
     """Refused before the system builds anything: no thread starts."""
     before = _threads()

@@ -233,15 +233,39 @@ def drive(s):
     s.step()
 
 
+def both_systems(j_beh, t_beh, native, **kwargs):
+    """The reference's system and the port's, each staging host tells on
+    the same path: the Python list, or the native stager (the reference's
+    own build and the port's; the reference falls back to its list
+    silently, so the test checks that it did not)."""
+    ref = jb.BatchedSystem(capacity=64, behaviors=j_beh, payload_width=P,
+                           host_inbox=8, native_staging=native, **kwargs)
+    port = tb.BatchedSystem(capacity=64, behaviors=t_beh, payload_width=P,
+                            host_inbox=8, device="cpu",
+                            native_staging=native, **kwargs)
+    assert (ref._stager is not None) is native
+    assert port.native_staging is native
+    return ref, port
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_batched_system_matches_reference(case):
+    """Host tells staged in the Python list on both sides."""
+    _system_matches_reference(case, native=False)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_batched_system_on_the_stager_matches_reference(case):
+    """Host tells staged in the native stager on both sides (in reduce
+    mode neither writes the host rows' type column)."""
+    _system_matches_reference(case, native=True)
+
+
+def _system_matches_reference(case, native):
     j_beh, t_beh, spawns, kwargs = CASES[case]
-    ref = jb.BatchedSystem(capacity=64, behaviors=j_beh, payload_width=P,
-                           host_inbox=8, native_staging=False, **kwargs)
+    ref, port = both_systems(j_beh, t_beh, native, **kwargs)
     for b, k in spawns:
         ref.spawn_block(b, k)
-    port = tb.BatchedSystem(capacity=64, behaviors=t_beh, payload_width=P,
-                            host_inbox=8, device="cpu", **kwargs)
     load_numpy_carry(port, jax_carry(ref))
     assert_carries_match(jax_carry(ref), numpy_carry(port), f"{case} load")
 
@@ -278,13 +302,20 @@ def _same(ref, port, ctx):
 
 def test_host_fault_helpers_match_reference():
     """failed_rows / restart_rows / clear_failed / set_behavior and the
-    pipelined run's attention words, on the non-finite guard case."""
+    pipelined run's attention words, on the non-finite guard case, with
+    host tells in the Python list on both sides."""
+    _host_fault_helpers_match_reference(native=False)
+
+
+def test_host_fault_helpers_on_the_stager_match_reference():
+    """The same, with host tells in the native stager on both sides."""
+    _host_fault_helpers_match_reference(native=True)
+
+
+def _host_fault_helpers_match_reference(native):
     j_beh, t_beh, spawns, kwargs = CASES["guarded"]
-    ref = jb.BatchedSystem(capacity=64, behaviors=j_beh, payload_width=P,
-                           host_inbox=8, native_staging=False, **kwargs)
+    ref, port = both_systems(j_beh, t_beh, native, **kwargs)
     ref.spawn_block(0, 64)
-    port = tb.BatchedSystem(capacity=64, behaviors=t_beh, payload_width=P,
-                            host_inbox=8, device="cpu", **kwargs)
     load_numpy_carry(port, jax_carry(ref))
     for s in (ref, port):
         drive(s)

@@ -945,3 +945,129 @@ def test_rebuild_under_a_live_pump(card):
         assert float(h.read_state("seen", lrow)[0]) == 5.0
     finally:
         h.shutdown()
+
+
+# ----------------- BASELINE configs 4 and 1, CRDT banks, device pipelines
+@pytest.mark.parametrize("name", ["build_router", "build_router_api"])
+def test_router_step_graph_matches_eager(card, name):
+    """The router pool (producers routing through an index map, and
+    through BatchedRouter.route) as graph replays against its eager twin:
+    K1 once a step, hits bit-equal and closed-form."""
+    build = getattr(tbb, name)
+    g = build(n_producers=4096, n_routees=1000, device="cuda")
+    e = build(n_producers=4096, n_routees=1000, device="cuda")
+    e._eager = True
+    g.warmup()
+    cm.reset_launches()
+    g.run(12)
+    assert cm.LAUNCHES["ring_reduce"] == 12
+    e.run(12)
+    hits = g.read_state("hits")[:1000]
+    np.testing.assert_array_equal(hits, e.read_state("hits")[:1000])
+    assert int(hits.sum()) == 11 * 4096
+    assert int(hits.max() - hits.min()) <= 11
+
+
+def test_route_is_capturable_and_matches_eager(card):
+    from akka_tpu_torch.routing.batched import BatchedRouter
+    keys = torch.randint(-2**31, 2**31 - 1, (4096,), dtype=torch.int32,
+                         device=card)
+    step = torch.zeros((), dtype=torch.int32, device=card)
+    for logic in BatchedRouter.LOGICS:
+        r = BatchedRouter(logic, 7, 1000)
+        want = r.route(keys, step)
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            r.route(keys, step)  # warm
+            graph.capture_begin()
+            out = r.route(keys, step)
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), logic
+        np.testing.assert_array_equal(
+            out.cpu().numpy(),
+            r.route(keys.cpu(), step.cpu()).numpy())
+
+
+def test_ping_pong_on_the_card_for_both_staging_paths(card):
+    for native in (True, False):
+        s = tbb.build_ping_pong(device="cuda", native_staging=native)
+        s.tell(0, [1.0, 0, 0, 0])
+        s.run(10)
+        hits = s.read_state("hits")
+        assert hits[0] + hits[1] == 10 and s.native_staging is native
+
+
+def test_banks_on_cuda_tensors_match_the_cpu(card):
+    from akka_tpu_torch.ddata import tensor as tt
+    g = torch.Generator().manual_seed(2)
+    a = torch.randint(-2**31, 2**31 - 1, (64, 4), generator=g,
+                      dtype=torch.int32).view(torch.uint32)
+    b = torch.randint(-2**31, 2**31 - 1, (64, 4), generator=g,
+                      dtype=torch.int32).view(torch.uint32)
+    pn = torch.randint(-2**31, 2**31 - 1, (64, 2, 4), generator=g,
+                       dtype=torch.int32).view(torch.uint32)
+    keys = torch.tensor([1, 1, 5, 63, 1])
+    amounts = torch.tensor([-2**31, -2**31, 7, -1, 3], dtype=torch.int32)
+
+    def same(fn, *args):
+        got = fn(*(x.to(card) if isinstance(x, torch.Tensor) else x
+                   for x in args))
+        want = fn(*args)
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        assert torch.equal(got.cpu().view(torch.int32)
+                           if got.dtype == torch.uint32 else got.cpu(),
+                           want.view(torch.int32)
+                           if want.dtype == torch.uint32 else want)
+
+    same(tt.gcounter_merge, a, b)
+    same(tt.gcounter_value, a)
+    same(tt.pncounter_merge, pn, pn.flip(0))
+    same(tt.pncounter_value, pn)
+    same(tt.gcounter_increment, a, 2, keys, amounts)
+    same(tt.gset_merge, a.view(torch.int32) > 0, b.view(torch.int32) > 0)
+
+
+def _chain(device, eager=False):
+    from akka_tpu_torch.stream import DevicePipeline
+    p = (DevicePipeline(device=device).map(lambda x: x * 3.0 - 1.0)
+         .filter(lambda x: x > 0.5).map(lambda x: x * 0.5)
+         .scan(lambda c, x: ((c[0] + (x != 0).sum(),
+                              torch.maximum(c[1], x.max())),
+                             x + c[0].to(torch.float32)),
+               (torch.tensor(0, dtype=torch.int32), torch.tensor(0.0))))
+    if eager:
+        p._eager = True  # the eager twin of a chain on the card
+    return p
+
+
+def test_device_pipeline_replay_matches_eager(card):
+    chunks = torch.randn((6, 4096), generator=torch.Generator(
+        device="cuda").manual_seed(1), device=card)
+    g, e, c = _chain(card), _chain(card, eager=True), _chain("cpu")
+    for path in ("stacked", "iterable"):
+        arg = chunks if path == "stacked" else list(chunks)
+        (go, gm, gc), (eo, em, ec) = g.run(arg), e.run(arg)
+        assert torch.equal(go, eo) and torch.equal(gm, em), path
+        assert torch.equal(gc[0], ec[0]) and torch.equal(gc[1], ec[1])
+        co, cmask, cc = c.run(chunks.cpu())
+        assert torch.equal(gm.cpu(), cmask) and int(gc[0]) == int(cc[0])
+    assert g.compile().captures == 1  # one shape, one capture
+    with pytest.raises(ValueError, match="chunk 1"):  # not broadcast
+        g.run([chunks[0], chunks[1, :1]])
+
+
+def test_device_pipeline_that_syncs_cannot_be_captured(card):
+    from akka_tpu_torch.batched.graphs import GraphCaptureError
+    from akka_tpu_torch.stream import DevicePipeline
+
+    def host_read(x):
+        return x * float(x.sum().item())
+
+    p = DevicePipeline(device=card).map(lambda x: x + 1).map(host_read)
+    with pytest.raises(GraphCaptureError, match="op 1 .map host_read"):
+        p.run(torch.ones((2, 8), device=card))

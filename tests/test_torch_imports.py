@@ -89,7 +89,18 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "akka_tpu_torch.remote.failure_detector",
                  "akka_tpu_torch.testkit.probe",
                  "akka_tpu_torch.batched.sentinel",
-                 "akka_tpu_torch.batched.bridge"):
+                 "akka_tpu_torch.batched.bridge",
+                 # the one-card device tier and the native substrate
+                 "akka_tpu_torch.routing.batched",
+                 "akka_tpu_torch.ddata",
+                 "akka_tpu_torch.ddata.tensor",
+                 "akka_tpu_torch.stream",
+                 "akka_tpu_torch.stream.device",
+                 "akka_tpu_torch.utils.u32",
+                 "akka_tpu_torch.native",
+                 "akka_tpu_torch.native.lib",
+                 "akka_tpu_torch.native.queues",
+                 "akka_tpu_torch.native.integration"):
         assert name in MODULES, name
 
 
@@ -220,3 +231,176 @@ def test_package_exports_what_the_reference_package_exports():
     for n in ("BatchedBehavior", "BatchedSystem", "Ctx", "Emit", "Inbox",
               "Mailbox", "behavior"):
         assert hasattr(akka_tpu_torch, n), n
+
+
+# ------------------------------- public names of ported modules (C2)
+
+# Reference modules the port has no file for yet, by the item that ports
+# them: a name a reference __init__ imports from one of them is excepted.
+UNPORTED_MODULES = {
+    "batched/autoscale.py": "A10",
+    **{f"persistence/{m}.py": "A12.1" for m in (
+        "eventsourced", "typed", "snapshot", "query", "adapter",
+        "at_least_once", "messages", "persistence", "testkit")},
+    "serialization/versioned.py": "A12.1",
+    **{f"ddata/{m}.py": "A12.3" for m in (
+        "crdt", "version_vector", "durable", "replicator")},
+    **{f"sharding/{m}.py": "A12.4" for m in (
+        "region", "coordinator", "messages", "sharding", "typed",
+        "daemon_process")},
+    **{f"testkit/{m}.py": "A12.4" for m in (
+        "behavior_testkit", "dilation", "event_filter", "manual_time",
+        "multi_node", "multi_process", "sharding")},
+    **{f"stream/{m}.py": "A12.5" for m in (
+        "stage", "interpreter", "dsl", "ops", "killswitch", "hub",
+        "framing", "retry", "streamref", "attributes", "context",
+        "restart")},
+}
+
+# Public names of ported reference files that the port's file lacks, by
+# the item that ports them.
+UNPORTED_NAMES = {
+    ("batched/bridge.py", "I32"): "for good: a jnp dtype",
+    ("batched/bridge.py", "F32"): "for good: a jnp dtype",
+    ("batched/sentinel.py", "MeshSentinel"): "A10",
+    **{("pattern/backoff.py", n): "A12.1" for n in (
+        "BackoffSupervisor", "CurrentChild", "GetCurrentChild",
+        "GetRestartCount", "RestartCount", "graceful_stop", "retry")},
+    **{("persistence/journal.py", n): "A12.1" for n in (
+        "FileJournal", "InMemJournal", "JournalActor", "JournalPlugin",
+        "SharedInMemStore")},
+}
+
+
+def _public_surface(path: Path):
+    """(names, {class: methods}, {name: source module}) a module binds at
+    its top level, read by AST: definitions, assignments, __all__ and, in
+    a package's __init__, its relative imports (its exports) with the
+    module each comes from."""
+    tree = ast.parse(path.read_text())
+    names, classes, sources = set(), {}, {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.ClassDef):
+            names.add(node.name)
+            classes[node.name] = {
+                n.name for n in node.body
+                if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))
+                and not n.name.startswith("_")}
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                for e in (t.elts if isinstance(t, ast.Tuple) else [t]):
+                    if isinstance(e, ast.Name) and e.id != "__all__":
+                        names.add(e.id)
+                if isinstance(t, ast.Name) and t.id == "__all__":
+                    names |= set(ast.literal_eval(node.value))
+        elif isinstance(node, ast.AnnAssign) and \
+                isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif isinstance(node, ast.ImportFrom) and node.level >= 1 and \
+                path.name == "__init__.py":
+            for a in node.names:
+                name = a.asname or a.name
+                names.add(name)
+                sources[name] = node.module
+    return ({n for n in names if not n.startswith("_")}, classes, sources)
+
+
+def _port_binds(path: Path) -> set:
+    """Every top-level name the port's file binds, imports included."""
+    names, _, _ = _public_surface(path)
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return names
+
+
+PORTED_FILES = sorted(
+    str(p.relative_to(ROOT / "akka_tpu"))
+    for p in (ROOT / "akka_tpu").rglob("*.py")
+    if (PKG / p.relative_to(ROOT / "akka_tpu")).exists())
+
+
+def _excepted(rel: str, name: str, source) -> bool:
+    if (rel, name) in UNPORTED_NAMES:
+        return True
+    if source is None:
+        return False
+    pkg = os.path.dirname(rel)
+    mod = f"{pkg}/{source.replace('.', '/')}.py" if pkg else \
+        f"{source.replace('.', '/')}.py"
+    return mod in UNPORTED_MODULES or (mod, name) in UNPORTED_NAMES
+
+
+@pytest.mark.parametrize("rel", PORTED_FILES)
+def test_ported_file_has_the_references_public_names(rel):
+    """For every reference module with a file in the port: each public
+    top-level name of the reference's file, and each public method of its
+    classes, is in the port's file, except the names the lists above
+    give to a later item."""
+    ref_names, ref_classes, sources = _public_surface(ROOT / "akka_tpu" / rel)
+    port_path = PKG / rel
+    have = _port_binds(port_path)
+    _, port_classes, _ = _public_surface(port_path)
+    missing = sorted(n for n in ref_names - have
+                     if not _excepted(rel, n, sources.get(n)))
+    assert not missing, f"akka_tpu_torch/{rel} lacks {missing}"
+    for cls, methods in ref_classes.items():
+        if cls.startswith("_") or _excepted(rel, cls, None):
+            continue
+        if cls not in port_classes:
+            continue  # a name imported from elsewhere: checked there
+        lacking = sorted(methods - port_classes[cls])
+        assert not lacking, f"akka_tpu_torch/{rel} {cls} lacks {lacking}"
+
+
+def test_exception_lists_name_only_later_items():
+    """The exceptions belong to A10 and A12, and the jnp dtypes; they
+    name no module the port has a file for, and no name the port has."""
+    labels = set(UNPORTED_MODULES.values()) | set(UNPORTED_NAMES.values())
+    assert labels <= {"A10", "A12.1", "A12.3", "A12.4", "A12.5",
+                      "for good: a jnp dtype"}, labels
+    for mod in UNPORTED_MODULES:
+        assert (ROOT / "akka_tpu" / mod).exists(), mod
+        assert not (PKG / mod).exists(), f"{mod} is ported: drop it"
+    for rel, name in UNPORTED_NAMES:
+        assert name not in _port_binds(PKG / rel), f"{rel} {name} ported"
+    assert "models/baseline_benches.py" not in {r for r, _ in UNPORTED_NAMES}
+    assert "batched/metrics_slab.py" not in {r for r, _ in UNPORTED_NAMES}
+    for rel in ("routing/batched.py", "ddata/tensor.py", "stream/device.py",
+                "native/lib.py", "native/queues.py",
+                "native/integration.py", "batched/metrics_slab.py",
+                "models/baseline_benches.py"):
+        assert rel in PORTED_FILES, rel
+
+
+def test_metrics_slab_host_helpers_match_the_reference():
+    """The four names of ROADMAP C2's first item, bit-identical to the
+    reference on the same numpy inputs (tests/test_metrics.py:31-79)."""
+    import numpy as np
+
+    from akka_tpu.batched import metrics_slab as jm
+    from akka_tpu_torch.batched import metrics_slab as tm
+    rng = np.random.default_rng(9)
+    v = np.concatenate([np.array([-5, 0, 1, 2, 3, 4, 7, 8, 2**14 - 1,
+                                  2**14, 2**20, 2**31 - 1]),
+                        rng.integers(-10, 1 << 16, 52)])
+    got = tm.bucket_of_np(v)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, jm.bucket_of_np(v))
+    mask = rng.random(v.shape[0]) < 0.6
+    got = tm.masked_hist_np(v, mask)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, jm.masked_hist_np(v, mask))
+    slab = rng.integers(0, 1000, (3, tm.N_HIST, tm.N_BUCKETS)) \
+        .astype(np.int32)
+    for s in (slab, slab[0]):
+        want = jm.slab_totals(s)
+        got = tm.slab_totals(s)
+        assert got.dtype == want.dtype == np.int64
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(tm.slab_totals(
+            __import__("torch").from_numpy(s)), want)
+    assert [tm.bucket_label(i) for i in range(tm.N_BUCKETS)] == \
+        [jm.bucket_label(i) for i in range(jm.N_BUCKETS)]

@@ -378,13 +378,27 @@ def _drive(s):
 
 @pytest.mark.parametrize("case", sorted(SYSTEMS))
 def test_wide_systems_match_reference(case):
+    """Host tells staged in the Python list on both sides."""
+    _wide_system_matches_reference(case, native=False)
+
+
+@pytest.mark.parametrize("case", sorted(SYSTEMS))
+def test_wide_systems_on_the_stager_match_reference(case):
+    """Host tells staged in the native stager on both sides."""
+    _wide_system_matches_reference(case, native=True)
+
+
+def _wide_system_matches_reference(case, native):
     j_beh, t_beh, kwargs = SYSTEMS[case]
     ref = jb.BatchedSystem(capacity=64, behaviors=j_beh, payload_width=P,
-                           host_inbox=8, native_staging=False,
+                           host_inbox=8, native_staging=native,
                            delivery_backend="reference", **kwargs)
     port = tb.BatchedSystem(capacity=64, behaviors=t_beh, payload_width=P,
                             host_inbox=8, device="cpu",
+                            native_staging=native,
                             delivery_backend="ranked", **kwargs)
+    assert (ref._stager is not None) is native
+    assert port.native_staging is native
     for s in (ref, port):
         s.spawn_block(0, 64)
     load_numpy_carry(port, jax_carry(ref))
