@@ -6,7 +6,7 @@ reference falls back silently, the port refuses: the `tpu-batched`
 dispatcher type is registered unconditionally, and the configurations
 whose modules the port lacks raise `ValueError` naming the ROADMAP item
 that ports them, before anything is built (`_refuse_unported`):
-`akka.jax-distributed` (A10) and a remote or cluster provider (A12). The
+`akka.jax-distributed` (A10.2) and a remote or cluster provider (A12). The
 defaults reach none of them. The native scheduler
 (`akka.scheduler.implementation = native`) and the native mailboxes
 (`akka.actor.native-mailboxes`) build the native library (native/) and
@@ -47,7 +47,7 @@ def _refuse_unported(cfg: Config, provider_kind: str) -> None:
     if cfg.get_bool("akka.jax-distributed.enabled", False):
         raise ValueError(
             "akka.jax-distributed.enabled: multi-process meshes are not "
-            "ported (ROADMAP A10)")
+            "ported (ROADMAP A10.2: ranks over torch.distributed)")
     if provider_kind in ("remote", "cluster"):
         raise ValueError(
             f"akka.actor.provider = {provider_kind}: the remote and "

@@ -277,7 +277,8 @@ class BatchedRuntimeHandle:
         # word's progress lane to a phi-accrual detector, so a hung device
         # surfaces as a device_suspected flight-recorder event.
         # max_failovers and depth_recovery_rounds are carried in stats for
-        # parity with the sharded runtime's sentinel (ROADMAP A10).
+        # parity with MeshSentinel; the handle fails over nothing, so they
+        # stay inert, as in the reference.
         self.sentinel_max_failovers = int(sentinel_max_failovers)
         self.sentinel_depth_recovery_rounds = int(
             sentinel_depth_recovery_rounds)

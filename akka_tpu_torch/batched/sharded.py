@@ -54,8 +54,12 @@ the live tensors and re-shard one taken at another shard count (or in the
 hand-off window's wider inbox) through `_restore_resharded`; both
 re-arm the metrics epoch (the slab's running sum, a carried int32 scalar
 every step writes in place) from the restored slab, so
-`drain_metrics()` hands the restored slab over once. Not ported yet: a
-mesh of several cards (`mesh=`, ROADMAP A10).
+`drain_metrics()` hands the restored slab over once.
+
+`mesh=` takes a mesh of shard slots on one card (parallel/mesh.py): the
+shard count is its size. Failover and re-sharding (batched/sentinel.py,
+the region's `failover`) rebuild a system on fewer or more slots of the
+same card. A mesh of several cards or ranks is ROADMAP A10.2.
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ import torch
 
 from ..event.flight_recorder import trace_span
 from ..ops.segment import exchange_uses_ranked, stable_ranks
+from ..parallel.mesh import make_mesh, mesh_of
 from ..utils.device import resolve_device
 from . import graphs
 from .behavior import BatchedBehavior
@@ -89,6 +94,26 @@ CARRY = ("behavior_id", "alive", "step_count", "dropped", "mail_dropped",
          "sup_counts", "metrics", "metrics_epoch", "attention", *INBOX_FILL)
 
 
+def _one_card_mesh(mesh, axis_name: str, n_devices, device):
+    """The shard count and card of a system built on `mesh`: a 1-D mesh
+    over `axis_name` on one card (NotImplementedError naming A10.2
+    otherwise); `n_devices` and `device`, if given, must agree with it."""
+    if tuple(mesh.axis_names) != (axis_name,):
+        raise ValueError(f"the system shards over a 1-D mesh with axis "
+                         f"{axis_name!r}, got axes {mesh.axis_names}")
+    card = mesh.device
+    d = mesh.shape[axis_name]
+    if n_devices is not None and int(n_devices) != d:
+        raise ValueError(f"n_devices={n_devices} but the mesh has {d} "
+                         f"slots")
+    if device is not None:
+        asked = torch.device(device)
+        if asked.type != card.type or (asked.index is not None
+                                       and asked.index != card.index):
+            raise ValueError(f"device={asked} but the mesh lies on {card}")
+    return d, card
+
+
 class ShardedBatchedSystem:
     """Batched actor space over `n_devices` shards on one card.
 
@@ -101,9 +126,12 @@ class ShardedBatchedSystem:
     reroute_strays allows the hand-off step (`enter_stray_mode`), which
     forwards inbox rows addressed outside their shard one more hop.
     n_devices keeps the reference's name: here it is the shard count on
-    one card (default 1). device defaults to CUDA and raises without a
-    card unless device="cpu" is passed; mesh must be None. On a card every
-    step is a replay of the step's CUDA graph.
+    one card (default 1, or the mesh's size). mesh is a one-card mesh of
+    shard slots (parallel/mesh.py) or a placement on one; a mesh over
+    several cards raises NotImplementedError (ROADMAP A10.2). device
+    defaults to the mesh's card, else CUDA, and raises without a card
+    unless device="cpu" is passed. On a card every step is a replay of
+    the step's CUDA graph.
     """
 
     def __init__(self, capacity: int, behaviors: Sequence[BatchedBehavior],
@@ -119,16 +147,17 @@ class ShardedBatchedSystem:
                  attention_latch_col: Optional[str] = None,
                  metrics_enabled: bool = False, device=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "a mesh of several cards is not ported yet (ROADMAP A10); "
-                "pass n_devices for shards on one card")
+            mesh = mesh_of(mesh)
+            n_devices, device = _one_card_mesh(mesh, axis_name, n_devices,
+                                               device)
         self.device = dev = resolve_device(device)
         exchange_uses_ranked(dev.type, delivery_backend)  # validates it
-        self.mesh = None
         self.axis = axis_name
         self.n_shards = d = int(n_devices) if n_devices is not None else 1
         if d < 1:
             raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+        self.mesh = mesh if mesh is not None else \
+            make_mesh(d, axis_name, device=dev)
         if capacity % d != 0:
             capacity += d - capacity % d
         self.capacity = n = int(capacity)

@@ -17,14 +17,19 @@ computes on int64 values in [0, 2^32) (utils/u32.py) and returns the
 reference's dtype: uint32 banks and values wrap modulo 2^32 as the
 reference's uint32 ops do. Every function runs on the banks' device.
 
-Converging replicas across devices (`converge_over_mesh`,
-`replicate_bank`) takes a process group and lands with ROADMAP A10.
+Replicas of a bank over a mesh (`replicate_bank`, `converge_over_mesh`)
+are the leading axis of one tensor on the mesh's card: one replica per
+slot of the mesh's replica axis (parallel/mesh.py), and converging them
+is one `amax` over that axis (`any` for boolean banks), broadcast back.
+A mesh over several cards or ranks raises NotImplementedError: that
+all-reduce is ROADMAP A10.2.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import mesh_of
 from ..utils.u32 import MASK32, to_int32, to_uint32, u32
 
 
@@ -76,19 +81,42 @@ def gcounter_increment(bank: torch.Tensor, node_slot: int,
     return to_uint32(out & MASK32)
 
 
+def _replicas(mesh, axis: str):
+    """The replica count and card of a one-card mesh (or placement)."""
+    m = mesh_of(mesh)
+    if axis not in m.shape:
+        raise ValueError(f"the mesh has no axis {axis!r} ({m.axis_names})")
+    return m.shape[axis], m.device
+
+
 def converge_over_mesh(bank: torch.Tensor, mesh, axis: str = "replica",
                        op: str = "max") -> torch.Tensor:
-    """All-replica merge of a replicated bank over a mesh axis: one
-    all-reduce over the replicas. Needs more than one device: not ported
-    yet (ROADMAP A10)."""
-    raise NotImplementedError(
-        "converge_over_mesh needs a device mesh, which lands with "
-        "ROADMAP A10")
+    """All-replica merge of a replicated bank: `bank` holds one replica
+    per slot of the mesh's `axis` along its leading axis (as
+    `replicate_bank` lays it out). Every replica becomes the join of all
+    of them: the max over the replica axis ("or" for boolean banks),
+    broadcast back. Returns a new bank of `bank`'s shape and dtype."""
+    n, _card = _replicas(mesh, axis)
+    if bank.shape[0] != n:
+        raise ValueError(f"bank has {bank.shape[0]} replicas, the mesh's "
+                         f"{axis!r} axis {n}")
+    if op == "or":
+        merged = bank.to(torch.bool).any(dim=0)
+    elif op == "max":
+        if bank.dtype == torch.uint32:
+            merged = to_uint32(u32(bank).amax(dim=0))
+        else:
+            merged = bank.amax(dim=0)
+    else:
+        raise ValueError(f"unknown merge op {op!r} (max, or)")
+    return merged.unsqueeze(0).expand_as(bank).clone()
 
 
 def replicate_bank(bank: torch.Tensor, mesh,
                    axis: str = "replica") -> torch.Tensor:
-    """Stack one replica of `bank` per device along `axis`. Needs more
-    than one device: not ported yet (ROADMAP A10)."""
-    raise NotImplementedError(
-        "replicate_bank needs a device mesh, which lands with ROADMAP A10")
+    """Stack one replica of `bank` per slot of the mesh's `axis` along a
+    new leading axis, on the mesh's card (a test and bootstrap helper:
+    real deployments start each node with its own local bank)."""
+    n, card = _replicas(mesh, axis)
+    return bank.to(card).unsqueeze(0).expand((n,) + tuple(bank.shape)) \
+        .clone()

@@ -95,7 +95,7 @@ class TpuBatchedDispatcher(Dispatcher):
                         "sentinel_acceptable_pause",
                         "sentinel-acceptable-pause", c.get_duration, "3s"),
                     # sentinel-max-failovers and -depth-recovery-rounds act
-                    # only in the failover sentinel (ROADMAP A10): unread
+                    # only in MeshSentinel, not in a handle: unread
                     # telemetry plane: the system-level akka.metrics.enabled
                     # switch (or an explicit override) compiles the device
                     # metric slab in; the system-owned registry is shared

@@ -9,8 +9,8 @@ for it (ROADMAP A12), while in-proc use (`handle_frame`,
 admin op `checkpoint` snapshots the region (it needs the region's
 `attach_journal`), and a region restored before the gateway comes up
 rehydrates the dedup table and the replica cache from its entity
-journal; `failover` replies `admin_fault:` while failover is not ported
-(ROADMAP A10).
+journal; `failover` rebuilds the region on the first `value` shard slots
+of its mesh (`DeviceShardRegion.failover`).
 `counter_behavior` is written over the batch in torch.
 
 Wire protocol — `simpleFramingProtocol` (stream/framing.py): every frame
@@ -1346,10 +1346,8 @@ class GatewayServer:
             if op == "failover":
                 n = int(req.get("value", 1))
                 region = self.backend.region
-                # survivors as card indices; the port's region raises
-                # NotImplementedError naming ROADMAP A10 (one card), so
-                # this replies admin_fault until failover is ported
-                step = region.failover(list(range(n)))
+                # the survivors: the first n shard slots of the mesh
+                step = region.failover(list(region.system.mesh.slots[:n]))
                 replayed = getattr(region, "_durable_replayed_totals",
                                    None)
                 if self.replica_cache is not None and replayed is not None:

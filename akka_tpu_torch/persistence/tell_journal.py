@@ -115,11 +115,18 @@ class TellJournal:
     def compact(self, before_step: int) -> int:
         """Drop records with step < before_step (covered by a snapshot at
         that step). Rewrites atomically: tmp + fsync + replace, then
-        reopens the append handle. Returns the records kept."""
-        kept = [rec for rec in self.records()
-                if int(rec["step"]) >= int(before_step)]
+        reopens the append handle. Returns the records kept. The read and
+        the rewrite hold the append lock together, so an append from
+        another thread (the sentinel compacts on its snapshot writer
+        while tells go on) lands before the read or after the reopen,
+        never in between, where the replace would lose it (the
+        reference reads before it takes the lock)."""
         tmp = self.path + ".tmp"
         with self._lock:
+            if self._fh is not None:
+                self._fh.flush()
+            kept = [obj for _end, obj in scan_record_log(self.path)
+                    if int(obj["step"]) >= int(before_step)]
             with open(tmp, "wb") as f:
                 for rec in kept:
                     blob = pickle.dumps(rec, protocol=4)

@@ -31,8 +31,10 @@ Observability is the reference's: `attach_tracer` wires a causal tracer
 then stamped on this region's step axis; the journals take the system's
 flight recorder and, for the entity journal, a metrics registry.
 
-Not ported yet: `failover` (more than one card, ROADMAP A10: it raises
-NotImplementedError naming its item).
+A region's "devices" are shard slots of one card (parallel/mesh.py):
+`n_devices` is the shard count of the system's axis, `mesh=` may give the
+slots, and `failover(survivors)` rebuilds the region on a subset of them
+from the latest snapshot and the WAL, as the reference's does.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from ..batched import Emit, behavior
 from ..batched.behavior import BatchedBehavior
 from ..batched.bridge import read_promise_block
 from ..batched.sharded import ShardedBatchedSystem
+from ..parallel.mesh import make_mesh, mesh_of
 
 
 @dataclass
@@ -118,12 +121,16 @@ class DeviceShardRegion:
     """Owns the ShardedBatchedSystem and the logical -> physical placement.
 
     device defaults to CUDA and raises without a card unless device="cpu"
-    is passed; mesh must be None (one card)."""
+    is passed. mesh: a one-card mesh of shard slots (parallel/mesh.py);
+    `spec.n_devices` defaults to its size (else to 1). A mesh over several
+    cards raises NotImplementedError (ROADMAP A10.2)."""
 
     def __init__(self, spec: DeviceEntity, mesh=None, device=None):
         self.type_name = spec.type_name
         self.spec = spec
-        n_devices = spec.n_devices or 1
+        if mesh is not None:
+            mesh = mesh_of(mesh)
+        n_devices = spec.n_devices or (mesh.size if mesh is not None else 1)
         spare = spec.spare_blocks if spec.spare_blocks is not None \
             else n_devices
         # pad spares so every shard of the axis hosts the same number of
@@ -768,11 +775,65 @@ class DeviceShardRegion:
             self._spawned = np.asarray(doc["spawned"], np.int32)
 
     def failover(self, survivors: Sequence[Any]) -> int:
-        """Not ported yet: rebuilding the region on surviving cards is
-        ROADMAP A10."""
-        raise NotImplementedError(
-            "DeviceShardRegion.failover is not ported yet (ROADMAP A10: "
-            "more than one device)")
+        """Evict lost shard slots and rebuild the region on the survivors
+        (slots of the region's mesh, `system.mesh.slots`) from the latest
+        snapshot and the WAL, the sentinel's force-evict recipe applied
+        to the region. The placement table is in row space, so shard
+        homes, entity rows and the promise block all survive; only
+        blocks_per_device changes. total_blocks must divide by the
+        survivor count. The tell journal is re-armed after the replay,
+        and the entity journal's fold overwrites the durable column.
+        Returns the recovered step."""
+        with self._ask_lock:
+            return self._failover_locked(survivors)
+
+    def _failover_locked(self, survivors: Sequence[Any]) -> int:
+        from ..persistence.slab_snapshot import latest_slab_path
+        if self.checkpoint_dir is None:
+            raise RuntimeError("attach_journal(directory) before failover")
+        n_surv = len(survivors)
+        if n_surv < 1 or self.total_blocks % n_surv:
+            raise RuntimeError(
+                f"cannot re-stripe {self.total_blocks} blocks over "
+                f"{n_surv} survivors")
+        path = latest_slab_path(self.checkpoint_dir)
+        if path is None:
+            raise FileNotFoundError(
+                f"no slab snapshot under {self.checkpoint_dir}")
+        old = self.system
+        old_journal = self._journal
+        spec = self.spec
+        mesh = make_mesh(devices=list(survivors), axis_name=old.axis)
+        new = ShardedBatchedSystem(
+            capacity=old.capacity,
+            behaviors=[spec.behavior, *spec.extra_behaviors,
+                       self._promise_behavior(spec)],
+            mesh=mesh, n_devices=n_surv,
+            payload_width=spec.payload_width, out_degree=spec.out_degree,
+            host_inbox_per_shard=spec.host_inbox_per_shard,
+            mailbox_slots=spec.mailbox_slots,
+            spill_capacity=spec.spill_capacity,
+            reroute_strays=True,
+            delivery_backend=spec.delivery_backend,
+            attention_latch_col="__promise_replied",
+            metrics_enabled=spec.metrics_enabled)
+        new.flight_recorder = old.flight_recorder
+        # the old system's graphs and their pool go now, before the new
+        # step is captured (the region's lock keeps every caller out)
+        old._graphs.clear()
+        self.n_devices = n_surv
+        self.blocks_per_device = self.total_blocks // n_surv
+        self._stray_steps_left = 0
+        self.system = new
+        del old  # its tensors go before the restore allocates
+        self._sync_tables()  # before replay: behaviors read shard_row_base
+        step = self._restore_and_replay(path)
+        new.tell_journal = old_journal  # re-arm AFTER replay (no re-journal)
+        # durable entity layer: the in-process journal's fold is current,
+        # so the survivors get the same acked-frontier overwrite a fresh
+        # process's restore gets (asks in flight just failed)
+        self._replay_entities()
+        return step
 
     # ----------------------------------------------------------------- stats
     def stats(self) -> Dict[str, Any]:

@@ -23,13 +23,11 @@ Three subcommands compose into a small multi-process serving stack:
   demo   -- the orchestrator: spawns a durable serve child and two load
             children, then over the wire: rebalances a shard, SIGKILLs
             the server and restarts it with `--restore` on the same port
-            and directory, and checks the conserved-value invariant
+            and directory, fails the region over from 2 shard slots to 1
+            (the `failover` admin op), and checks the conserved-value
+            invariant
 
                 acked_sum <= final_total <= sent_sum
-
-            The reference's device failover leg is not run (failover is
-            ROADMAP A10): the demo checks that the admin op answers with
-            its typed `admin_fault:` error.
 
 Run it:   python -m akka_tpu_torch.tools.serving_gateway demo
           python -m akka_tpu_torch.tools.serving_gateway demo --device cpu
@@ -213,18 +211,6 @@ def _wait_ready(proc: subprocess.Popen, secs: float = 120.0,
             return int(line.split()[1])
 
 
-def _expect_typed_fault(admin, op: str, item: str) -> None:
-    """The admin op must answer with its typed error naming `item`."""
-    rep = admin.request_retry("__admin", "", op, 1.0, deadline_s=60.0)
-    print(f"  -> {op}: {rep}")
-    reason = str(rep.get("reason", ""))
-    if rep.get("status") != "error" or \
-            not reason.startswith("admin_fault:NotImplementedError") or \
-            item not in reason:
-        raise RuntimeError(f"{op}: expected a typed admin_fault naming "
-                           f"{item}, got {rep}")
-
-
 def _wait_sum_above(admin, floor: float, secs: float = 60.0) -> float:
     """Poll the admin `sum` until it exceeds `floor` (traffic is landing);
     returns it. Raises after `secs`."""
@@ -281,8 +267,8 @@ def cmd_demo(args: argparse.Namespace) -> int:
     from akka_tpu_torch.gateway import GatewayClient
 
     directory = args.dir or tempfile.mkdtemp(prefix="gateway_demo_")
-    extra = ["--shards", "4", "--eps", "16", "--rate", "400",
-             "--burst", "200"]
+    extra = ["--shards", "4", "--eps", "16", "--devices", "2", "--rate",
+             "400", "--burst", "200"]
     serve = _child(serve_argv(args.device, directory, extra=extra))
     loads = []
     admin = None
@@ -314,9 +300,13 @@ def cmd_demo(args: argparse.Namespace) -> int:
         print(f"[demo] SIGKILL to READY {secs:.2f} s")
         rep = admin.request_retry("__admin", "", "durable", deadline_s=60.0)
         print("  -> durable:", rep)
-        print("[demo] chaos leg 3 (device failover) waits for ROADMAP A10: "
-              "failover is not ported")
-        _expect_typed_fault(admin, "failover", "ROADMAP A10")
+        print("[demo] chaos leg 3: device failover (2 -> 1 shard slot)")
+        rep = admin.request_retry("__admin", "", "failover", 1.0,
+                                  deadline_s=60.0)
+        print("  ->", rep)
+        if rep.get("status") != "ok":
+            raise RuntimeError(f"failover failed: {rep}")
+        print(f"[demo] FAILOVER ok step={int(rep['value'])}")
 
         results = []
         for p in loads:

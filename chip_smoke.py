@@ -201,6 +201,28 @@ phase's systems, and their graph pools, are freed before the next.
    tells, step() and a sync a leg); each prints tell p50/p99 and asks/s
    (steps/s), holds its oracle, must have staged through its buffer (it
    held tells before a flush) and dropped nothing; K2 (K1) once a step.
+14. Failover and the elastic mesh over shard slots of the card
+   (failover_paths). sentinel_failover: a MeshSentinel of 1,048,560 rows
+   (256 promise rows, 4096 echo rows, a ring over the rest seeded with a
+   token on every row: K1 delivers ~1M messages a step) on 4 slots,
+   snapshots every 8 steps and the WAL, under a DeviceLossInjector (seed
+   7, loss rate 0.01: slot 3 lost at step 42) fails over to 3 slots on
+   its own; at step 56 it must equal an uninterrupted twin (integers
+   bit-equal, sums within rtol/atol); it prints MTTR, the rebuild's load,
+   restore, replay and capture ms, and bench.py's manual-restore baseline
+   with mttr_over_restore. sentinel_reshard: the same sentinel walks
+   scale_to 3 -> 2 -> 4 -> 8 -> 4 slots with 256 asks in flight across
+   each transition (every reply twice its value), the ring's tokens
+   conserved, each pause_s printed, and the memory allocated at the last
+   4-slot mesh no more than at the first (old graphs and pools gone).
+   autoscale: a 2-slot sentinel whose 1000 collectors' bounded 2-slot
+   mailboxes (K2) overflow every step; an attached MeshAutoscaler widens
+   it to 4 slots on mailbox_overflow and prints its decision.
+   region_failover(_slots): region_serve's region on 2 slots with both
+   journals: 16 ask waves, a checkpoint, 8 waves, failover to 1 slot, 16
+   waves; every reply and total equals the host oracle (K1; K2 with 2
+   bounded slots). Each leg's launches are counted, and each kernel is
+   held to its plain version on the leg's fullest inbox.
 
 Any failure raises and the exit code is non-zero. The last lines are the
 kernel report (JSON, one row per kernel and payload dtype; `ms` and the
@@ -758,16 +780,16 @@ def sharded_paths(launches: dict) -> dict:
     return flat
 
 
-def make_trace(seed: int = 0):
-    """One warm wave, WAVES timed waves and one profiled wave of
-    WAVE_ASKS adds: 7/8 distinct entities of a 4096-name pool, the rest
-    repeats of entities already in the wave; values are integers
-    1..9."""
+def make_trace(seed: int = 0, n_waves: int = WAVES + 2):
+    """`n_waves` waves of WAVE_ASKS adds (by default one warm wave, WAVES
+    timed waves and one profiled wave): 7/8 distinct entities of a
+    4096-name pool, the rest repeats of entities already in the wave;
+    values are integers 1..9."""
     rng = np.random.default_rng(seed)
     pool = [f"entity-{i}" for i in range(4096)]
     waves = []
     distinct = WAVE_ASKS - WAVE_ASKS // 8
-    for _ in range(WAVES + 2):
+    for _ in range(n_waves):
         names = list(rng.choice(pool, distinct, replace=False))
         names += list(rng.choice(names, WAVE_ASKS - distinct))
         order = rng.permutation(WAVE_ASKS)
@@ -2502,6 +2524,419 @@ def staging_paths(launches: dict) -> None:
     free()
 
 
+# ---------------------------------------------------------- failover paths
+FO_CAP = 1_048_560          # the largest multiple of 24 <= 2^20: divides
+                            # 1, 2, 3, 4 and 8 shards
+FO_SLOTS = 4                # sentinel_failover's starting mesh
+FO_SEED, FO_RATE = 7, 0.01  # DeviceLossInjector: shard 3 lost at step 42
+FO_HORIZON = 56             # steps of the failover leg
+FO_DT = 0.1                 # manual detection clock seconds per step
+FO_PROMISE, FO_ECHO = 256, 4096  # promise rows, then the asks' targets
+FO_WALK = (2, 4, 8, 4)      # sentinel_reshard's widths
+FO_ASKS = 256               # asks in flight across each re-shard
+FO_TELLS = 4                # tells into the ring every 4th step
+FO_COLLECTORS = 1000        # autoscale: the fan-in's hot recipients
+REGION_FO_WAVES = (16, 8, 16)  # waves before the checkpoint, after it,
+                               # and after the failover
+
+
+def fo_ring(base: int, n: int):
+    """The ring over rows [base, base + n): each forwards its token to the
+    next row of the block, counting tokens (`received`) and summing
+    their column 0 (`total`)."""
+
+    @behavior("fo_ring", {"received": ((), torch.int32),
+                          "total": ((), torch.float32)})
+    def ring(state, inbox, ctx):
+        nxt = base + (ctx.actor_id - base + 1) % n
+        return ({"received": state["received"] + inbox.count,
+                 "total": state["total"] + inbox.sum[:, 0]},
+                Emit.single(nxt, inbox.sum, 1, PAYLOAD_W,
+                            when=inbox.count > 0))
+
+    return ring
+
+
+@behavior("fo_echo", {"seen": ((), torch.float32)})
+def fo_echo(state, inbox, ctx):
+    """Replies twice the request's column 0 to its reply row."""
+    body = torch.zeros_like(inbox.sum)
+    body[:, 0] = inbox.sum[:, 0] * 2.0
+    return ({"seen": state["seen"] + inbox.sum[:, 0]},
+            Emit.single(reply_dst(inbox.sum), body, 1, PAYLOAD_W,
+                        when=inbox.count > 0))
+
+
+def seed_ring_rows(sys_, base: int, values: torch.Tensor) -> None:
+    """One token [v, 0, 0, 0] per ring row, written straight into each
+    shard's self-chunk of the exchange region (seed_sharded_ring's
+    layout), so the first step delivers all of them."""
+    dev = sys_.device
+    ids = torch.arange(base, sys_.capacity, dtype=torch.int64, device=dev)
+    shard, r = ids // sys_.local_n, ids % sys_.local_n
+    idx = shard * sys_.m_local + sys_.spill_cap + shard * sys_.pair_cap + r
+    sys_.inbox_dst[idx] = ids.to(torch.int32)
+    sys_.inbox_payload[idx] = 0.0
+    sys_.inbox_payload[idx, 0] = values.to(dev)
+    sys_.inbox_valid[idx] = True
+
+
+def fo_sentinel(directory: str, fr, **kw):
+    """The failover legs' MeshSentinel: promise rows, the echo block and
+    the ring over the rest, at FO_CAP rows on FO_SLOTS slots of the card,
+    snapshots every 8 steps and the WAL (group commit of 256 records);
+    the ring seeded on every row with integer values 1..9."""
+    from akka_tpu_torch.batched import MeshSentinel
+    ring_base = FO_PROMISE + FO_ECHO
+    ring = fo_ring(ring_base, FO_CAP - ring_base)
+    clk = {"t": 0.0}
+    sent = MeshSentinel(
+        FO_CAP, [ring, fo_echo], checkpoint_dir=directory,
+        n_devices=FO_SLOTS, payload_width=PAYLOAD_W,
+        checkpoint_interval_steps=8, pipeline_depth=2,
+        wal_fsync_every_n=256, promise_rows=FO_PROMISE,
+        detector_threshold=3.0, heartbeat_interval=FO_DT,
+        acceptable_pause=3 * FO_DT, failover_min_backoff=0.35,
+        clock=lambda: clk["t"], flight_recorder=fr, **kw)
+    check(sent.capacity == FO_CAP, "sentinel capacity kept")
+    sent.spawn(1, FO_ECHO)
+    sent.spawn(0, FO_CAP - ring_base)
+    gen = torch.Generator().manual_seed(FO_SEED)
+    values = torch.randint(1, 10, (FO_CAP - ring_base,),
+                           generator=gen).float()
+    seed_ring_rows(sent.system, ring_base, values)
+    return sent, clk, ring_base, values
+
+
+def fo_schedule(ring_base: int) -> dict:
+    """FO_TELLS tells into the ring every 4th step, values 1..9."""
+    rng = np.random.default_rng(FO_SEED)
+    return {s: [(int(d), float(v)) for d, v in zip(
+        rng.integers(ring_base, FO_CAP, FO_TELLS),
+        rng.integers(1, 10, FO_TELLS))] for s in range(0, FO_HORIZON, 4)}
+
+
+def sentinel_failover(directory: str, launches: dict) -> tuple:
+    """sentinel_failover: the sentinel at FO_CAP rows on 4 slots under a
+    DeviceLossInjector that loses slot 3 at step 42 fails over to 3
+    slots on its own and runs on to FO_HORIZON; held to an uninterrupted
+    twin (the same system on 4 slots, the same tells at the same steps):
+    every integer bit-equal, the sums within rtol/atol. Prints MTTR, the
+    rebuild's parts and bench.py's manual-restore baseline (a fresh
+    system on the survivors restoring the latest snapshot + WAL and
+    stepping once) with mttr_over_restore. Returns the sentinel, its
+    clock and the ring's first row."""
+    from akka_tpu_torch.persistence.slab_snapshot import latest_slab_path
+    from akka_tpu_torch.testkit.chaos import DeviceLossInjector
+    fr = InMemoryFlightRecorder()
+    inj = DeviceLossInjector(FO_SEED, FO_SLOTS, loss_rate=FO_RATE)
+    check(inj.lost_at(FO_SLOTS - 1, FO_HORIZON) == 42 and all(
+        inj.lost_at(s, FO_HORIZON) is None for s in range(FO_SLOTS - 1)),
+        "sentinel_failover: one loss scheduled, slot 3 at step 42")
+    sent, clk, ring_base, values = fo_sentinel(directory, fr, injector=inj)
+    twin = sent._build_system(sent.devices)  # the same rows, no journal
+    twin.tell_journal = twin.flight_recorder = None
+    seed_ring_rows(twin, ring_base, values)
+    sched = fo_schedule(ring_base)
+    count = Launches()
+    staged = set()
+    t0 = time.perf_counter()
+
+    def drive():
+        while sent.host_step < FO_HORIZON:
+            hs = sent.host_step
+            if hs in sched and hs not in staged:
+                for d, v in sched[hs]:
+                    sent.tell(d, [v, 0.0, 0.0, 0.0])
+                staged.add(hs)
+            clk["t"] += FO_DT
+            sent.step(1)
+    count(drive)
+    drive_s = time.perf_counter() - t0
+    count.report("sentinel_failover", "ring_reduce", launches)
+    st = sent.failover_stats
+    check(len(st) == 1 and st[0]["lost_shards"] == [FO_SLOTS - 1] and
+          st[0]["detector"] == "phi-accrual" and sent.halted is None,
+          f"sentinel_failover: one automatic failover of slot 3 ({st})")
+    check(sent.system.n_shards == FO_SLOTS - 1, "sentinel_failover: 3 "
+          "slots after the failover")
+    check(st[0]["mttr_s"] is not None, "sentinel_failover: MTTR closed")
+    for hs in range(FO_HORIZON):
+        for d, v in sched.get(hs, ()):
+            twin.tell(d, [v, 0.0, 0.0, 0.0])
+        twin.run(1)
+    for col in ("received", "total"):
+        got = torch.from_numpy(sent.read_state(col))
+        want = torch.from_numpy(twin.read_state(col))
+        if col == "received":
+            check(torch.equal(got, want), "sentinel_failover: received "
+                  "bit-equal to the uninterrupted twin")
+        else:
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    rows = slice(ring_base, FO_CAP)
+    received = sent.read_state("received")[rows]
+    check(int(received.min()) >= FO_HORIZON, "sentinel_failover: every "
+          "ring row received a token a step")
+    events = [e["event"] for e in fr.events()]
+    for ev in ("device_suspected", "device_evicted", "failover_completed"):
+        check(events.count(ev) == 1, f"sentinel_failover: one {ev}")
+    rt = sent.rebuild_timings
+    graphs_st = sent.system._graphs.stats()
+    print(f"sentinel_failover rows {FO_CAP} evicted_at_step "
+          f"{st[0]['evicted_at_step']} restored_step "
+          f"{st[0]['restored_step']} mttr_s {st[0]['mttr_s']} rebuild_s "
+          f"{st[0]['rebuild_s']} load_ms {rt['load_ms']} build_ms "
+          f"{rt['build_ms']} restore_ms {rt['restore_ms']} replay_ms "
+          f"{rt['replay_ms']} replayed_steps {rt['replayed_steps']} "
+          f"capture_ms {rt['capture_ms']} (graph capture_ms "
+          f"{graphs_st['capture_ms']} warmup_ms {graphs_st['warm_ms']}) "
+          f"drive_s {drive_s}")
+    # bench.py's manual-restore baseline on the same survivors
+    snap = latest_slab_path(directory)
+    t0 = time.perf_counter()
+    manual = sent._build_system(sent.devices)
+    manual.tell_journal = manual.flight_recorder = None
+    manual.restore(snap, journal=sent._journal)
+    manual.run(1)
+    manual.block_until_ready()
+    restore_s = time.perf_counter() - t0
+    print(f"sentinel_failover manual_restore_s {restore_s} "
+          f"mttr_over_restore {st[0]['mttr_s'] / restore_s}")
+    graph_line("sentinel_failover", sent.system)
+    flat = {"K1": flat_inputs(sent.system)}
+    del twin, manual
+    free()
+    return sent, clk, ring_base, flat
+
+
+def sentinel_reshard(sent, clk, ring_base: int, launches: dict) -> None:
+    """sentinel_reshard: the failed-over sentinel walks scale_to through
+    FO_WALK (3 -> 2 -> 4 -> 8 -> 4 slots), each transition with FO_ASKS
+    asks in flight (half delivered with their replies on the way, half
+    staged); every ask resolves with twice its value, and the ring's
+    tokens are conserved (its received counts grow by the token count a
+    step). Prints each pause_s and the memory allocated and reserved at
+    the first 4-slot mesh and at the last: the old systems' graphs and
+    pools are released."""
+    count = Launches()
+    echo = np.arange(FO_PROMISE, FO_PROMISE + FO_ECHO)
+    # every ring row receives its predecessor's token each step (a tell
+    # merged into the token it met), so one message a ring row a step
+    n_tokens = FO_CAP - ring_base
+    rng = np.random.default_rng(3)
+    mem = {}
+
+    def walk():
+        for w in FO_WALK:
+            before = int(sent.read_state("received").astype(np.int64).sum())
+            step0 = sent.host_step
+            futs = []
+            for half in range(2):
+                for i in rng.choice(echo, FO_ASKS // 2, replace=False):
+                    v = float(rng.integers(1, 100))
+                    futs.append((v, sent.ask(int(i), [v, 0.0, 0.0],
+                                             timeout=1e9)))
+                if half == 0:
+                    clk["t"] += FO_DT
+                    sent.step(1)  # delivered: replies on the way
+            clk["t"] += 1.0  # past the anti-thrash window (0.35 s)
+            rec = sent.scale_to(_slots(w), trigger="chip_smoke")
+            for _ in range(8):
+                if all(f.done() for _, f in futs):
+                    break
+                clk["t"] += FO_DT
+                sent.step(1)
+            for v, f in futs:
+                check(float(f.result(ACTOR_TIMEOUT)[0]) == 2 * v,
+                      "sentinel_reshard: every ask's reply == 2 x value")
+            after = int(sent.read_state("received").astype(np.int64).sum())
+            check(after - before == n_tokens * (sent.host_step - step0),
+                  f"sentinel_reshard: ring tokens conserved across "
+                  f"{rec['from_shards']} -> {rec['to_shards']}")
+            check(sent.system.n_shards == w, f"sentinel_reshard: {w} slots")
+            rt = sent.rebuild_timings
+            print(f"sentinel_reshard {rec['from_shards']}->"
+                  f"{rec['to_shards']} pause_s {rec['pause_s']} "
+                  f"restore_ms {rt['restore_ms']} replay_ms "
+                  f"{rt['replay_ms']} capture_ms {rt['capture_ms']} "
+                  f"asks {len(futs)}")
+            if w == 4:
+                free()
+                torch.cuda.synchronize()
+                mem.setdefault("first", (torch.cuda.memory_allocated(),
+                                         torch.cuda.memory_reserved()))
+                mem["last"] = (torch.cuda.memory_allocated(),
+                               torch.cuda.memory_reserved())
+    count(walk)
+    count.report("sentinel_reshard", "ring_reduce", launches)
+    (a0, r0), (a1, r1) = mem["first"], mem["last"]
+    print(f"sentinel_reshard memory_allocated first_4 {a0} last_4 {a1} "
+          f"memory_reserved first_4 {r0} last_4 {r1}")
+    check(a1 <= a0 * 1.1 + (64 << 20), "sentinel_reshard: the old systems' "
+          "graphs and pools were released")
+    st = sent.sentinel_stats()
+    check(st["reshards"] == len(FO_WALK), "sentinel_reshard: every walk")
+    graph_line("sentinel_reshard", sent.system)
+
+
+def _slots(n: int) -> list:
+    """The first n shard slots of the card."""
+    from akka_tpu_torch.parallel import shard_slots
+    return shard_slots(max(8, n), "cuda")[:n]
+
+
+@behavior("as_leaf", {"sent": ((), torch.int32)}, always_on=True)
+def as_leaf(state, inbox, ctx):
+    """Sends [1, 0, 0, 0] to collector id % FO_COLLECTORS every step."""
+    return ({"sent": state["sent"] + 1},
+            Emit.single(ctx.actor_id % FO_COLLECTORS, [1.0], 1, PAYLOAD_W))
+
+
+@behavior("as_collector", {"got": ((), torch.int32)}, inbox="slots")
+def as_collector(state, mailbox, ctx):
+    """Counts the messages its bounded mailbox kept."""
+    got = mailbox.fold(torch.zeros_like(state["got"]),
+                       lambda c, t, p: c + 1)
+    return ({"got": state["got"] + got},
+            Emit.none(got.shape[0], 1, PAYLOAD_W, device=got.device))
+
+
+def autoscale_leg(directory: str, launches: dict) -> dict:
+    """autoscale: a sentinel at FO_CAP rows on 2 slots with bounded
+    2-slot mailboxes (spill_capacity=0: K2) where every leaf sends to one
+    of 1000 collectors every step, so the collectors' mailboxes overflow
+    by ~1M messages a step; an attached MeshAutoscaler (the default pool
+    of 8 slots on the card) must widen it to 4 slots on the
+    mailbox_overflow signal. Prints the decision record."""
+    from akka_tpu_torch.batched import (AutoscalePolicy, MeshAutoscaler,
+                                        MeshSentinel)
+    fr = InMemoryFlightRecorder()
+    sent = MeshSentinel(FO_CAP, [as_leaf, as_collector],
+                        checkpoint_dir=directory, n_devices=2,
+                        payload_width=PAYLOAD_W, mailbox_slots=SLOTS,
+                        spill_capacity=0, checkpoint_interval_steps=0,
+                        failover_min_backoff=0.0, flight_recorder=fr)
+    sent.spawn(1, FO_COLLECTORS)
+    sent.spawn(0, FO_CAP - FO_COLLECTORS)
+    auto = MeshAutoscaler(sent, AutoscalePolicy(
+        min_shards=2, max_shards=4, widen_after=2, narrow_after=1 << 20,
+        cooldown_polls=1))
+    check(auto.device_pool == _slots(8), "autoscale: the default pool is "
+          "8 slots on the card")
+    sent.attach_autoscaler(auto)
+    count = Launches()
+
+    def drive():
+        for _ in range(8):
+            sent.step(1)
+            if len(sent.devices) == 4:
+                return
+    count(drive)
+    count.report("autoscale", "ring_slots", launches)
+    dec = fr.of_type("autoscale_decision")
+    check(len(sent.devices) == 4 and dec and dec[0]["direction"] == "widen"
+          and dec[0]["signal"] == "mailbox_overflow",
+          f"autoscale: widened 2 -> 4 on mailbox_overflow ({dec})")
+    print(f"autoscale decision {json.dumps(auto.last)} stats "
+          f"{json.dumps(auto.stats())}")
+    sent.step(1)
+    got = sent.read_state("got")[:FO_COLLECTORS]
+    check(int(got.min()) >= 1 and int(got.max()) <= SLOTS * sent.host_step,
+          "autoscale: the collectors kept at most their slots a step")
+    flat = {"K2": flat_inputs(sent.system)}
+    sent.shutdown()
+    return flat
+
+
+def region_failover(label: str, slots: int, kernel: str, directory: str,
+                    launches: dict) -> dict:
+    """region_failover(_slots): region_serve's region at n_devices=2 with
+    the tell WAL and the entity journal: REGION_FO_WAVES[0] ask waves, a
+    checkpoint, REGION_FO_WAVES[1] more (a WAL tail), failover to the
+    mesh's first slot, REGION_FO_WAVES[2] more; every reply equals the
+    host oracle's running total, and so does every total after it."""
+    region = DeviceShardRegion(DeviceEntity(
+        "counter", counter_behavior(PAYLOAD_W), n_shards=256,
+        entities_per_shard=4096, n_devices=2, spare_blocks=2,
+        mailbox_slots=slots, spill_capacity=0 if slots else None),
+        device="cuda")
+    region.system.warmup()
+    region.attach_journal(directory)
+    region.attach_entity_journal(directory)
+    a, b, c = REGION_FO_WAVES
+    trace = make_trace(2, a + b + c)
+    oracle = {}
+    count = Launches()
+    timing = {}
+
+    def leg():
+        ask_waves(region, trace[:a], oracle, label)
+        region.checkpoint()
+        ask_waves(region, trace[a:a + b], oracle, label)
+        t0 = time.perf_counter()
+        timing["step"] = region.failover(list(region.system.mesh.slots[:1]))
+        timing["failover_ms"] = (time.perf_counter() - t0) * 1e3
+        timing["acked"] = dict(region._durable_replayed_totals)
+        ask_waves(region, trace[a + b:], oracle, label)
+    count(leg)
+    count.report(label, kernel, launches)
+    check(region.system.n_shards == 1 and region.n_devices == 1,
+          f"{label}: one slot after the failover")
+    names = sorted(oracle)
+    got = region.system.read_state(
+        "total", np.asarray([region.entity_ref(n).row for n in names]))
+    check(all(float(g) == oracle[n] for g, n in zip(got, names)),
+          f"{label}: every total == the host oracle's")
+    check(region.ask_pool_stats()["in_flight"] == 0,
+          f"{label}: no ask left in flight")
+    t = region.restore_timings
+    print(f"{label} failover_ms {timing['failover_ms']} step "
+          f"{timing['step']} load_ms {t['load_ms']} h2d_ms {t['h2d_ms']} "
+          f"replay_ms {t['replay_ms']} replayed_steps "
+          f"{t['replayed_steps']} acked_entities {len(timing['acked'])}")
+    graph_line(label, region.system)
+    sys_ = region.system
+    for i in range(WAVE_ASKS):  # a wave's tells as they land
+        sys_.tell(i * 4099 % sys_.capacity,
+                  [1.0, 0.0, 0.0, float(sys_.capacity - 1)])
+    sys_._flush_staged()
+    return {"K2" if slots else "K1": flat_inputs(sys_)}
+
+
+def failover_paths(launches: dict) -> dict:
+    """sentinel_failover and sentinel_reshard (one sentinel), autoscale,
+    region_failover and region_failover_slots, each in a checkpoint
+    directory of its own; returns each leg's fullest delivery inputs by
+    kernel."""
+    flats = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                     ignore_cleanup_errors=True) as d:
+        t0 = time.perf_counter()
+        sent, clk, ring_base, flats["sentinel_failover"] = \
+            sentinel_failover(d, launches)
+        print(f"sentinel_failover phase_s {time.perf_counter() - t0}")
+        t0 = time.perf_counter()
+        sentinel_reshard(sent, clk, ring_base, launches)
+        flats["sentinel_reshard"] = {"K1": flat_inputs(sent.system)}
+        sent.shutdown()
+        del sent
+        free()
+        print(f"sentinel_reshard phase_s {time.perf_counter() - t0}")
+    legs = (("autoscale", autoscale_leg),
+            ("region_failover", lambda d, n: region_failover(
+                "region_failover", 0, "ring_reduce", d, n)),
+            ("region_failover_slots", lambda d, n: region_failover(
+                "region_failover_slots", SLOTS, "ring_slots", d, n)))
+    for label, leg in legs:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                         ignore_cleanup_errors=True) as d:
+            t0 = time.perf_counter()
+            flats[label] = leg(d, launches)
+            free()
+            print(f"{label} phase_s {time.perf_counter() - t0}")
+    return flats
+
+
 def path_dtype(label: str) -> str:
     """The payload dtype of a path's system, by the path's name."""
     for name in ("int32", "bf16"):
@@ -2543,10 +2978,14 @@ def main() -> int:
         t0 = time.perf_counter()
         phase(launches)
         print(f"{label}_phase_s {time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    failover = failover_paths(launches)
+    print(f"failover_phase_s {time.perf_counter() - t0}")
     # both kernels at the shapes the new paths gave them
     t0 = time.perf_counter()
     for label, flat in (("sharded_d8", sharded), ("region", region),
-                        ("gateway", gateway), ("router", router)):
+                        ("gateway", gateway), ("router", router),
+                        *failover.items()):
         for k, (inputs, n) in flat.items():
             rows.setdefault(label, {})[k] = kernel_rows(
                 label, inputs, n, lib, kernels=(k,))[k]
@@ -2555,7 +2994,7 @@ def main() -> int:
             else typed[path_dtype(label)]
         table.setdefault(label, {})[k] = kernel_rows(
             label, inputs, n, lib, kernels=(k,), slots=slots)[k]
-    del sharded, region, gateway, actor, router
+    del sharded, region, gateway, actor, router, failover
     print(f"path_kernels_s {time.perf_counter() - t0}")
 
     entry = {"K1": ("ring_reduce", "_run(with_slots=False)"),

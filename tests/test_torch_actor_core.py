@@ -353,7 +353,7 @@ def test_scheduler_tell(system):
 
 # ------------------------------------------------- what the port refuses
 @pytest.mark.parametrize("config, item", [
-    ({"akka": {"jax-distributed": {"enabled": True}}}, "A10"),
+    ({"akka": {"jax-distributed": {"enabled": True}}}, "A10.2"),
     ({"akka": {"actor": {"provider": "remote"}}}, "A12"),
     ({"akka": {"actor": {"provider": "cluster"}}}, "A12"),
 ], ids=["jax-distributed", "remote", "cluster"])

@@ -1071,3 +1071,162 @@ def test_device_pipeline_that_syncs_cannot_be_captured(card):
     p = DevicePipeline(device=card).map(lambda x: x + 1).map(host_read)
     with pytest.raises(GraphCaptureError, match="op 1 .map host_read"):
         p.run(torch.ones((2, 8), device=card))
+
+
+# ----------------------------------- failover and the elastic mesh (A10.1)
+def _fo_sum():
+    from akka_tpu_torch.batched import Emit, behavior
+
+    @behavior("fo_sum", {"total": ((), torch.float32)})
+    def fo_sum(state, inbox, ctx):
+        return ({"total": state["total"] + inbox.sum[:, 0]},
+                Emit.none(inbox.sum.shape[0], 1, 4, device=inbox.sum.device))
+    return fo_sum
+
+
+def _one_late_loss(hits) -> bool:
+    """One scheduled loss, on the last of 4 slots, at step 6..16."""
+    return len(hits) == 1 and hits[0][1] == 3 and 6 <= hits[0][0] <= 16
+
+
+def _fo_drive(s, clk, sched, upto, staged):
+    while s.host_step < upto:
+        hs = s.host_step
+        if hs in sched and hs not in staged:
+            s.tell(sched[hs][0], [sched[hs][1], 0.0, 0.0, 0.0])
+            staged.add(hs)
+        clk["t"] += 0.1
+        s.step(1)
+
+
+@pytest.mark.parametrize("slots", [0, 2])
+def test_sentinel_failover_on_the_card_matches_the_cpu(card, tmp_path,
+                                                       slots):
+    """One DeviceLossInjector schedule on a card sentinel and a CPU one
+    (4 slots, 48 rows): both fail over 4 -> 3 at the same step, the card's
+    first post-failover drain waited on its step's event (MTTR closed),
+    the rebuild captured a graph for the survivors, and the totals are
+    equal; the old system's graphs are gone."""
+    from akka_tpu_torch.batched import MeshSentinel
+    from akka_tpu_torch.testkit.chaos import (DeviceLossInjector,
+                                              loss_schedule_np)
+    seed = next(s for s in range(30000) if _one_late_loss(
+        np.argwhere(loss_schedule_np(s, 41, 4, 0.012))))
+    rng = np.random.default_rng(seed)
+    sched = {s: (int(rng.integers(0, 8)), float(1 + s % 5))
+             for s in range(0, 40, 3)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        clk = {"t": 0.0}
+        s = MeshSentinel(48, [_fo_sum()],
+                         checkpoint_dir=str(tmp_path / dev), n_devices=4,
+                         payload_width=4, checkpoint_interval_steps=4,
+                         mailbox_slots=slots,
+                         spill_capacity=0 if slots else None,
+                         detector_threshold=3.0, heartbeat_interval=0.1,
+                         acceptable_pause=0.3, failover_min_backoff=0.35,
+                         clock=lambda: clk["t"], device=dev,
+                         injector=DeviceLossInjector(seed, 4,
+                                                     loss_rate=0.012))
+        rows = s.spawn(0, 8)
+        old = s.system
+        _fo_drive(s, clk, sched, 40, set())
+        st = s.failover_stats
+        assert len(st) == 1 and st[0]["mttr_s"] is not None
+        assert s.system is not old and not old._graphs.graphs
+        out[dev] = (s.read_state("total", rows),
+                    {k: st[0][k] for k in ("lost_shards", "survivors",
+                                           "evicted_at_step",
+                                           "restored_step")},
+                    s.system._graphs.stats()["captures"])
+        s.shutdown()
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    assert out["cuda"][1] == out["cpu"][1]
+    assert out["cuda"][2] == 1 and out["cpu"][2] == 0
+
+
+def test_sentinel_scale_walk_on_the_card_keeps_asks_and_drops_graphs(
+        card, tmp_path):
+    """scale_to 2 -> 4 -> 8 -> 4 on the card with asks in flight: every
+    reply arrives, every rebuild captures one graph and leaves the old
+    system with none, and the snapshot writer's file holds the barrier
+    state."""
+    from akka_tpu_torch.batched import Emit, MeshSentinel, behavior
+    from akka_tpu_torch.parallel import shard_slots
+
+    @behavior("fo_echo", {"seen": ((), torch.float32)})
+    def echo(state, inbox, ctx):
+        body = torch.zeros_like(inbox.sum)
+        body[:, 0] = inbox.sum[:, 0] * 2.0
+        return ({"seen": state["seen"] + inbox.sum[:, 0]},
+                Emit.single(inbox.sum[:, -1].to(torch.int32), body, 1, 4,
+                            when=inbox.count > 0))
+
+    s = MeshSentinel(64, [echo], checkpoint_dir=str(tmp_path), n_devices=2,
+                     payload_width=4, promise_rows=8,
+                     failover_min_backoff=0.0)
+    rows = s.spawn(0, 16)
+    pool = shard_slots(8)
+    for w in (4, 8, 4):
+        futs = [(i, s.ask(int(rows[i]), [float(i + 1)], timeout=10.0))
+                for i in range(4)]
+        s.step(1)
+        old = s.system
+        s.scale_to(pool[:w])
+        assert not old._graphs.graphs and s.system._graphs.graphs
+        s.step(3)
+        for i, f in futs:
+            assert float(f.result(10.0)[0]) == 2.0 * (i + 1)
+    s.shutdown()
+
+
+def test_region_failover_on_the_card_matches_the_cpu(card, tmp_path):
+    """A region on 2 slots with both journals, 6 ask waves, a checkpoint,
+    3 waves, failover to 1 slot and 3 waves: the card's replies and
+    totals equal the CPU region's."""
+    rng = np.random.default_rng(5)
+    waves = [[(f"e{int(x)}", float(v)) for x, v in zip(
+        rng.integers(0, 40, 16), rng.integers(1, 9, 16))]
+        for _ in range(12)]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        r = DeviceShardRegion(DeviceEntity(
+            "fo", counter_behavior(4), n_shards=4, entities_per_shard=32,
+            n_devices=2, spare_blocks=2), device=dev)
+        r.attach_journal(str(tmp_path / dev))
+        r.attach_entity_journal(str(tmp_path / dev))
+        replies = []
+
+        def run(ws):
+            for w in ws:
+                refs = [r.entity_ref(n) for n, _ in w]
+                outs = r.ask_many([(x.shard, x.index, [v])
+                                   for x, (_, v) in zip(refs, w)])
+                replies.append([float(o[0]) for o in outs])
+        run(waves[:6])
+        r.checkpoint()
+        run(waves[6:9])
+        step = r.failover(list(r.system.mesh.slots[:1]))
+        run(waves[9:])
+        got[dev] = (replies, step, r.system.n_shards,
+                    r.system.read_state("total"))
+    assert got["cuda"][:3] == got["cpu"][:3]
+    assert got["cuda"][2] == 1
+    np.testing.assert_array_equal(got["cuda"][3], got["cpu"][3])
+
+
+def test_bank_convergence_on_the_card_matches_the_cpu(card):
+    from akka_tpu_torch.ddata import tensor as tt
+    from akka_tpu_torch.parallel import make_mesh
+    g = torch.Generator().manual_seed(3)
+    bank = torch.randint(0, 2**31 - 1, (4, 64, 4), generator=g,
+                         dtype=torch.int32).view(torch.uint32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = make_mesh(4, axis_name="replica", device=dev)
+        rep = tt.replicate_bank(bank[0], m)
+        assert rep.device.type == dev
+        out[dev] = (tt.converge_over_mesh(bank.to(dev), m).cpu()
+                    .view(torch.int32), rep.cpu().view(torch.int32))
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])

@@ -118,5 +118,15 @@ def test_gset_and_flag_merges_match_the_reference():
 
 @pytest.mark.parametrize("fn", ["converge_over_mesh", "replicate_bank"])
 def test_mesh_functions_wait_for_a10(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    """The mesh functions run over a one-card mesh of shard slots
+    (tests/test_torch_mesh.py holds them to the reference); a mesh over
+    several cards waits for ranks (ROADMAP A10.2), and no mesh is a
+    TypeError."""
+    from akka_tpu_torch.parallel import ShardSlot, make_mesh
+    two_cards = make_mesh(axis_name="replica", devices=[
+        ShardSlot(0, torch.device("cuda", 0)),
+        ShardSlot(1, torch.device("cuda", 1))])
+    with pytest.raises(NotImplementedError, match="ROADMAP A10.2"):
+        getattr(tt, fn)(_t(_bank(2, 4, 2)), mesh=two_cards)
+    with pytest.raises(TypeError, match="Mesh"):
         getattr(tt, fn)(_t(_bank(4, 2)), mesh=None)

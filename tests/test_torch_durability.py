@@ -35,6 +35,7 @@ from akka_tpu.sharding.device import DeviceShardRegion as JRegion
 import akka_tpu_torch.batched as tb
 import akka_tpu_torch.gateway as tg
 from akka_tpu_torch.batched.sharded import ShardedBatchedSystem
+from akka_tpu_torch.parallel import shard_slots
 from akka_tpu_torch.persistence.slab_snapshot import latest_slab_path
 from akka_tpu_torch.persistence.tell_journal import TellJournal
 from akka_tpu_torch.sharding import DeviceEntity, DeviceShardRegion
@@ -699,11 +700,64 @@ def test_reference_sidecar_leaks_a_slot_in_flight_at_checkpoint(tmp_path):
         (0, 1, c.eps - 1)
 
 
-def test_failover_still_names_a10():
-    region = t_region("fo")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        region.failover([0])
+@pytest.mark.parametrize("slots", [0, 2], ids=["reduce", "slots"])
+def test_region_failover_two_slots_to_one_like_reference(tmp_path,
+                                                         monkeypatch, slots):
+    """Both packages' regions on 2 shard slots (the reference on 2 of its
+    virtual devices) take the same ask waves, a checkpoint and more
+    waves (a WAL tail), then fail over onto their first slot: the
+    recovered step, every reply before and after, the totals, the
+    durable fold, the slot pool and the carries are equal."""
+    monkeypatch.setattr(jslab, "_try_orbax", lambda: None)
+    import jax
+    from akka_tpu.batched.sharded import ShardedBatchedSystem as JSharded
+    from akka_tpu_torch.utils.carry import SHARDED_FIELDS, numpy_carry
+    kw = {**_SPEC_KW, "n_devices": 2, "mailbox_slots": slots}
+    regions = {"jax": JRegion(JEntity("fo", jg.counter_behavior(P), **kw)),
+               "port": t_region("fo", **kw)}
+    got = {}
+    for pkg, r in regions.items():
+        d = str(tmp_path / pkg)
+        r.attach_journal(d)
+        r.attach_entity_journal(d)
+        first = ask_waves(r, _SEQ[:2])
+        r.checkpoint()
+        second = ask_waves(r, _SEQ[2:])
+        survivors = (jax.devices()[:1] if pkg == "jax"
+                     else list(r.system.mesh.slots[:1]))
+        step = r.failover(survivors)
+        assert (r.n_devices, r.blocks_per_device) == (1, r.total_blocks)
+        third = ask_waves(r, _SEQ)
+        got[pkg] = (first, second, step, third, r._durable_replayed_totals,
+                    totals(r, sorted(third)), r.ask_pool_stats(),
+                    r.system._host_step, r.system.n_shards)
+    assert got["port"] == got["jax"]
+    t = regions["port"]
+    assert isinstance(regions["jax"].system, JSharded)
+    assert [s.index for s in t.system.mesh.slots] == [0]
+    carry = numpy_carry(t.system)
+    jsys = regions["jax"].system
+    for c, v in jsys.state.items():
+        np.testing.assert_array_equal(carry[f"state/{c}"],
+                                      np.asarray(jax.device_get(v)), c)
+    for f in SHARDED_FIELDS:
+        np.testing.assert_array_equal(
+            carry[f], np.asarray(jax.device_get(getattr(jsys, f))), f)
+
+
+def test_region_failover_needs_a_journal_and_a_divisor(tmp_path):
+    """failover refuses without the journal, and onto a survivor count
+    that does not divide the blocks; checkpoint and restore still need
+    attach_journal."""
+    region = t_region("fo", n_devices=2)
+    slots = list(region.system.mesh.slots)
+    with pytest.raises(RuntimeError, match="attach_journal"):
+        region.failover(slots[:1])
     with pytest.raises(RuntimeError, match="attach_journal"):
         region.checkpoint()
     with pytest.raises(RuntimeError, match="attach_journal"):
         region.restore()
+    big = t_region("fo3", n_devices=2, n_shards=3, spare_blocks=1)
+    big.attach_journal(str(tmp_path))
+    with pytest.raises(RuntimeError, match="cannot re-stripe 4 blocks"):
+        big.failover(shard_slots(3, "cpu"))

@@ -253,39 +253,47 @@ def test_gateway_trace_replies_byte_identical(d, slots, continuous):
 
 def test_port_admin_ops_not_ported_reply_typed_errors(tmp_path):
     """checkpoint answers ok once the region has its journal (and the
-    region's restore() returns the step); failover still answers with a
-    typed admin fault naming its ROADMAP item, A10; the replica's ddata
-    mode raises naming A11/A12."""
+    region's restore() returns the step); failover rebuilds the region on
+    the first `value` shard slots of its mesh (2 -> 1) and answers ok with
+    the recovered step, as the reference's op does on its devices; the
+    replica's ddata mode still raises naming A11/A12."""
     clock = FakeClock()
-    region, backend, srv = build("torch", 1, 0, False, clock)
+    stacks = {pkg: build(pkg, 2, 0, False, clock) for pkg in ("jax",
+                                                              "torch")}
     try:
-        rep = json.loads(srv.handle_frame(_json(1, "__admin", "",
-                                                "checkpoint", 1.0)))
-        assert rep["status"] == "error"  # no journal attached yet
-        assert rep["reason"].startswith("admin_fault:RuntimeError"), rep
-        region.attach_journal(str(tmp_path))
-        json.loads(srv.handle_frame(_json(2, "t0", "e0", "add", 3.0)))
-        rep = json.loads(srv.handle_frame(_json(3, "__admin", "",
-                                                "checkpoint", 1.0)))
-        assert rep["status"] == "ok", rep
-        assert rep["data"]["path"].endswith(".npz")
-        step = region.system._host_step
-        assert region.restore() == step  # the recovered frontier
-        assert region.system._host_step == step + 2  # and the flush
-        rep = json.loads(srv.handle_frame(_json(4, "__admin", "",
-                                                "failover", 1.0)))
-        assert rep["status"] == "error"
-        assert rep["reason"].startswith(
-            "admin_fault:NotImplementedError"), rep
-        assert "ROADMAP A10" in rep["reason"]
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            region.failover([0])
-        assert backend.sum_all() == 3.0
+        got = {}
+        for pkg, (region, backend, srv) in stacks.items():
+            rep = json.loads(srv.handle_frame(_json(1, "__admin", "",
+                                                    "checkpoint", 1.0)))
+            assert rep["status"] == "error"  # no journal attached yet
+            assert rep["reason"].startswith("admin_fault:RuntimeError"), rep
+            region.attach_journal(str(tmp_path / pkg))
+            json.loads(srv.handle_frame(_json(2, "t0", "e0", "add", 3.0)))
+            rep = json.loads(srv.handle_frame(_json(3, "__admin", "",
+                                                    "checkpoint", 1.0)))
+            assert rep["status"] == "ok", rep
+            step = region.system._host_step
+            if pkg == "torch":
+                assert rep["data"]["path"].endswith(".npz")
+                assert region.restore() == step  # the recovered frontier
+                assert region.system._host_step == step + 2  # the flush
+            rep = json.loads(srv.handle_frame(_json(4, "__admin", "",
+                                                    "failover", 1.0)))
+            assert rep["status"] == "ok", rep
+            assert rep["value"] == float(step)  # the snapshot, no WAL tail
+            assert region.system.n_shards == region.n_devices == 1
+            assert region.blocks_per_device == region.total_blocks
+            assert backend.sum_all() == 3.0
+            got[pkg] = (rep["value"], region.system._host_step)
+        assert got["torch"] == got["jax"]
+        # the survivor is the mesh's first slot
+        assert [s.index for s in stacks["torch"][0].system.mesh.slots] == [0]
         with pytest.raises(NotImplementedError, match="A11/A12"):
             TReplica(lambda: 0, system=object())
     finally:
-        srv.stop()
-        backend.close()
+        for _region, backend, srv in stacks.values():
+            srv.stop()
+            backend.close()
 
 
 # ------------------------------------------------------------ frame codec

@@ -142,8 +142,8 @@ def test_serving_gateway_demo_on_cpu():
     """The demo's durable serve child and two load children run on the
     CPU, the rebalance leg goes over the wire, the server is SIGKILLed and
     restarted with --restore on the same port and directory, the failover
-    leg answers with its typed admin fault, and the conserved-value
-    invariant holds."""
+    leg rebuilds the region from 2 shard slots onto 1 and answers ok, and
+    the conserved-value invariant holds."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run(
         [sys.executable, "-m", "akka_tpu_torch.tools.serving_gateway",
@@ -154,4 +154,4 @@ def test_serving_gateway_demo_on_cpu():
     assert "RESTORED step=" in res.stdout
     assert "DURABLE respawned=" in res.stdout
     assert "SIGKILL to READY" in res.stdout
-    assert "waits for ROADMAP A10" in res.stdout
+    assert "[demo] FAILOVER ok step=" in res.stdout

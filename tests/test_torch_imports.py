@@ -100,7 +100,11 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "akka_tpu_torch.native",
                  "akka_tpu_torch.native.lib",
                  "akka_tpu_torch.native.queues",
-                 "akka_tpu_torch.native.integration"):
+                 "akka_tpu_torch.native.integration",
+                 # failover and the elastic mesh over shard slots
+                 "akka_tpu_torch.parallel",
+                 "akka_tpu_torch.parallel.mesh",
+                 "akka_tpu_torch.batched.autoscale"):
         assert name in MODULES, name
 
 
@@ -238,7 +242,6 @@ def test_package_exports_what_the_reference_package_exports():
 # Reference modules the port has no file for yet, by the item that ports
 # them: a name a reference __init__ imports from one of them is excepted.
 UNPORTED_MODULES = {
-    "batched/autoscale.py": "A10",
     **{f"persistence/{m}.py": "A12.1" for m in (
         "eventsourced", "typed", "snapshot", "query", "adapter",
         "at_least_once", "messages", "persistence", "testkit")},
@@ -262,7 +265,9 @@ UNPORTED_MODULES = {
 UNPORTED_NAMES = {
     ("batched/bridge.py", "I32"): "for good: a jnp dtype",
     ("batched/bridge.py", "F32"): "for good: a jnp dtype",
-    ("batched/sentinel.py", "MeshSentinel"): "A10",
+    ("parallel/mesh.py", "initialize_distributed"): "A10.2",
+    ("parallel/mesh.py", "maybe_initialize_distributed_from_config"):
+        "A10.2",
     **{("pattern/backoff.py", n): "A12.1" for n in (
         "BackoffSupervisor", "CurrentChild", "GetCurrentChild",
         "GetRestartCount", "RestartCount", "graceful_stop", "retry")},
@@ -356,11 +361,17 @@ def test_ported_file_has_the_references_public_names(rel):
 
 
 def test_exception_lists_name_only_later_items():
-    """The exceptions belong to A10 and A12, and the jnp dtypes; they
-    name no module the port has a file for, and no name the port has."""
+    """The exceptions belong to A10.2 and A12, and the jnp dtypes; they
+    name no module the port has a file for, and no name the port has.
+    Only the two distributed names carry A10.2."""
     labels = set(UNPORTED_MODULES.values()) | set(UNPORTED_NAMES.values())
-    assert labels <= {"A10", "A12.1", "A12.3", "A12.4", "A12.5",
+    assert labels <= {"A10.2", "A12.1", "A12.3", "A12.4", "A12.5",
                       "for good: a jnp dtype"}, labels
+    assert sorted(n for (_, n), item in UNPORTED_NAMES.items()
+                  if item == "A10.2") == [
+        "initialize_distributed",
+        "maybe_initialize_distributed_from_config"]
+    assert "A10.2" not in UNPORTED_MODULES.values()
     for mod in UNPORTED_MODULES:
         assert (ROOT / "akka_tpu" / mod).exists(), mod
         assert not (PKG / mod).exists(), f"{mod} is ported: drop it"
@@ -369,7 +380,8 @@ def test_exception_lists_name_only_later_items():
     assert "models/baseline_benches.py" not in {r for r, _ in UNPORTED_NAMES}
     assert "batched/metrics_slab.py" not in {r for r, _ in UNPORTED_NAMES}
     for rel in ("routing/batched.py", "ddata/tensor.py", "stream/device.py",
-                "native/lib.py", "native/queues.py",
+                "batched/sentinel.py", "batched/autoscale.py",
+                "parallel/mesh.py", "native/lib.py", "native/queues.py",
                 "native/integration.py", "batched/metrics_slab.py",
                 "models/baseline_benches.py"):
         assert rel in PORTED_FILES, rel

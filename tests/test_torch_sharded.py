@@ -31,6 +31,7 @@ import akka_tpu_torch.batched as tb
 from akka_tpu_torch.batched.sharded import ShardedBatchedSystem as TSharded
 from akka_tpu_torch.event.flight_recorder import FlightRecorder
 from akka_tpu_torch.models import baseline_benches as tbb
+from akka_tpu_torch.parallel import ShardSlot, make_mesh, shard_spec
 from akka_tpu_torch.utils.carry import (SHARDED_FIELDS, load_numpy_carry,
                                         numpy_carry)
 
@@ -568,10 +569,23 @@ def test_flat_delivery_equals_local_calls(d):
 
 
 def test_mesh_and_unknown_backends_raise():
-    """One card only (a mesh of several is ROADMAP A10), and the port's
+    """A mesh of shard slots on one card sets the shard count and the
+    device; a mesh over several cards is ROADMAP A10.2; and the port's
     backends only: the reference's "reference" family is not ported."""
-    with pytest.raises(NotImplementedError, match="A10"):
+    two_cards = make_mesh(devices=[ShardSlot(0, torch.device("cuda", 0)),
+                                   ShardSlot(1, torch.device("cuda", 1))])
+    with pytest.raises(NotImplementedError, match="A10.2"):
+        TSharded(capacity=8, behaviors=[t_ring], mesh=two_cards,
+                 device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
         TSharded(capacity=8, behaviors=[t_ring], mesh=object(), device="cpu")
+    mesh = make_mesh(3, device="cpu")
+    for m in (mesh, shard_spec(mesh)):
+        s = TSharded(capacity=8, behaviors=[t_ring], mesh=m)
+        assert (s.n_shards, s.capacity, s.device.type) == (3, 9, "cpu")
+        assert s.mesh == mesh
+    with pytest.raises(ValueError, match="n_devices=2"):
+        TSharded(capacity=8, behaviors=[t_ring], mesh=mesh, n_devices=2)
     for backend in ("reference", "xla", "pallas"):
         with pytest.raises(ValueError, match="unknown delivery backend"):
             TSharded(capacity=8, behaviors=[t_ring], n_devices=2,
