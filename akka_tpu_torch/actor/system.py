@@ -5,9 +5,13 @@ the port keeps its own copy of every module it needs). Where the
 reference falls back silently, the port refuses: the `tpu-batched`
 dispatcher type is registered unconditionally, and the configurations
 whose modules the port lacks raise `ValueError` naming the ROADMAP item
-that ports them, before anything is built (`_refuse_unported`):
-`akka.jax-distributed` (A10.2) and a remote or cluster provider (A12). The
-defaults reach none of them. The native scheduler
+that ports them, before anything is built (`_refuse_unported`): a remote
+or cluster provider (A12.2). The defaults reach none of them.
+`akka.jax-distributed.enabled` calls the reference's hook at start
+(`parallel.mesh.maybe_initialize_distributed_from_config`: this process's
+rank of a torch.distributed process group; `akka.jax-distributed.device`,
+a port addition, picks the backend), and `terminate()` destroys the group
+this system started. The native scheduler
 (`akka.scheduler.implementation = native`) and the native mailboxes
 (`akka.actor.native-mailboxes`) build the native library (native/) and
 raise RuntimeError when it cannot be built; the reference falls back to
@@ -44,14 +48,10 @@ from .scheduler import Scheduler
 def _refuse_unported(cfg: Config, provider_kind: str) -> None:
     """Raise ValueError for a configuration that needs a module the port
     does not have yet, naming the ROADMAP item that ports it."""
-    if cfg.get_bool("akka.jax-distributed.enabled", False):
-        raise ValueError(
-            "akka.jax-distributed.enabled: multi-process meshes are not "
-            "ported (ROADMAP A10.2: ranks over torch.distributed)")
     if provider_kind in ("remote", "cluster"):
         raise ValueError(
             f"akka.actor.provider = {provider_kind}: the remote and "
-            f"cluster providers are not ported (ROADMAP A12)")
+            f"cluster providers are not ported (ROADMAP A12.2)")
 
 
 class Settings:
@@ -185,6 +185,15 @@ class ActorSystem:
             # default step source: the registry's shared ATT_STEP axis
             self.tracer.step_fn = lambda: self.metrics_registry.step
 
+        # multi-process data plane: opt-in process group (this process's
+        # rank), so meshes built over it span every process
+        self._started_group = False
+        if cfg.get_bool("akka.jax-distributed.enabled", False):
+            from ..parallel.mesh import \
+                maybe_initialize_distributed_from_config
+            self._started_group = \
+                maybe_initialize_distributed_from_config(cfg)
+
         if cfg.get_string("akka.scheduler.implementation",
                           "default") == "native":
             # the C++ hashed wheel (LightArrayRevolverScheduler parity);
@@ -302,6 +311,9 @@ class ActorSystem:
             self.metrics_registry.close()
         if self.tracer is not None:
             self.tracer.close()
+        if self._started_group:
+            from ..parallel.mesh import shutdown_distributed
+            shutdown_distributed()
         self._terminated.set()
         for cb in self._termination_callbacks:
             try:

@@ -23,7 +23,9 @@ control plane over the signals the runtime already exports:
 
 `device_pool=None` is a fixed pool of DEFAULT_POOL_SLOTS (8, the
 reference's tier-1 mesh) slots on the sentinel's card, or as many as the
-sentinel already holds if that is more. Wiring:
+sentinel already holds if that is more. A pool over several ranks raises
+NotImplementedError naming ROADMAP A10.3, one over several cards the
+one-process-per-card rule. Wiring:
 `sentinel.attach_autoscaler(a)` polls once per step() pump round;
 `autoscaler_from_config(sentinel, config)` builds the stack behind
 `akka.autoscale.*` (None when disabled).
@@ -35,7 +37,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
 from ..event.pressure import PressureReader, system_pressure_sources
-from ..parallel.mesh import DEFAULT_POOL_SLOTS, shard_slots
+from ..parallel.mesh import (DEFAULT_POOL_SLOTS, check_one_card,
+                             shard_slots)
 
 __all__ = ["AutoscaleDecision", "AutoscalePolicy", "MeshAutoscaler",
            "autoscaler_from_config"]
@@ -160,6 +163,7 @@ class MeshAutoscaler:
                 max(DEFAULT_POOL_SLOTS, len(sentinel.devices)),
                 sentinel.device)
         self.device_pool: List[Any] = list(device_pool)
+        check_one_card(self.device_pool, "MeshAutoscaler")
         ask_stats = (self._ask_pool_stats
                      if getattr(sentinel, "promise_rows_n", 0) > 0 else None)
         self.reader = PressureReader(

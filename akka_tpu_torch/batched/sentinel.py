@@ -65,7 +65,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..parallel.mesh import DEFAULT_POOL_SLOTS, make_mesh, shard_slots
+from ..parallel.mesh import (DEFAULT_POOL_SLOTS, make_mesh,
+                             check_one_card, shard_slots)
 from ..pattern.backoff import backoff_delay
 from ..pattern.circuit_breaker import CircuitBreaker
 from ..remote.failure_detector import (DeadlineFailureDetector,
@@ -190,7 +191,8 @@ class MeshSentinel:
     devices: the slots (parallel/mesh.ShardSlot) of the mesh, default the
     first `n_devices` of a pool of DEFAULT_POOL_SLOTS slots on `device`'s
     card (a port addition: default CUDA, raising without a card unless
-    device="cpu"); all of them on one card. payload_dtype is a torch
+    device="cpu"); all of them on one card (slots of several ranks raise
+    NotImplementedError naming ROADMAP A10.3). payload_dtype is a torch
     dtype. spill_capacity (a port addition, default None = the system's
     default) is forwarded to the system."""
 
@@ -234,7 +236,9 @@ class MeshSentinel:
                                device)
             devices = pool[:n_devices] if n_devices else pool
         self.devices = list(devices)
-        # the card: the one all slots lie on (several raise, A10.2)
+        check_one_card(self.devices, "MeshSentinel")
+        # the card: the one all slots lie on (several raise: one process
+        # per card)
         self.device = make_mesh(devices=self.devices,
                                 axis_name=axis_name).device
         self.behaviors = list(behaviors)

@@ -1,4 +1,5 @@
-"""ShardedBatchedSystem: the actor space split into shards on one card.
+"""ShardedBatchedSystem: the actor space split into shards on one card,
+or over the ranks of a process group.
 
 Port of `akka_tpu/batched/sharded.py`. The reference shards the actor rows
 over a device mesh (`shard_map`) and moves every cross-shard tell through a
@@ -56,10 +57,31 @@ re-arm the metrics epoch (the slab's running sum, a carried int32 scalar
 every step writes in place) from the restored slab, so
 `drain_metrics()` hands the restored slab over once.
 
-`mesh=` takes a mesh of shard slots on one card (parallel/mesh.py): the
-shard count is its size. Failover and re-sharding (batched/sentinel.py,
-the region's `failover`) rebuild a system on fewer or more slots of the
-same card. A mesh of several cards or ranks is ROADMAP A10.2.
+`mesh=` takes a mesh of shard slots (parallel/mesh.py): the shard count
+is its size. Failover and re-sharding (batched/sentinel.py, the region's
+`failover`) rebuild a system on fewer or more slots of one card.
+
+Ranks. Over a mesh that carries a process group of W ranks, the system is
+the reference's SPMD program: each rank allocates only its own block of
+L = D / W shards (rows [r * L * local_n, (r + 1) * L * local_n), inbox
+and per-shard counters likewise), and every rank makes the same calls:
+spawns, tells and `set_tables` write only the rows of the rank's block.
+The step is the one above over the rank's L shards, with global actor
+ids; the bucketing stays global (`dest` is a global shard), and the
+exchange is one `all_to_all_single` over the group per column: the
+rank's buffer [L_src, D_dst, C] is scattered in [W, L_src, L_dst, C]
+order, exchanged, and the received [W_src, L_src, L_dst, C] lands as the
+exchange rows [L_dst, D_src, C], in the source order of the transpose
+above, so every integer output is bit-identical to the one-card
+system's. On a ranked mesh the exchange always goes through the
+collective, even at W = 1. Every host read is a collective and gives the
+global answer on every rank (`read_state`, the counters, the attention
+words, the metric slab, `exit_stray_mode`'s test); `checkpoint` gathers
+the global tree and rank 0 writes it, and `restore` reads it on every
+rank, each keeping its own block, from any shard count or world size.
+Over NCCL the step, collectives included, is captured as a CUDA graph
+as above (a failed capture raises); a gloo group cannot be captured, so
+there `run()` takes eager steps.
 """
 
 from __future__ import annotations
@@ -80,8 +102,8 @@ from .behavior import BatchedBehavior
 from .core import _numpy_dtype, drive_pipelined, host_to_device
 from .metrics_slab import (ASK_ARM_COL, ASK_ARM_SPEC, accumulate_step,
                            empty_slab, slab_dict, slab_epoch)
-from .step import (StepCore, fault_any_failed, fault_clear_failed,
-                   fault_failed_rows, fault_restart_rows, write_back)
+from .step import (StepCore, fault_clear_failed, fault_restart_rows,
+                   write_back)
 from .supervision import (ATT_WORDS, N_COUNTERS, SUP_COLUMNS, counts_dict,
                           decode_attention, reserved_fill)
 
@@ -94,10 +116,11 @@ CARRY = ("behavior_id", "alive", "step_count", "dropped", "mail_dropped",
          "sup_counts", "metrics", "metrics_epoch", "attention", *INBOX_FILL)
 
 
-def _one_card_mesh(mesh, axis_name: str, n_devices, device):
+def _mesh_layout(mesh, axis_name: str, n_devices, device):
     """The shard count and card of a system built on `mesh`: a 1-D mesh
-    over `axis_name` on one card (NotImplementedError naming A10.2
-    otherwise); `n_devices` and `device`, if given, must agree with it."""
+    over `axis_name`, whose slots of this rank lie on one card
+    (Mesh.device raises otherwise); `n_devices` and `device`, if given,
+    must agree with it."""
     if tuple(mesh.axis_names) != (axis_name,):
         raise ValueError(f"the system shards over a 1-D mesh with axis "
                          f"{axis_name!r}, got axes {mesh.axis_names}")
@@ -115,7 +138,8 @@ def _one_card_mesh(mesh, axis_name: str, n_devices, device):
 
 
 class ShardedBatchedSystem:
-    """Batched actor space over `n_devices` shards on one card.
+    """Batched actor space over `n_devices` shards on one card, or over a
+    process group's ranks.
 
     capacity rounds up to a multiple of the shard count; shard s owns rows
     [s * local_n, (s + 1) * local_n). remote_capacity_per_pair C bounds
@@ -125,13 +149,14 @@ class ShardedBatchedSystem:
     attention_latch_col and metrics_enabled are BatchedSystem's.
     reroute_strays allows the hand-off step (`enter_stray_mode`), which
     forwards inbox rows addressed outside their shard one more hop.
-    n_devices keeps the reference's name: here it is the shard count on
-    one card (default 1, or the mesh's size). mesh is a one-card mesh of
-    shard slots (parallel/mesh.py) or a placement on one; a mesh over
-    several cards raises NotImplementedError (ROADMAP A10.2). device
-    defaults to the mesh's card, else CUDA, and raises without a card
-    unless device="cpu" is passed. On a card every step is a replay of
-    the step's CUDA graph.
+    n_devices keeps the reference's name: it is the shard count (default
+    1, or the mesh's size). mesh is a mesh of shard slots
+    (parallel/mesh.py) or a placement on one: of one card, or over a
+    process group's ranks (the module docstring's "Ranks"; each rank
+    holds `local_shards` of the shards). device defaults to the mesh's
+    card (this rank's), else CUDA, and raises without a card unless
+    device="cpu" is passed. On a card every step is a replay of the
+    step's CUDA graph, except over a gloo group, where steps are eager.
     """
 
     def __init__(self, capacity: int, behaviors: Sequence[BatchedBehavior],
@@ -148,8 +173,8 @@ class ShardedBatchedSystem:
                  metrics_enabled: bool = False, device=None):
         if mesh is not None:
             mesh = mesh_of(mesh)
-            n_devices, device = _one_card_mesh(mesh, axis_name, n_devices,
-                                               device)
+            n_devices, device = _mesh_layout(mesh, axis_name, n_devices,
+                                             device)
         self.device = dev = resolve_device(device)
         exchange_uses_ranked(dev.type, delivery_backend)  # validates it
         self.axis = axis_name
@@ -158,10 +183,16 @@ class ShardedBatchedSystem:
             raise ValueError(f"n_devices must be >= 1, got {n_devices}")
         self.mesh = mesh if mesh is not None else \
             make_mesh(d, axis_name, device=dev)
+        # this rank's block of the shard axis (all of it without a group)
+        self.ranks = self.mesh.ranks
+        self.local_shards = ls = d // self.mesh.world_size
+        self.shard0 = self.mesh.rank * ls
         if capacity % d != 0:
             capacity += d - capacity % d
         self.capacity = n = int(capacity)
         self.local_n = n // d
+        self.row_lo = self.shard0 * self.local_n
+        self.n_rows = nr = ls * self.local_n   # rows of this rank's block
         self.behaviors = list(behaviors)
         self.payload_width = int(payload_width)
         self.out_degree = int(out_degree)
@@ -211,11 +242,11 @@ class ShardedBatchedSystem:
 
         i32 = torch.int32
         self.state: Dict[str, torch.Tensor] = {
-            k: torch.full((n,) + shape, reserved_fill(k), dtype=dtype,
+            k: torch.full((nr,) + shape, reserved_fill(k), dtype=dtype,
                           device=dev)
             for k, (shape, dtype) in self.state_spec.items()}
-        self.behavior_id = torch.zeros((n,), dtype=i32, device=dev)
-        self.alive = torch.zeros((n,), dtype=torch.bool, device=dev)
+        self.behavior_id = torch.zeros((nr,), dtype=i32, device=dev)
+        self.alive = torch.zeros((nr,), dtype=torch.bool, device=dev)
         self.step_count = torch.zeros((), dtype=i32, device=dev)
 
         # inbox per shard: spill first (older mail outranks fresh in the
@@ -225,15 +256,16 @@ class ShardedBatchedSystem:
         self._inboxes: Dict[int, Dict[str, torch.Tensor]] = {}
         for name, t in self._inbox_set(self.pair_cap).items():
             setattr(self, name, t)
-        self.dropped = torch.zeros((d,), dtype=i32, device=dev)
-        self.mail_dropped = torch.zeros((d,), dtype=i32, device=dev)
-        self.sup_counts = torch.zeros((d, N_COUNTERS), dtype=i32, device=dev)
-        self.metrics = empty_slab(d, device=dev)
+        self.dropped = torch.zeros((ls,), dtype=i32, device=dev)
+        self.mail_dropped = torch.zeros((ls,), dtype=i32, device=dev)
+        self.sup_counts = torch.zeros((ls, N_COUNTERS), dtype=i32,
+                                      device=dev)
+        self.metrics = empty_slab(ls, device=dev)
         # the metrics epoch: the slab's running sum over every shard,
         # written in place by every run (0 while metrics are off)
         self.metrics_epoch = torch.zeros((), dtype=i32, device=dev)
         self._metrics_seen_epoch = 0
-        self.attention = torch.zeros((d, ATT_WORDS), dtype=i32, device=dev)
+        self.attention = torch.zeros((ls, ATT_WORDS), dtype=i32, device=dev)
         # cumulative per-shard overflow already reported through the
         # flight recorder's shard_overflow warning (read_attention)
         self._overflow_reported = np.zeros((d, 2), np.int64)
@@ -247,9 +279,11 @@ class ShardedBatchedSystem:
         self._host_staged: List[Tuple[int, int, np.ndarray]] = []
         self._host_step = 0
         # the step's CUDA graphs on a card, keyed (pair_cap, stray_mode);
-        # the eager step on the CPU (and in a comparison's eager twin,
-        # which sets _eager itself)
-        self._eager = dev.type != "cuda"
+        # the eager step on the CPU, over a gloo group (which a graph
+        # cannot capture), and in a comparison's eager twin, which sets
+        # _eager itself
+        self._eager = dev.type != "cuda" or (
+            self.ranks is not None and self.ranks.backend != "nccl")
         self._graphs = graphs.GraphSet(dev, "ShardedBatchedSystem")
         # write-ahead tell journal (persistence/tell_journal.py); None = off
         self.tell_journal = None
@@ -257,7 +291,7 @@ class ShardedBatchedSystem:
         # small lookup tables behaviors see as ctx.tables
         self.tables: Dict[str, torch.Tensor] = {}
 
-        self._core = StepCore(self.behaviors, n_local=n,
+        self._core = StepCore(self.behaviors, n_local=nr,
                               payload_width=self.payload_width,
                               out_degree=self.out_degree,
                               payload_dtype=payload_dtype,
@@ -266,11 +300,12 @@ class ShardedBatchedSystem:
                               delivery_backend=delivery_backend,
                               spill_cap=self.spill_cap,
                               attention_latch_col=attention_latch_col,
-                              device=dev, n_shards=d)
-        shard_ids = torch.arange(d, dtype=i32, device=dev)[:, None]
-        self._bases = shard_ids * self.local_n          # [D, 1] first ids
-        self._src_key = shard_ids * (d + 1)             # [D, 1] rank keys
-        self._src_pair = shard_ids.long() * d           # [D, 1] buf rows
+                              device=dev, n_shards=ls)
+        local = torch.arange(ls, dtype=i32, device=dev)[:, None]
+        self._bases = (local + self.shard0) * self.local_n  # [L, 1] ids
+        self._src_key = local * (d + 1)                 # [L, 1] rank keys
+        self._src_local = local.long()                  # [L, 1]
+        self._src_pair = self._src_local * d            # [L, 1] buf rows
 
     def _inbox_set(self, pair_cap: int) -> Dict[str, torch.Tensor]:
         """The inbox tensors of the layout with per-pair capacity
@@ -278,7 +313,8 @@ class ShardedBatchedSystem:
         got = self._inboxes.get(pair_cap)
         if got is None:
             d, dev = self.n_shards, self.device
-            m = d * (self.spill_cap + d * pair_cap + self.host_inbox)
+            m = self.local_shards * (self.spill_cap + d * pair_cap
+                                     + self.host_inbox)
             got = self._inboxes[pair_cap] = {
                 "inbox_dst": torch.full((m,), -1, dtype=torch.int32,
                                         device=dev),
@@ -308,13 +344,111 @@ class ShardedBatchedSystem:
                 raise RuntimeError("actor capacity exhausted")
             self._next_row = start + n
         rows = slice(start, start + n)
-        self.behavior_id[rows] = b_idx
-        self.alive[rows] = True
+        self.set_rows(self.behavior_id, rows, b_idx)
+        self.set_rows(self.alive, rows, True)
         for col, value in (init_state or {}).items():
-            cur = self.state[col]
-            cur[rows] = torch.as_tensor(value, dtype=cur.dtype,
-                                        device=self.device)
+            self.set_rows(self.state[col], rows, value)
         return np.arange(start, start + n, dtype=np.int32)
+
+    # ------------------------------------------------------- rows and ranks
+    def _own(self, rows) -> Tuple[Any, Any]:
+        """This rank's part of global rows `rows` (a slice or ids): the
+        local index (a slice, or an int64 array) and, for ids, the mask
+        of the ids kept (None for a slice)."""
+        lo, hi = self.row_lo, self.row_lo + self.n_rows
+        if isinstance(rows, slice):
+            start, stop, _ = rows.indices(self.capacity)
+            a, b = max(start, lo), min(stop, hi)
+            return slice(a - lo, max(a, b) - lo), slice(a - start,
+                                                        max(a, b) - start)
+        ids = np.atleast_1d(np.asarray(rows, np.int64))
+        keep = (ids >= lo) & (ids < hi)
+        return ids[keep] - lo, keep
+
+    def set_rows(self, t: torch.Tensor, rows, value) -> None:
+        """`t[rows] = value` for global rows `rows` (a slice or ids) of a
+        row tensor (a state column, `behavior_id`, `alive`): `value` is
+        broadcast, or one per row when it has `t`'s number of dimensions.
+        On a ranked mesh only the rows of this rank's block are written."""
+        v = torch.as_tensor(value, dtype=t.dtype, device=t.device)
+        if self.ranks is None:
+            t[rows if isinstance(rows, slice) else torch.as_tensor(
+                np.asarray(rows, np.int64), device=t.device)] = v
+            return
+        local, keep = self._own(rows)
+        per_row = v.dim() == t.dim()
+        if isinstance(local, slice):
+            t[local] = v[keep] if per_row else v
+        elif local.size:
+            t[torch.as_tensor(local, device=t.device)] = \
+                v[torch.as_tensor(keep, device=t.device)] if per_row else v
+
+    def global_tensor(self, t: torch.Tensor) -> torch.Tensor:
+        """The global tensor of one of this system's carried tensors: on
+        a ranked mesh every rank's block concatenated (a collective:
+        every rank calls it alike), else `t`. Scalars are replicated."""
+        if self.ranks is None or t.dim() == 0 or t.numel() == 0:
+            return t
+        return self.ranks.all_gather(t)
+
+    def local_block(self, arr, t: torch.Tensor):
+        """This rank's block of a global array for carried tensor `t`
+        (its rows r * len(t) .. (r + 1) * len(t)), or `arr` itself without
+        a group, for a scalar, or when `arr` is not W blocks of `t`."""
+        arr = np.asarray(arr)
+        w = self.mesh.world_size
+        if self.ranks is None or t.dim() == 0 or arr.ndim == 0 or \
+                arr.shape[0] != w * t.shape[0]:
+            return arr
+        k = t.shape[0]
+        return arr[self.mesh.rank * k:(self.mesh.rank + 1) * k]
+
+    def rows_of(self, t: torch.Tensor, rows) -> torch.Tensor:
+        """Global rows `rows` (a slice or ids) of a row tensor, on the
+        device. On a ranked mesh (a collective) each rank fills the rows
+        it holds into zeros and one all_reduce sums the bytes: exactly one
+        rank's bytes are not zero, so the sum is that rank's value, bit
+        for bit, in any dtype."""
+        if self.ranks is None:
+            return t[rows if isinstance(rows, slice) else torch.as_tensor(
+                np.asarray(rows, np.int64), device=t.device)]
+        local, keep = self._own(rows)
+        if isinstance(rows, slice):
+            n = len(range(*rows.indices(self.capacity)))
+        else:
+            n = keep.shape[0]
+            local = torch.as_tensor(local, device=t.device)
+            keep = torch.as_tensor(keep, device=t.device)
+        out = torch.zeros((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        out[keep] = t[local]
+        if out.numel():
+            self.ranks.all_reduce(out.view(-1).view(torch.uint8), "sum")
+        return out
+
+    def read_promise_block(self, base: int, n: int, replied_col: str,
+                           reply_col: Optional[str] = None):
+        """bridge.read_promise_block over this system's global rows
+        [base, base + n): `(replied, replies)` host copies."""
+        from ..persistence.slab_snapshot import host_array
+        rows = slice(base, base + n)
+        replied = host_array(self.rows_of(self.state[replied_col], rows))
+        if reply_col is None:
+            return replied, None
+        return replied, host_array(self.rows_of(self.state[reply_col], rows))
+
+    def barrier(self) -> None:
+        """Return once every rank has reached this call (a no-op without
+        a group)."""
+        if self.ranks is not None:
+            self.ranks.barrier(self.device)
+
+    def move_rows(self, src: slice, dst: slice) -> None:
+        """Copy the rows `src` (state columns, behavior ids, alive flags)
+        to the rows `dst` of the same length, across ranks on a ranked
+        mesh (a collective)."""
+        for t in (*self.state.values(), self.behavior_id, self.alive):
+            self.set_rows(t, dst, self.rows_of(t, src))
 
     def tell(self, dst: int, payload, mtype: int = 0) -> None:
         """Host-side tell to one actor: staged, flushed into its shard's
@@ -350,6 +484,9 @@ class ShardedBatchedSystem:
             if u >= self.host_inbox:
                 continue
             used[s] = u + 1
+            s -= self.shard0
+            if not 0 <= s < self.local_shards:
+                continue  # another rank's shard: that rank writes it
             idxs.append(s * self.m_local + host0 + u)
             dsts.append(d)
             mts.append(t)
@@ -397,24 +534,24 @@ class ShardedBatchedSystem:
         tail is empty)."""
         if new_pair_cap == self.pair_cap:
             return
-        d, sc = self.n_shards, self.spill_cap
+        d, ls, sc = self.n_shards, self.local_shards, self.spill_cap
         old_pc, old_ml = self.pair_cap, self.m_local
         new_ml = sc + d * new_pair_cap + self.host_inbox
 
         def regrid(arr, fill):
             tail = tuple(arr.shape[1:])
-            v = arr.reshape((d, old_ml) + tail)
-            pairs = v[:, sc:sc + d * old_pc].reshape((d, d, old_pc) + tail)
+            v = arr.reshape((ls, old_ml) + tail)
+            pairs = v[:, sc:sc + d * old_pc].reshape((ls, d, old_pc) + tail)
             if new_pair_cap > old_pc:
-                pad = torch.full((d, d, new_pair_cap - old_pc) + tail, fill,
+                pad = torch.full((ls, d, new_pair_cap - old_pc) + tail, fill,
                                  dtype=arr.dtype, device=arr.device)
                 pairs = torch.cat([pairs, pad], 2)
             else:
                 pairs = pairs[:, :, :new_pair_cap]
             out = torch.cat([v[:, :sc],
-                             pairs.reshape((d, d * new_pair_cap) + tail),
+                             pairs.reshape((ls, d * new_pair_cap) + tail),
                              v[:, sc + d * old_pc:]], 1)
-            return out.reshape((d * new_ml,) + tail).contiguous()
+            return out.reshape((ls * new_ml,) + tail).contiguous()
 
         target = self._inbox_set(new_pair_cap)
         for name, fill in INBOX_FILL.items():
@@ -428,7 +565,8 @@ class ShardedBatchedSystem:
     def enter_stray_mode(self) -> None:
         """Switch to the hand-off step: the stray-pair capacity, and inbox
         rows addressed outside their shard ride the next exchange. Call at
-        rebalance; exit once drained."""
+        rebalance; exit once drained. On a ranked mesh every rank calls it
+        alike."""
         if not self.reroute_strays:
             raise RuntimeError(
                 "system built with reroute_strays=False has no stray step")
@@ -440,19 +578,22 @@ class ShardedBatchedSystem:
     def exit_stray_mode(self) -> bool:
         """Back to the steady-state step once it is safe: no stray row is
         left in the inbox, and no pair chunk holds rows past the base
-        capacity. Both reduce on the device; two booleans come back.
-        Returns False, staying in stray mode, while either holds."""
+        capacity. Both reduce on the device; two booleans come back (on a
+        ranked mesh OR-ed over every rank by one all_reduce, so every rank
+        takes the same branch). Returns False, staying in stray mode,
+        while either holds."""
         if not self.stray_mode:
             return True
-        d, sc, pc = self.n_shards, self.spill_cap, self.pair_cap
-        valid = self.inbox_valid.reshape(d, self.m_local)
-        dst = self.inbox_dst.reshape(d, self.m_local)
+        d, ls = self.n_shards, self.local_shards
+        sc, pc = self.spill_cap, self.pair_cap
+        valid = self.inbox_valid.reshape(ls, self.m_local)
+        dst = self.inbox_dst.reshape(ls, self.m_local)
         has_stray = (valid & ((dst < self._bases)
                               | (dst >= self._bases + self.local_n))).any()
-        tail_occupied = self.pair_cap_base < pc and bool(
-            valid[:, sc:sc + d * pc].reshape(d, d, pc)[
-                :, :, self.pair_cap_base:].any())
-        if bool(has_stray) or tail_occupied:
+        tail = valid[:, sc:sc + d * pc].reshape(ls, d, pc)[
+            :, :, self.pair_cap_base:].any()
+        has_stray, tail = self._any(torch.stack([has_stray, tail])).tolist()
+        if has_stray or tail:
             return False
         self._relayout_inbox(self.pair_cap_base)
         self.stray_mode = False
@@ -460,92 +601,115 @@ class ShardedBatchedSystem:
 
     # ------------------------------------------------------------------ step
     def _step_impl(self) -> None:
-        """One step over every shard: deliver, behaviors, bucket, exchange,
-        and the new carry written in place (the body of the step's CUDA
-        graph, with `_attend`)."""
-        d, ln, sc = self.n_shards, self.local_n, self.spill_cap
-        c, ml, p = self.pair_cap, self.m_local, self.payload_width
+        """One step over this rank's shards (every shard without a
+        group): deliver, behaviors, bucket, exchange, and the new carry
+        written in place (the body of the step's CUDA graph, with
+        `_attend`)."""
+        d, ls, ln = self.n_shards, self.local_shards, self.local_n
+        sc, c, ml = self.spill_cap, self.pair_cap, self.m_local
+        p = self.payload_width
         core = self._core
         state, old_alive, step = self.state, self.alive, self.step_count
-        ib_dst = self.inbox_dst.view(d, ml)
-        ib_valid = self.inbox_valid.view(d, ml)
+        ib_dst = self.inbox_dst.view(ls, ml)
+        ib_valid = self.inbox_valid.view(ls, ml)
         home = (ib_dst >= self._bases) & (ib_dst < self._bases + ln)
         own = (ib_valid & home).reshape(-1)
+        lo = self.row_lo or None  # global ids <-> this rank's rows
         (new_state, behavior_id, alive, emits, mdrop, spill, sup_delta,
          dcount) = core.run_local(
             state, self.behavior_id, self.alive, self.inbox_dst,
             self.inbox_type, self.inbox_payload, own, step,
-            tables=self.tables)
+            dst_offset=lo, id_base=self.row_lo, tables=self.tables)
         if self.metrics_on:
             # this step's inputs: the inbox just delivered (strays
             # included) and its enqueue stamps
             self.metrics.copy_(accumulate_step(
                 self.metrics, state, new_state, old_alive, dcount,
                 self.inbox_valid, self.inbox_enq, step,
-                latch_col=core.attention_latch_col, n_shards=d))
+                latch_col=core.attention_latch_col, n_shards=ls))
 
         # ---- bucket by destination shard, per source shard -------------
-        out_dst = emits.dst.reshape(d, -1)
-        out_pl = emits.payload.reshape(d, -1, p).to(self.payload_dtype)
-        out_type = emits.type.reshape(d, -1)
-        out_valid = emits.valid.reshape(d, -1) & (out_dst >= 0) \
+        out_dst = emits.dst.reshape(ls, -1)
+        out_pl = emits.payload.reshape(ls, -1, p).to(self.payload_dtype)
+        out_type = emits.type.reshape(ls, -1)
+        out_valid = emits.valid.reshape(ls, -1) & (out_dst >= 0) \
             & (out_dst < self.capacity)
         if self.stray_mode:
             # inbox rows addressed outside their shard ride first (they
             # are older; the rank is stable)
             stray = ib_valid & (ib_dst >= 0) & ~home
             out_dst = torch.cat([torch.where(stray, ib_dst, -1), out_dst], 1)
-            out_pl = torch.cat([self.inbox_payload.view(d, ml, p), out_pl],
+            out_pl = torch.cat([self.inbox_payload.view(ls, ml, p), out_pl],
                                1)
-            out_type = torch.cat([self.inbox_type.view(d, ml), out_type], 1)
+            out_type = torch.cat([self.inbox_type.view(ls, ml), out_type], 1)
             out_valid = torch.cat([stray, out_valid], 1)
         dest = torch.where(
             out_valid, torch.div(out_dst, ln, rounding_mode="floor")
             .clamp(max=d), d)
         rank, _ = stable_ranks((self._src_key + dest).reshape(-1),
-                               d * (d + 1))
+                               ls * (d + 1))
         rank = rank.reshape(dest.shape)
         in_cap = out_valid & (rank < c) & (dest < d)
-        total = d * d * c
-        slot = torch.where(in_cap, (self._src_pair + dest) * c + rank,
+        total = ls * d * c
+        if self.ranks is None:
+            pair = self._src_pair + dest                # [D_src, D_dst]
+        else:
+            # the send buffer's [W, L_src, L_dst] order: chunk w is rank
+            # w's, without a copy before the collective
+            pair = (torch.div(dest, ls, rounding_mode="floor") * ls
+                    + self._src_local) * ls + dest % ls
+        slot = torch.where(in_cap, pair * c + rank,
                            total).reshape(-1)   # overflow -> the dump row
         self.dropped.add_((out_valid & ~in_cap).sum(1, dtype=torch.int32))
 
         def exchange(target, fill, rows) -> None:
-            """Scatter into buf[D_src, D_dst, C], then the all_to_all: the
-            transpose hands destination t its chunks in source order, one
-            copy into target [D_dst, D_src, C] (its exchange rows)."""
+            """Scatter into the exchange buffer, then the all_to_all into
+            target [L_dst, D_src, C] (its exchange rows), chunks in
+            source-shard order. One card: buf[D_src, D_dst, C] and its
+            transpose. Ranks: buf[W, L_src, L_dst, C] through one
+            all_to_all_single; the received [W_src, L_src, L_dst, C] is
+            permuted into place."""
             tail = tuple(rows.shape[2:])
             buf = torch.full((total + 1,) + tail, fill, dtype=target.dtype,
                              device=self.device)
             buf[slot] = rows.reshape((-1,) + tail)
-            target.copy_(buf[:total].view((d, d, c) + tail).transpose(0, 1))
+            if self.ranks is None:
+                target.copy_(buf[:total].view((d, d, c) + tail)
+                             .transpose(0, 1))
+                return
+            w = self.mesh.world_size
+            recv = torch.empty((total,) + tail, dtype=target.dtype,
+                               device=self.device)
+            self.ranks.all_to_all(recv, buf[:total])
+            moved = recv.view((w, ls, ls, c) + tail).permute(
+                2, 0, 1, *range(3, 4 + len(tail)))
+            target.view((ls, w, ls, c) + tail).copy_(moved)
 
         r = d * c
-        ib_pl = self.inbox_payload.view(d, ml, p)
-        ib_type = self.inbox_type.view(d, ml)
-        exchange(ib_dst[:, sc:sc + r].view(d, d, c), -1,
+        ib_pl = self.inbox_payload.view(ls, ml, p)
+        ib_type = self.inbox_type.view(ls, ml)
+        exchange(ib_dst[:, sc:sc + r].view(ls, d, c), -1,
                  torch.where(in_cap, out_dst, -1))
-        exchange(ib_pl[:, sc:sc + r].view(d, d, c, p), 0,
+        exchange(ib_pl[:, sc:sc + r].view(ls, d, c, p), 0,
                  torch.where(in_cap[..., None], out_pl, 0))
-        exchange(ib_valid[:, sc:sc + r].view(d, d, c), False, in_cap)
+        exchange(ib_valid[:, sc:sc + r].view(ls, d, c), False, in_cap)
         ib_dst[:, sc + r:] = -1
         ib_pl[:, sc + r:] = 0
         ib_valid[:, sc + r:] = False
         if self.mailbox_slots > 0:  # the type column is read in slots only
-            exchange(ib_type[:, sc:sc + r].view(d, d, c), 0,
+            exchange(ib_type[:, sc:sc + r].view(ls, d, c), 0,
                      torch.where(in_cap, out_type, 0))
             ib_type[:, sc + r:] = 0
         if spill is not None:  # spill is None iff sc == 0
             sp_dst, sp_type, sp_pl, sp_v = spill
-            ib_dst[:, :sc] = sp_dst.view(d, sc)
-            ib_type[:, :sc] = sp_type.view(d, sc)
-            ib_pl[:, :sc] = sp_pl.view(d, sc, p)
-            ib_valid[:, :sc] = sp_v.view(d, sc)
+            ib_dst[:, :sc] = sp_dst.view(ls, sc)
+            ib_type[:, :sc] = sp_type.view(ls, sc)
+            ib_pl[:, :sc] = sp_pl.view(ls, sc, p)
+            ib_valid[:, :sc] = sp_v.view(ls, sc)
         if self.metrics_on:
             # received rows are re-stamped with this step's counter, and
             # so is retained spill
-            enq = self.inbox_enq.view(d, ml)
+            enq = self.inbox_enq.view(ls, ml)
             enq[:, :sc + r] = step
             enq[:, sc + r:] = 0
         write_back(self.state, self.behavior_id, self.alive, new_state,
@@ -627,15 +791,20 @@ class ShardedBatchedSystem:
         cb = None
         if on_attention is not None:
             cb = lambda w: on_attention(decode_attention(w))  # noqa: E731
-        drive_pipelined(lambda: self.run(1), lambda: self.attention,
+        drive_pipelined(lambda: self.run(1), self.attention_words,
                         n_steps, depth, on_drain=cb)
+
+    def attention_words(self) -> torch.Tensor:
+        """The newest attention words of every shard, [D, ATT_WORDS], on
+        the device (on a ranked mesh gathered from every rank)."""
+        return self.global_tensor(self.attention)
 
     def read_attention(self) -> Dict[str, Any]:
         """Decode the newest attention words (one small read that syncs the
         newest run), with per-shard columns (`*_per_shard`). A shard whose
         overflow counters grew since the last read raises one
         shard_overflow warning on the flight recorder, if one is set."""
-        word = decode_attention(self.attention)
+        word = decode_attention(self.attention_words())
         self._note_shard_overflow(word)
         return word
 
@@ -656,71 +825,92 @@ class ShardedBatchedSystem:
                 self._overflow_reported[s] = (int(mail[s]), int(exch[s]))
 
     # ------------------------------------------------------------------ read
+    # On a ranked mesh every read below is a collective: every rank calls
+    # it alike and gets the global answer.
     def read_state(self, col: str, ids=None) -> np.ndarray:
         """Host copy of one state column (rows `ids`, or all)."""
         self.block_until_ready()
         arr = self.state[col]
-        if ids is not None:
-            arr = arr[torch.as_tensor(np.asarray(ids, np.int64),
-                                      device=self.device)]
+        arr = self.global_tensor(arr) if ids is None else \
+            self.rows_of(arr, np.asarray(ids, np.int64))
         return arr.to("cpu", copy=True).numpy()  # not a view of the carry
 
+    def _any(self, flags: torch.Tensor) -> torch.Tensor:
+        """`flags` OR-ed over every rank (a collective), or as they are
+        without a group."""
+        return flags if self.ranks is None else self.ranks.any(flags)
+
     def any_failed(self) -> bool:
-        return fault_any_failed(self.state)
+        return "_failed" in self.state and bool(
+            self._any(self.state["_failed"].any()).item())
 
     def failed_rows(self) -> np.ndarray:
         """Rows whose behavior raised the `_failed` flag."""
         self.block_until_ready()
-        return fault_failed_rows(self.state)
+        return self._flagged_rows("_failed")
+
+    def _flagged_rows(self, col: str) -> np.ndarray:
+        if col not in self.state:
+            return np.empty((0,), np.int32)
+        flags = self.global_tensor(self.state[col]).cpu().numpy()
+        return np.nonzero(flags)[0].astype(np.int32)
 
     def restart_rows(self, ids,
                      init_state: Optional[Dict[str, Any]] = None) -> None:
-        """Host-mediated restart-with-reset-state (see BatchedSystem)."""
-        fault_restart_rows(self.state, ids, init_state)
+        """Host-mediated restart-with-reset-state (see BatchedSystem); on
+        a ranked mesh each rank restarts the rows of its own block."""
+        local, keep = self._own(ids)
+        per_row = {}
+        for col, value in (init_state or {}).items():
+            v = np.asarray(value)
+            per_row[col] = v[keep] if v.ndim == self.state[col].dim() \
+                else value
+        if local.size:
+            fault_restart_rows(self.state, local, per_row)
 
     def clear_failed(self, ids) -> None:
-        fault_clear_failed(self.state, ids)
+        local, _ = self._own(ids)
+        if np.size(local):
+            fault_clear_failed(self.state, local)
 
     @property
     def supervision_counts(self) -> Dict[str, int]:
         """In-step supervision counters summed over shards."""
-        return counts_dict(self.sup_counts)
+        return counts_dict(self.global_tensor(self.sup_counts))
 
     def any_escalated(self) -> bool:
-        if "_escalated" not in self.state:
-            return False
-        return bool(self.state["_escalated"].any().item())
+        return "_escalated" in self.state and bool(
+            self._any(self.state["_escalated"].any()).item())
 
     def escalated_rows(self) -> np.ndarray:
         """Global ids of escalated rows awaiting host resolution."""
-        if "_escalated" not in self.state:
-            return np.empty((0,), np.int32)
-        flags = self.state["_escalated"].cpu().numpy()
-        return np.nonzero(flags)[0].astype(np.int32)
+        return self._flagged_rows("_escalated")
 
     def stop_block(self, ids) -> None:
         """Mark rows dead (no free list on the sharded runtime)."""
-        arr = np.unique(np.atleast_1d(np.asarray(ids, np.int64)))
-        self.alive[torch.as_tensor(arr, device=self.device)] = False
+        self.set_rows(self.alive, np.unique(np.atleast_1d(
+            np.asarray(ids, np.int64))), False)
 
     @property
     def total_dropped(self) -> int:
         """Exchange-overflow drops, all shards."""
-        return int(self.dropped.sum().item())
+        return int(self.dropped_per_shard.sum())
 
     @property
     def mailbox_overflow(self) -> int:
-        return int(self.mail_dropped.sum().item())
+        return int(self.mailbox_overflow_per_shard.sum())
 
     @property
     def dropped_per_shard(self) -> np.ndarray:
         """[n_shards] cumulative exchange-overflow counts."""
-        return self.dropped.cpu().numpy().astype(np.int64)
+        return self.global_tensor(self.dropped).cpu().numpy() \
+            .astype(np.int64)
 
     @property
     def mailbox_overflow_per_shard(self) -> np.ndarray:
         """[n_shards] cumulative mailbox-overflow counts."""
-        return self.mail_dropped.cpu().numpy().astype(np.int64)
+        return self.global_tensor(self.mail_dropped).cpu().numpy() \
+            .astype(np.int64)
 
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":
@@ -729,13 +919,16 @@ class ShardedBatchedSystem:
     def read_metrics(self) -> Dict[str, np.ndarray]:
         """The metric slab as named lanes, shards summed."""
         self.block_until_ready()
-        return slab_dict(self.metrics)
+        return slab_dict(self.global_tensor(self.metrics))
 
     def metrics_epoch_value(self) -> int:
         """One scalar read of the metrics epoch (the slab's running sum
         over every shard; 0 while metrics are off); it syncs the newest
         run."""
-        return int(self.metrics_epoch.item())
+        epoch = self.metrics_epoch
+        if self.ranks is not None:  # each rank's sum over its shards
+            epoch = self.ranks.all_reduce(epoch.clone(), "sum")
+        return int(epoch.item())
 
     def drain_metrics(self):
         """`(step, lanes)` when the slab changed since the last drain,
@@ -747,7 +940,8 @@ class ShardedBatchedSystem:
         if epoch == self._metrics_seen_epoch:
             return None
         self._metrics_seen_epoch = epoch
-        return int(self.step_count.item()), slab_dict(self.metrics)
+        return int(self.step_count.item()), slab_dict(
+            self.global_tensor(self.metrics))
 
     # ------------------------------------------------- checkpoint / recovery
     def checkpoint(self, directory: str, keep: Optional[int] = None,
@@ -755,15 +949,22 @@ class ShardedBatchedSystem:
         """Checkpoint barrier (see BatchedSystem.checkpoint): synchronize
         the card, snapshot the schema-v3 slab tree, compact the attached
         tell journal (unless `compact=False`), remove snapshots past the
-        `keep` newest. Returns the snapshot's path."""
-        from ..persistence.slab_snapshot import gc_slabs, save_slabs
+        `keep` newest. Returns the snapshot's path. On a ranked mesh every
+        rank gathers the global tree (the one-card layout), rank 0 writes
+        it and removes old snapshots, and every rank returns once it is
+        written."""
+        from ..persistence.slab_snapshot import (gc_slabs, save_slab_tree,
+                                                 slab_path, slab_pytree)
         self.block_until_ready()
-        path = save_slabs(self, directory)
+        tree = slab_pytree(self, gather=self.global_tensor)
+        if self.mesh.rank == 0:
+            save_slab_tree(tree, directory)
         if self.tell_journal is not None and compact:
             self.tell_journal.compact(self._host_step)
-        if keep is not None:
+        if keep is not None and self.mesh.rank == 0:
             gc_slabs(directory, keep)
-        return path
+        self.barrier()
+        return slab_path(directory, int(tree["step_count"]))
 
     def restore(self, path: str, journal=None) -> int:
         """Crash recovery, also across shard counts: a snapshot of this
@@ -790,8 +991,8 @@ class ShardedBatchedSystem:
                              f"system capacity {self.capacity}")
         self.block_until_ready()
         if tuple(np.shape(tree["inbox_dst"])) == \
-                tuple(self.inbox_dst.shape):
-            restore_slab_pytree(self, tree)
+                (self.n_shards * self.m_local,):
+            restore_slab_pytree(self, self._own_tree(tree))
         else:
             self._restore_resharded(tree)
         if self.metrics_on:
@@ -803,6 +1004,19 @@ class ShardedBatchedSystem:
         if journal is not None:
             replay_journal(self, journal)
         return self._host_step
+
+    def _own_tree(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's block of a global slab tree (`tree` itself without
+        a group)."""
+        if self.ranks is None:
+            return tree
+        out = {k: self.local_block(v, getattr(self, k))
+               if isinstance(getattr(self, k, None), torch.Tensor) else v
+               for k, v in tree.items() if k != "state"}
+        out["state"] = {k: self.local_block(v, self.state[k])
+                        if k in self.state else v
+                        for k, v in tree["state"].items()}
+        return out
 
     def _restore_resharded(self, tree: Dict[str, Any]) -> None:
         """Re-shard a snapshot whose inbox layout differs from this
@@ -817,13 +1031,19 @@ class ShardedBatchedSystem:
         that order on the first restored step. Every slab is written in
         place, and the step's graphs are dropped: the first restored run
         captures again (the reference's jit retraces a re-sharded
-        carry)."""
+        carry). On a ranked mesh the global arrays are built alike on
+        every rank, and each writes its own block."""
         from ..persistence.slab_snapshot import (check_schema,
-                                                 restore_state_columns,
-                                                 write_slab)
+                                                 restore_state_columns)
+        from ..persistence.slab_snapshot import write_slab as write_global
+
+        def write_slab(cur, arr):
+            return write_global(cur, self.local_block(arr, cur))
+
         check_schema(tree)
         self._graphs.clear()
-        restore_state_columns(self, tree)
+        restore_state_columns(self, self._own_tree(
+            {"state": tree["state"]}))
         write_slab(self.behavior_id,
                    np.asarray(tree["behavior_id"], np.int32))
         write_slab(self.alive, np.asarray(tree["alive"], np.bool_))

@@ -21,12 +21,17 @@ Replicas of a bank over a mesh (`replicate_bank`, `converge_over_mesh`)
 are the leading axis of one tensor on the mesh's card: one replica per
 slot of the mesh's replica axis (parallel/mesh.py), and converging them
 is one `amax` over that axis (`any` for boolean banks), broadcast back.
-A mesh over several cards or ranks raises NotImplementedError: that
-all-reduce is ROADMAP A10.2.
+When the replica axis spans the ranks of the mesh's process group, each
+rank holds its own replicas (the axis's size over the world size) as the
+bank's leading axis: it merges them locally with one `amax` (`any`),
+then runs one `all_reduce(MAX)` over the group (uint32 banks as int64
+values in [0, 2^32): gloo refuses uint32), and broadcasts the join back
+over its replicas, in the reference's dtypes.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..parallel.mesh import mesh_of
@@ -82,31 +87,51 @@ def gcounter_increment(bank: torch.Tensor, node_slot: int,
 
 
 def _replicas(mesh, axis: str):
-    """The replica count and card of a one-card mesh (or placement)."""
+    """The mesh (of a mesh or placement) and the replicas of its `axis`
+    this rank holds: all of them without a group, else the axis's size
+    over the world size, the group's ranks laid along the axis."""
     m = mesh_of(mesh)
     if axis not in m.shape:
         raise ValueError(f"the mesh has no axis {axis!r} ({m.axis_names})")
-    return m.shape[axis], m.device
+    n = m.shape[axis]
+    m.device  # this rank's slots lie on one card (one process per card)
+    if m.group is None:
+        return m, n
+    ranks = np.vectorize(lambda slot: slot.rank, otypes=[np.int64])(
+        np.moveaxis(m.devices, m.axis_names.index(axis), 0))
+    along = ranks.reshape(n, -1)
+    per = n // m.world_size
+    if n % m.world_size or (along != along[:, :1]).any() or \
+            (along[:, 0] != np.arange(n) // per).any():
+        raise ValueError(f"the ranks of the mesh's group are not laid "
+                         f"along its {axis!r} axis")
+    return m, per
 
 
 def converge_over_mesh(bank: torch.Tensor, mesh, axis: str = "replica",
                        op: str = "max") -> torch.Tensor:
-    """All-replica merge of a replicated bank: `bank` holds one replica
-    per slot of the mesh's `axis` along its leading axis (as
-    `replicate_bank` lays it out). Every replica becomes the join of all
-    of them: the max over the replica axis ("or" for boolean banks),
-    broadcast back. Returns a new bank of `bank`'s shape and dtype."""
-    n, _card = _replicas(mesh, axis)
+    """All-replica merge of a replicated bank: `bank` holds this rank's
+    replicas of the mesh's `axis` (every replica without a group) along
+    its leading axis (as `replicate_bank` lays it out). Every replica
+    becomes the join of all of them: the max over the replica axis ("or"
+    for boolean banks), broadcast back; over ranks one all_reduce joins
+    the ranks' local joins (every rank calls it alike). Returns a new
+    bank of `bank`'s shape and dtype."""
+    m, n = _replicas(mesh, axis)
     if bank.shape[0] != n:
         raise ValueError(f"bank has {bank.shape[0]} replicas, the mesh's "
-                         f"{axis!r} axis {n}")
+                         f"{axis!r} axis {n} on this rank")
     if op == "or":
         merged = bank.to(torch.bool).any(dim=0)
+        if m.ranks is not None:
+            merged = m.ranks.any(merged)
     elif op == "max":
+        wide = u32(bank) if bank.dtype == torch.uint32 else bank
+        merged = wide.amax(dim=0)
+        if m.ranks is not None:
+            merged = m.ranks.all_reduce(merged, "max")
         if bank.dtype == torch.uint32:
-            merged = to_uint32(u32(bank).amax(dim=0))
-        else:
-            merged = bank.amax(dim=0)
+            merged = to_uint32(merged)
     else:
         raise ValueError(f"unknown merge op {op!r} (max, or)")
     return merged.unsqueeze(0).expand_as(bank).clone()
@@ -114,9 +139,10 @@ def converge_over_mesh(bank: torch.Tensor, mesh, axis: str = "replica",
 
 def replicate_bank(bank: torch.Tensor, mesh,
                    axis: str = "replica") -> torch.Tensor:
-    """Stack one replica of `bank` per slot of the mesh's `axis` along a
-    new leading axis, on the mesh's card (a test and bootstrap helper:
-    real deployments start each node with its own local bank)."""
-    n, card = _replicas(mesh, axis)
-    return bank.to(card).unsqueeze(0).expand((n,) + tuple(bank.shape)) \
-        .clone()
+    """Stack one replica of `bank` per slot of the mesh's `axis` that this
+    rank holds along a new leading axis, on the mesh's card (this rank's)
+    (a test and bootstrap helper: real deployments start each node with
+    its own local bank)."""
+    m, n = _replicas(mesh, axis)
+    return bank.to(m.device).unsqueeze(0).expand(
+        (n,) + tuple(bank.shape)).clone()

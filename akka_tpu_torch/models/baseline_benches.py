@@ -109,12 +109,15 @@ def seed_ring_full(sys) -> None:
 def seed_sharded_ring(sys: ShardedBatchedSystem) -> None:
     """One token [1, 0, 0, 0] per actor, written straight into each shard's
     self-chunk of the exchange region: shard s's row r at inbox row
-    s * m_local + spill_cap + s * pair_cap + r."""
-    d, ln, ml = sys.n_shards, sys.local_n, sys.m_local
+    s * m_local + spill_cap + s * pair_cap + r (on a ranked mesh, each
+    rank its own shards', at their places in its block)."""
+    ln, ml = sys.local_n, sys.m_local
     r = min(ln, sys.pair_cap)
-    shard = torch.arange(d, dtype=torch.int64, device=sys.device)[:, None]
+    local = torch.arange(sys.local_shards, dtype=torch.int64,
+                         device=sys.device)[:, None]
+    shard = local + sys.shard0
     rows = torch.arange(r, dtype=torch.int64, device=sys.device)[None, :]
-    idx = (shard * ml + sys.spill_cap + shard * sys.pair_cap + rows) \
+    idx = (local * ml + sys.spill_cap + shard * sys.pair_cap + rows) \
         .reshape(-1)
     sys.inbox_dst[idx] = (shard * ln + rows).reshape(-1).to(torch.int32)
     sys.inbox_payload[idx, 0] = 1.0

@@ -66,8 +66,14 @@ class EntityJournal:
     def __init__(self, path: str, flight_recorder: Optional[Any] = None,
                  fsync_every_n: int = 1, snapshot_every: int = 64,
                  compact_every: int = 8192, registry=None,
-                 max_replies: int = 1 << 16):
+                 max_replies: int = 1 << 16, writer: bool = True):
         self.path = path
+        # writer=False (a port addition): a follower of another process's
+        # or rank's journal (a ranked region's ranks other than 0). It
+        # folds the file at open and every appended wave in memory, and
+        # never opens, repairs or writes the file
+        self.writer = bool(writer)
+        self._closed = False
         self.flight_recorder = flight_recorder
         self.fsync_every_n = max(1, int(fsync_every_n))
         self.snapshot_every = max(1, int(snapshot_every))
@@ -95,10 +101,13 @@ class EntityJournal:
             self._h_replay = registry.histogram(
                 "entity_replay_events",
                 "events folded per entity during restore replay")
-        parent = os.path.dirname(os.path.abspath(path))
-        os.makedirs(parent, exist_ok=True)
-        self.truncated_bytes = repair_record_log(path, flight_recorder)
-        self._fh = open(path, "ab")
+        self.truncated_bytes = 0
+        self._fh = None
+        if self.writer:
+            parent = os.path.dirname(os.path.abspath(path))
+            os.makedirs(parent, exist_ok=True)
+            self.truncated_bytes = repair_record_log(path, flight_recorder)
+            self._fh = open(path, "ab")
         self._fold_existing()
 
     # -- open-time fold ------------------------------------------------------
@@ -160,7 +169,7 @@ class EntityJournal:
         if not events and not replies:
             return 0
         with self._lock:
-            if self._fh is None:
+            if self._closed:
                 raise ValueError("EntityJournal is closed")
             crossed = set()
             for eid, op, value in events:
@@ -217,12 +226,17 @@ class EntityJournal:
         return len(events)
 
     def _write_record(self, rec: Dict[str, Any]) -> None:
+        if not self.writer:
+            return
         blob = pickle.dumps(rec, protocol=4)
         self._fh.write(len(blob).to_bytes(8, "little"))
         self._fh.write(blob)
         self._fh.flush()
 
     def _fsync_locked(self) -> None:
+        if not self.writer:
+            self._since_fsync = 0
+            return
         t0 = time.perf_counter()
         os.fsync(self._fh.fileno())
         self._since_fsync = 0
@@ -281,8 +295,12 @@ class EntityJournal:
         Atomic: tmp + fsync + replace, then the append handle reopens.
         Returns the compacted file's entity count."""
         with self._lock:
-            if self._fh is None:
+            if self._closed:
                 raise ValueError("EntityJournal is closed")
+            if not self.writer:
+                self._events_since_compact = 0
+                self._counts = {eid: 0 for eid in self._totals}
+                return len(self._totals)
             rec = {"step": int(self._last_step), "events": [],
                    "snaps": dict(self._totals)}
             if self._replies:
@@ -306,6 +324,7 @@ class EntityJournal:
 
     def close(self) -> None:
         with self._lock:
+            self._closed = True
             if self._fh is not None:
                 if self._since_fsync:
                     self._fh.flush()

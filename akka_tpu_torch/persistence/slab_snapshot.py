@@ -57,7 +57,8 @@ _ZERO_FILL_ON_MISMATCH = ("attention", "metrics", "inbox_enq")
 
 __all__ = ["SCHEMA_VERSION", "slab_pytree", "restore_slab_pytree",
            "restore_state_columns", "check_schema", "save_slabs",
-           "save_slab_tree", "load_slab_tree", "restore_slabs",
+           "save_slab_tree", "slab_path", "load_slab_tree",
+           "restore_slabs",
            "latest_slab_path", "gc_slabs", "host_array", "write_slab"]
 
 
@@ -92,19 +93,22 @@ def check_schema(tree: Dict[str, Any]) -> int:
     return version
 
 
-def slab_pytree(system) -> Dict[str, Any]:
+def slab_pytree(system, gather=None) -> Dict[str, Any]:
     """The full device state of a BatchedSystem or ShardedBatchedSystem as
     a tree of host copies. Callers quiesce first (`block_until_ready()`);
-    the systems' `checkpoint()` does."""
+    the systems' `checkpoint()` does. `gather` (a port addition) maps each
+    slab to the one copied, before the copy: a ranked system's
+    `global_tensor`, which gathers every rank's block."""
+    g = gather if gather is not None else (lambda t: t)
     tree: Dict[str, Any] = {
         "schema_version": np.int64(SCHEMA_VERSION),
-        "state": {k: host_array(v) for k, v in system.state.items()}}
+        "state": {k: host_array(g(v)) for k, v in system.state.items()}}
     for k in _SLAB_KEYS:
         v = getattr(system, k, None)
         # a zero-size slab (inbox_enq with metrics off) is omitted; the
         # restore path zero-fills an absent v3 key
         if v is not None and v.numel() != 0:
-            tree[k] = host_array(v)
+            tree[k] = host_array(g(v))
     return tree
 
 
@@ -162,11 +166,17 @@ def save_slabs(system, directory: str, step: Optional[int] = None) -> str:
     return save_slab_tree(slab_pytree(system), directory, step)
 
 
+def slab_path(directory: str, step: int) -> str:
+    """The path `save_slab_tree` writes the snapshot of `step` to."""
+    return os.path.join(os.path.abspath(directory), f"slab-{int(step)}.npz")
+
+
 def save_slab_tree(tree: Dict[str, Any], directory: str,
                    step: Optional[int] = None) -> str:
     """Write a host slab tree (`slab_pytree` output) as
     `<directory>/slab-<step>.npz`: tmp + fsync + os.replace."""
-    name = f"slab-{step if step is not None else int(tree['step_count'])}"
+    final = slab_path(directory, step if step is not None
+                      else int(tree["step_count"]))
     os.makedirs(directory, exist_ok=True)
     flat = {"schema_version": np.asarray(tree["schema_version"])}
     for col, arr in tree["state"].items():
@@ -174,7 +184,6 @@ def save_slab_tree(tree: Dict[str, Any], directory: str,
     for k in _SLAB_KEYS:
         if k in tree:
             flat[k] = np.asarray(tree[k])
-    final = os.path.join(os.path.abspath(directory), name + ".npz")
     tmp = final + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **flat)

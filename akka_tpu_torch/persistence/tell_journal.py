@@ -21,6 +21,14 @@ the snapshot: replaying it writes the same rows with the same values.
 Records hold numpy arrays only (host copies, never torch tensors), so the
 JAX package can read a WAL the port wrote. Torn tails (kill -9 mid-append)
 are truncated on open (journal.repair_record_log).
+
+A journal opened with `writer=False` (a port addition: the ranks other
+than 0 of a ranked region, whose rank 0 writes the one WAL) never opens,
+repairs or writes the file: appends and compactions are no-ops (a
+compaction keeps 0 records), and `records()` reads what the writer
+wrote. `replay_journal` reads every
+record before it steps, so a writer's appends after the replay began
+are not replayed by a rank that is behind.
 """
 
 from __future__ import annotations
@@ -57,8 +65,9 @@ class TellJournal:
     """
 
     def __init__(self, path: str, flight_recorder: Optional[Any] = None,
-                 fsync_every_n: int = 1):
+                 fsync_every_n: int = 1, writer: bool = True):
         self.path = path
+        self.writer = bool(writer)
         self.flight_recorder = flight_recorder
         # group commit: fsync once per n appends. Every append still
         # flush()es to the OS page cache, so a process crash (kill -9)
@@ -66,14 +75,19 @@ class TellJournal:
         # exposure to at most n-1 records
         self.fsync_every_n = max(1, int(fsync_every_n))
         self._since_fsync = 0
-        parent = os.path.dirname(os.path.abspath(path))
-        os.makedirs(parent, exist_ok=True)
-        self.truncated_bytes = repair_record_log(path, flight_recorder)
         self._lock = threading.Lock()
-        self._fh = open(path, "ab")
+        self.truncated_bytes = 0
+        self._fh = None
+        if self.writer:
+            parent = os.path.dirname(os.path.abspath(path))
+            os.makedirs(parent, exist_ok=True)
+            self.truncated_bytes = repair_record_log(path, flight_recorder)
+            self._fh = open(path, "ab")
 
     # -- write side ----------------------------------------------------------
     def append(self, step: int, kind: str, dst, payload, mtype) -> None:
+        if not self.writer:
+            return
         rec: Dict[str, Any] = {
             "step": int(step),
             "kind": kind,
@@ -121,6 +135,8 @@ class TellJournal:
         while tells go on) lands before the read or after the reopen,
         never in between, where the replace would lose it (the
         reference reads before it takes the lock)."""
+        if not self.writer:
+            return 0  # a follower keeps no records of its own
         tmp = self.path + ".tmp"
         with self._lock:
             if self._fh is not None:
@@ -162,7 +178,7 @@ def replay_journal(system, journal: TellJournal) -> int:
     start = system._host_step
     saved, system.tell_journal = system.tell_journal, None
     try:
-        for rec in journal.records():
+        for rec in list(journal.records()):
             step = int(rec["step"])
             if step < start:
                 continue

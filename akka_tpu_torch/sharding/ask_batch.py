@@ -55,7 +55,6 @@ from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from ..batched.core import snapshot_word
 from ..event.tracing import NOOP_SPAN, current_ctx, reset_ctx, set_ctx
@@ -155,7 +154,7 @@ def _reset_batch_latches(region, slots: Sequence[int]) -> None:
     col = region.system.state["__promise_replied"]
     base = region._promise_block * region.eps
     idx = np.asarray(list(slots), np.int64) + base
-    col[torch.from_numpy(idx).to(col.device)] = False
+    region.system.set_rows(col, idx, False)
 
 
 def _assemble_slots(region, batch: Sequence[BatchAsk]) -> List[BatchAsk]:
@@ -316,16 +315,14 @@ def execute_ask_batch(region, batch: Sequence[BatchAsk]) -> None:
             # read doubles as the run's sync, and the wide promise-block
             # readback is paid only when ATT_LATCH_BIT says some latch
             # is actually high
-            att = decode_attention(sys.attention)
+            att = decode_attention(sys.attention_words())
             replied_blk = reply_blk = None
             if att["any_latched"] or not getattr(region, "_ask_latch_wired",
                                                  False):
-                from ..batched.bridge import read_promise_block
                 with wspan.child("wave.readback", wave_id=wave_id,
                                  round=rounds):
-                    replied_blk, reply_blk = read_promise_block(
-                        sys.state, base, eps, "__promise_replied",
-                        "__promise_reply")
+                    replied_blk, reply_blk = sys.read_promise_block(
+                        base, eps, "__promise_replied", "__promise_reply")
             done_rows: List[int] = []
             for row, a in in_flight.items():
                 if replied_blk is not None and bool(replied_blk[a.slot]):
@@ -440,9 +437,19 @@ class ContinuousWaveScheduler:
     _waves, _cum, _resolve_seq) is mutated only under `region._ask_lock`
     — the same lock checkpoint/rebalance/failover/sum already take, so
     maintenance ops interleave between rounds instead of between waves.
-    `self._lock` guards only the overlap statistics."""
+    `self._lock` guards only the overlap statistics.
+
+    A region over a mesh of ranks is refused (NotImplementedError naming
+    ROADMAP A10.3): its rounds follow wall-clock arrivals, which the
+    ranks of an SPMD program do not share; such a region serves through
+    the serialized engine (`ask_many`)."""
 
     def __init__(self, region, depth: int = 4):
+        if region.system.mesh.group is not None:
+            raise NotImplementedError(
+                "the continuous wave scheduler over a region of ranks: "
+                "its rounds follow wall-clock arrivals, which ranks do not "
+                "share (ROADMAP A10.3); use the serialized engine")
         self.region = region
         self.depth = max(1, int(depth))
         # attention rounds kept in flight ahead of the drain: 2 lets
@@ -662,10 +669,8 @@ class ContinuousWaveScheduler:
             replied_blk = reply_blk = None
             if att["any_latched"] or not getattr(region,
                                                  "_ask_latch_wired", False):
-                from ..batched.bridge import read_promise_block
-                replied_blk, reply_blk = read_promise_block(
-                    sys.state, base, eps, "__promise_replied",
-                    "__promise_reply")
+                replied_blk, reply_blk = sys.read_promise_block(
+                    base, eps, "__promise_replied", "__promise_reply")
             tracer = getattr(region, "tracer", None)
             done_rows: List[int] = []
             for row, a in self._row_owner.items():
@@ -864,12 +869,23 @@ class AskBatcher:
 
     With a MetricsRegistry: `gateway_ask_batch_size` and
     `gateway_ask_batch_window_us` histograms, plus an "ask_batch"
-    collector exposing the summary counters."""
+    collector exposing the summary counters.
+
+    A region over a mesh of ranks is refused (NotImplementedError naming
+    ROADMAP A10.3), as by ContinuousWaveScheduler: batches close on
+    wall-clock windows, which the ranks of an SPMD program do not share,
+    so two ranks could form different waves and their collectives would
+    not match; such a region serves through `ask_many`."""
 
     def __init__(self, region, max_batch: int = 32,
                  window_s: float = 200e-6, steps: int = 2,
                  max_extra_steps: int = 8, registry=None,
                  continuous: bool = False, pipeline_depth: int = 4):
+        if region.system.mesh.group is not None:
+            raise NotImplementedError(
+                "the ask batcher over a region of ranks: its batches close "
+                "on wall-clock windows, which ranks do not share (ROADMAP "
+                "A10.3); use the serialized engine")
         self.region = region
         # a batch larger than the promise pool would guarantee typed
         # exhaustion for the overflow members; cap it at the pool size

@@ -31,10 +31,24 @@ Observability is the reference's: `attach_tracer` wires a causal tracer
 then stamped on this region's step axis; the journals take the system's
 flight recorder and, for the entity journal, a metrics registry.
 
-A region's "devices" are shard slots of one card (parallel/mesh.py):
-`n_devices` is the shard count of the system's axis, `mesh=` may give the
-slots, and `failover(survivors)` rebuilds the region on a subset of them
+A region's "devices" are shard slots (parallel/mesh.py): `n_devices` is
+the shard count of the system's axis, `mesh=` may give the slots, and
+`failover(survivors)` rebuilds the region on a subset of one card's slots
 from the latest snapshot and the WAL, as the reference's does.
+
+Over a mesh that carries a process group the region is one rank of an
+SPMD program, as the reference's region over a multi-process mesh is:
+every rank makes the same calls (entity refs, asks, rebalances,
+checkpoints, restores) and gets the same replies. Its system holds the
+rank's block of the shard axis (batched/sharded.py); every device write
+goes through the system's `set_rows`/`move_rows` (each rank writes its
+own rows) and every read through a collective, so every rank takes the
+same branch of the ask loop. Only rank 0 writes the journals, the
+snapshots, `entities.log` and `region.json`; the other ranks' journals
+follow (`writer=False`) and read those files at restore. `failover` over
+several ranks raises NotImplementedError naming ROADMAP A10.3, and so
+does the continuous wave scheduler (ask_batch.py), whose rounds follow
+wall-clock arrivals that ranks do not share.
 """
 
 from __future__ import annotations
@@ -51,7 +65,6 @@ import torch
 
 from ..batched import Emit, behavior
 from ..batched.behavior import BatchedBehavior
-from ..batched.bridge import read_promise_block
 from ..batched.sharded import ShardedBatchedSystem
 from ..parallel.mesh import make_mesh, mesh_of
 
@@ -121,9 +134,9 @@ class DeviceShardRegion:
     """Owns the ShardedBatchedSystem and the logical -> physical placement.
 
     device defaults to CUDA and raises without a card unless device="cpu"
-    is passed. mesh: a one-card mesh of shard slots (parallel/mesh.py);
-    `spec.n_devices` defaults to its size (else to 1). A mesh over several
-    cards raises NotImplementedError (ROADMAP A10.2)."""
+    is passed. mesh: a mesh of shard slots (parallel/mesh.py), of one card
+    or over a process group's ranks (the module docstring);
+    `spec.n_devices` defaults to its size (else to 1)."""
 
     def __init__(self, spec: DeviceEntity, mesh=None, device=None):
         self.type_name = spec.type_name
@@ -251,8 +264,9 @@ class DeviceShardRegion:
         sys = self.system
         base = self._promise_block * self.eps
         rows = slice(base, base + self.eps)
-        sys.behavior_id[rows] = len(sys.behaviors) - 1  # registered last
-        sys.alive[rows] = True
+        sys.set_rows(sys.behavior_id, rows,
+                     len(sys.behaviors) - 1)  # registered last
+        sys.set_rows(sys.alive, rows, True)
 
     def ask(self, shard: int, index: int, message, steps: int = 2,
             max_extra_steps: int = 8):
@@ -312,8 +326,8 @@ class DeviceShardRegion:
         if not retired:
             return 0
         base = self._promise_block * self.eps
-        landed, _ = read_promise_block(self.system.state, base, self.eps,
-                                       "__promise_replied")
+        landed, _ = self.system.read_promise_block(base, self.eps,
+                                                   "__promise_replied")
         freed = [s for s in retired if bool(landed[s])]
         with self._lock:
             for s in freed:
@@ -380,8 +394,8 @@ class DeviceShardRegion:
         # outside the registry lock
         with self._ask_lock:
             sys = self.system
-            sys.behavior_id[rows] = 0
-            sys.alive[rows] = True
+            sys.set_rows(sys.behavior_id, rows, 0)
+            sys.set_rows(sys.alive, rows, True)
 
     def allocate_all(self) -> None:
         """Activate every entity slot at once (bench path: 256 x 4096 rows
@@ -400,8 +414,9 @@ class DeviceShardRegion:
                 pbase = self._promise_block * self.eps
                 alive[pbase:pbase + self.eps] = True
                 behavior_id[pbase:pbase + self.eps] = len(sys.behaviors) - 1
-        sys.alive.copy_(torch.from_numpy(alive))
-        sys.behavior_id.copy_(torch.from_numpy(behavior_id))
+        every = slice(0, sys.capacity)
+        sys.set_rows(sys.alive, every, alive)
+        sys.set_rows(sys.behavior_id, every, behavior_id)
 
     # ------------------------------------------------------------- rebalance
     def rebalance(self, shard: int, to_device: Optional[int] = None) -> int:
@@ -445,11 +460,8 @@ class DeviceShardRegion:
         eps = self.eps
         old = slice(old_block * eps, (old_block + 1) * eps)
         new = slice(new_block * eps, (new_block + 1) * eps)
-        for arr in sys.state.values():
-            arr[new] = arr[old]
-        sys.behavior_id[new] = sys.behavior_id[old]
-        sys.alive[new] = sys.alive[old]
-        sys.alive[old] = False
+        sys.move_rows(old, new)
+        sys.set_rows(sys.alive, old, False)
         delta = (new_block - old_block) * eps
         in_old = (sys.inbox_dst >= old.start) & (sys.inbox_dst < old.stop)
         sys.inbox_dst.add_(in_old.to(torch.int32) * delta)
@@ -483,12 +495,19 @@ class DeviceShardRegion:
         self._journal = TellJournal(
             os.path.join(directory, "tells.wal"),
             flight_recorder=self.system.flight_recorder,
-            fsync_every_n=fsync_every_n)
+            fsync_every_n=fsync_every_n, writer=self._writes_files)
         self.system.tell_journal = self._journal
-        with self._lock:
-            self._ents_fh = open(os.path.join(directory, "entities.log"),
-                                 "a")
+        if self._writes_files:
+            with self._lock:
+                self._ents_fh = open(
+                    os.path.join(directory, "entities.log"), "a")
         return self._journal
+
+    @property
+    def _writes_files(self) -> bool:
+        """Whether this region writes the journals' files: always on one
+        card, rank 0 only over a process group."""
+        return self.system.mesh.rank == 0
 
     def attach_entity_journal(self, directory: Optional[str] = None,
                               fsync_every_n: int = 1,
@@ -517,11 +536,15 @@ class DeviceShardRegion:
         os.makedirs(directory, exist_ok=True)
         self._durable_col = state_col
         self._per_event_fsync = per_event_fsync
+        # a follower folds the file as it opens: over a process group,
+        # wait until rank 0 has committed every wave before this call
+        self.system.barrier()
         self._entity_journal = EntityJournal(
             os.path.join(directory, "entities.journal"),
             flight_recorder=self.system.flight_recorder,
             fsync_every_n=fsync_every_n, snapshot_every=snapshot_every,
-            compact_every=compact_every, registry=registry)
+            compact_every=compact_every, registry=registry,
+            writer=self._writes_files)
         return self._entity_journal
 
     def detach_entity_journal(self) -> None:
@@ -602,9 +625,8 @@ class DeviceShardRegion:
             return totals
         rows = [self.entity_ref(eid).row for eid in totals]
         col = self.system.state[self._durable_col]
-        idx = torch.as_tensor(np.asarray(rows, np.int64), device=col.device)
-        col[idx] = torch.as_tensor(np.asarray(list(totals.values())),
-                                   dtype=col.dtype, device=col.device)
+        self.system.set_rows(col, np.asarray(rows, np.int64),
+                             np.asarray(list(totals.values())))
         return totals
 
     def _sidecar_path(self) -> str:
@@ -616,7 +638,10 @@ class DeviceShardRegion:
         entity id owns which row. Promise slots held by asks in flight at
         the barrier are written as retired: their replies land in the
         restored run (snapshot inbox or WAL), and the reclaim frees
-        them."""
+        them. Only the region that writes the journals' files writes
+        it."""
+        if not self._writes_files:
+            return
         with self._lock:
             retired = list(self._promise_retired)
             taken = set(range(self.eps)) - set(self._promise_free) \
@@ -640,7 +665,8 @@ class DeviceShardRegion:
         """Quiescent-barrier slab snapshot (ShardedBatchedSystem.checkpoint:
         the card is synchronized before the slabs are read), placement
         sidecar, WAL and entity-journal compaction; `keep` snapshots are
-        kept. Returns the snapshot's path."""
+        kept. Returns the snapshot's path. Over a process group every
+        rank returns once rank 0 has written every file."""
         if self.checkpoint_dir is None:
             raise RuntimeError("attach_journal(directory) before checkpoint")
         with self._ask_lock:
@@ -657,6 +683,7 @@ class DeviceShardRegion:
                     self._ents_fh = open(
                         os.path.join(self.checkpoint_dir, "entities.log"),
                         "w")
+            self.system.barrier()
         return path
 
     def restore(self) -> int:
@@ -677,10 +704,12 @@ class DeviceShardRegion:
             if path is None:
                 raise FileNotFoundError(
                     f"no slab snapshot under {self.checkpoint_dir}")
+            self.system.barrier()  # rank 0's attaches have repaired
             with open(self._sidecar_path()) as f:
                 doc = json.load(f)
             self._load_sidecar(doc)
             self._merge_entity_log()
+            self.system.barrier()  # read before rank 0 appends again
             self._respawn_remembered()
             self._sync_tables()  # the replayed steps read the tables
             step = self._restore_and_replay(path)
@@ -750,15 +779,14 @@ class DeviceShardRegion:
                 rows.extend(range(base, base + int(self._spawned[shard])))
             promise = self._promise_spawned
         if rows:
-            idx = torch.as_tensor(np.asarray(rows, np.int64),
-                                  device=sys.device)
-            sys.behavior_id[idx] = 0
-            sys.alive[idx] = True
+            idx = np.asarray(rows, np.int64)
+            sys.set_rows(sys.behavior_id, idx, 0)
+            sys.set_rows(sys.alive, idx, True)
         if promise:
             pbase = self._promise_block * self.eps
             prow = slice(pbase, pbase + self.eps)
-            sys.behavior_id[prow] = len(sys.behaviors) - 1
-            sys.alive[prow] = True
+            sys.set_rows(sys.behavior_id, prow, len(sys.behaviors) - 1)
+            sys.set_rows(sys.alive, prow, True)
 
     def _load_sidecar(self, doc: Dict[str, Any]) -> None:
         with self._lock:
@@ -783,7 +811,13 @@ class DeviceShardRegion:
         blocks_per_device changes. total_blocks must divide by the
         survivor count. The tell journal is re-armed after the replay,
         and the entity journal's fold overwrites the durable column.
-        Returns the recovered step."""
+        Returns the recovered step. Over several ranks it raises
+        NotImplementedError: failover across ranks is ROADMAP A10.3."""
+        if self.system.mesh.group is not None:
+            raise NotImplementedError(
+                "DeviceShardRegion.failover over a mesh of ranks: "
+                "failover across ranks (every rank agreeing on the lost "
+                "slots, evicting only a live rank's) is ROADMAP A10.3")
         with self._ask_lock:
             return self._failover_locked(survivors)
 

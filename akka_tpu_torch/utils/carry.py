@@ -22,6 +22,11 @@ global layout, per-shard counters with a leading [n_shards] axis):
 The JAX reference's carry, fetched to numpy under the same keys, loads into
 a port system with `load_numpy_carry`, so both packages can start from one
 state and be compared field by field with `numpy_carry`.
+
+A ShardedBatchedSystem over a ranked mesh holds one block of every field:
+`numpy_carry` gathers the global carry (a collective: every rank calls it
+alike) and `load_numpy_carry` writes each rank's block of a global one,
+so one carry moves between a one-card system and W ranks either way.
 """
 
 from __future__ import annotations
@@ -55,9 +60,10 @@ def numpy_carry(system) -> Dict[str, np.ndarray]:
             return t.to("cpu", torch.float32, copy=True).numpy()
         return t.to("cpu", copy=True).numpy()
 
-    out = {f"state/{c}": host(v) for c, v in system.state.items()}
+    whole = system.global_tensor if sharded else (lambda t: t)
+    out = {f"state/{c}": host(whole(v)) for c, v in system.state.items()}
     for f in SHARDED_FIELDS if sharded else DEVICE_FIELDS:
-        out[f] = host(getattr(system, f))
+        out[f] = host(whole(getattr(system, f)))
     with system._lock:
         out["host/next_row"] = np.asarray(system._next_row, np.int64)
         if not sharded:
@@ -87,9 +93,11 @@ def load_numpy_carry(system, arrays: Dict[str, np.ndarray]) -> None:
         raise ValueError(f"carry state columns {sorted(cols)} do not match "
                          f"the system's {sorted(system.state)}")
     sharded = _sharded(system)
-    pairs = [(v, _check(v, arrays[f"state/{c}"], f"state/{c}"))
+    block = system.local_block if sharded else (lambda a, t: a)
+    pairs = [(v, _check(v, block(arrays[f"state/{c}"], v), f"state/{c}"))
              for c, v in system.state.items()]
-    pairs += [(getattr(system, f), _check(getattr(system, f), arrays[f], f))
+    pairs += [(getattr(system, f), _check(
+        getattr(system, f), block(arrays[f], getattr(system, f)), f))
               for f in (SHARDED_FIELDS if sharded else DEVICE_FIELDS)]
     if not sharded:
         generation = np.asarray(arrays["host/generation"], np.int64)

@@ -223,6 +223,33 @@ phase's systems, and their graph pools, are freed before the next.
    waves; every reply and total equals the host oracle (K1; K2 with 2
    bounded slots). Each leg's launches are counted, and each kernel is
    held to its plain version on the leg's fullest inbox.
+15. Ranks over torch.distributed (rank_paths, ROADMAP A10.2).
+   initialize_distributed("127.0.0.1:<free port>", 1, 0) starts an NCCL
+   group of world size 1 (the machine has one card). rank_nccl_ring:
+   build_cross_shard(256, 4096) on a ranked mesh of 8 slots over it,
+   stepping through CUDA graphs with the exchange's all_to_all_single
+   captured inside, against cross_shard_d8's one-card twin (a run of 20
+   steps, 3 interleaved timed pairs, 5 profiled steps of each: the
+   ranked step's device time beyond its twin's, name by name, and
+   NCCL's kernels); the closed form, every carry field (integers
+   bit-equal, floats within rtol/atol) and K1 once a step.
+   rank_nccl_slots: the same for build_cross_shard_slots (K2).
+   rank_region_nccl: region_serve's region on 2 slots of the group with
+   both journals (a WAL fsync per tell): 16 ask waves of 256 adds, a
+   checkpoint, a restore into a fresh region, 8 waves; every reply and
+   total equals the host oracle. rank_banks_nccl: converge_over_mesh of
+   a 2^20-key uint32 max bank and an "or" set held to the one-card join.
+   Then two gloo ranks as threads of this script, every rank's tensors on
+   the card, eager steps (a gloo group cannot be captured):
+   rank_gloo_ring (the same ring, 4 slots a rank, 10 steps, every rank's
+   global carry held to the one-card twin's; gloo takes the CUDA tensors
+   as they are, and the port stages nothing through host memory),
+   rank_region_gloo and rank_banks_gloo (1 slot a rank). The NCCL group
+   is destroyed in a finally; then rank_actor_system: an ActorSystem
+   with akka.jax-distributed.enabled starts its own NCCL group (an
+   all_reduce and a host ask go through) and terminate() destroys it.
+   K1 and K2 are counted on every leg and held to their plain versions
+   on each leg's fullest rank-local inbox.
 
 Any failure raises and the exit code is non-zero. The last lines are the
 kernel report (JSON, one row per kernel and payload dtype; `ms` and the
@@ -237,12 +264,15 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import datetime
 import os
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 from collections import deque
@@ -251,13 +281,15 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from akka_tpu_torch import (Actor, ActorSystem, DeadLetter, Props)
+from akka_tpu_torch import (Actor, ActorSystem, DeadLetter, Props, ask_sync)
 from akka_tpu_torch.batched import (BatchedRuntimeHandle, BatchedSystem,
                                     DeviceBlockRef, Emit, LaneSupervisor,
                                     behavior, device_props, get_handle,
                                     reply_dst)
 from akka_tpu_torch.batched.bridge import DeviceActorFailed
+from akka_tpu_torch.ddata import tensor as ddt
 from akka_tpu_torch.event.flight_recorder import (InMemoryFlightRecorder,
                                                   start_trace, stop_trace)
 from akka_tpu_torch.event.metrics import MetricsRegistry
@@ -276,6 +308,8 @@ from akka_tpu_torch.models.baseline_benches import (PAYLOAD_W,
                                                     ring_behavior,
                                                     seed_ring_full)
 from akka_tpu_torch.ops import cuda_mailbox as cm
+from akka_tpu_torch.parallel import (initialize_distributed, make_mesh,
+                                     process_group, shutdown_distributed)
 from akka_tpu_torch.sharding import (AskBatcher, DeviceEntity,
                                      DeviceShardRegion)
 from akka_tpu_torch.stream import DevicePipeline
@@ -459,14 +493,15 @@ def kernel_phase(lib):
 
 def flat_inputs(s):
     """The inputs of a sharded step's one delivery call, as it is about to
-    run: the flat inbox, rows addressed outside their shard masked, and
-    the recipient count."""
-    d, ml = s.n_shards, s.m_local
+    run: the flat inbox of this rank's shards (all of them on one card),
+    rows addressed outside their shard masked, recipients as this rank's
+    rows, and the recipient count."""
+    d, ml = s.local_shards, s.m_local
     dst = s.inbox_dst.view(d, ml)
     own = s.inbox_valid.view(d, ml) & (dst >= s._bases) \
         & (dst < s._bases + s.local_n)
-    return (s.inbox_dst.clone(), s.inbox_type.clone(),
-            s.inbox_payload.clone(), own.reshape(-1).clone()), s.capacity
+    return ((s.inbox_dst - s.row_lo).clone(), s.inbox_type.clone(),
+            s.inbox_payload.clone(), own.reshape(-1).clone()), s.n_rows
 
 
 class Launches:
@@ -730,30 +765,34 @@ def twin_check(label: str, build, backend, seed=seed_ring_full):
     return after
 
 
+def cross_shard_ring_check(label, d):
+    """The cross-shard ring's closed form on d shards (all of them this
+    rank's): one token a step for every entity, nothing dropped, every
+    token in flight and, on several shards, every message across one."""
+    def check_fn(x, steps):
+        check((x.read_state("received") == steps).all(),
+              f"{label}: every entity received one token per step")
+        check(x.total_dropped == 0 and x.mailbox_overflow == 0,
+              f"{label}: total_dropped == 0")
+        pc, sc = x.pair_cap, x.spill_cap
+        chunks = x.inbox_valid.view(d, x.m_local)[:, sc:sc + d * pc] \
+            .view(d, d, pc)
+        check(int(chunks.sum()) == x.capacity, f"{label}: every token "
+              "in flight")
+        if d > 1:
+            check(not bool(chunks.diagonal().any()),
+                  f"{label}: every message crossed a shard")
+    return check_fn
+
+
 def sharded_paths(launches: dict) -> dict:
     """The sharded system's paths; returns the 8-shard paths' delivery
     inputs by kernel."""
-    def cross_shard_check(label, d):
-        def check_fn(x, steps):
-            check((x.read_state("received") == steps).all(),
-                  f"{label}: every entity received one token per step")
-            check(x.total_dropped == 0 and x.mailbox_overflow == 0,
-                  f"{label}: total_dropped == 0")
-            pc, sc = x.pair_cap, x.spill_cap
-            chunks = x.inbox_valid.view(d, x.m_local)[:, sc:sc + d * pc] \
-                .view(d, d, pc)
-            check(int(chunks.sum()) == x.capacity, f"{label}: every token "
-                  "in flight")
-            if d > 1:
-                check(not bool(chunks.diagonal().any()),
-                      f"{label}: every message crossed a shard")
-        return check_fn
-
     flat = {}
     for d, label in ((1, "sharded_ring_d1"), (8, "cross_shard_d8")):
         x, _ = step_cell(label, "ring_reduce", lambda: build_cross_shard(
             256, 4096, n_devices=d, device="cuda"), launches,
-            cross_shard_check(label, d), N, sweeps=d == 8)
+            cross_shard_ring_check(label, d), N, sweeps=d == 8)
         if d == 8:
             flat["K1"] = flat_inputs(x)
         del x
@@ -2937,6 +2976,378 @@ def failover_paths(launches: dict) -> dict:
     return flats
 
 
+# ------------------------------------------------------------------ ranks
+RANK_GLOO_STEPS = 10        # rank_gloo_ring's steps (the exchange may
+                            # cross the host every step)
+RANK_WAVES = (16, 8)        # rank_region's waves before the checkpoint,
+                            # and after the restore
+RANK_TIMEOUT_S = 60.0       # the gloo store's and groups' timeout
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 (the coordinator's)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def gloo_ranks(world: int, fn, tag: str) -> list:
+    """fn(rank, group) on `world` gloo ranks as threads of this process
+    (one HashStore, a ProcessGroupGloo each; RANK_TIMEOUT_S timeouts):
+    each rank's result in rank order; the first rank's error re-raised;
+    every thread joined and none left alive."""
+    store = dist.HashStore()
+    store.set_timeout(datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    out, errors = [None] * world, [None] * world
+
+    def body(r):
+        try:
+            group = dist.ProcessGroupGloo(
+                dist.PrefixStore(tag, store), r, world,
+                datetime.timedelta(seconds=RANK_TIMEOUT_S))
+            out[r] = fn(r, group)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors[r] = e
+
+    threads = [threading.Thread(target=body, args=(r,), daemon=True,
+                                name=f"gloo-{tag}-{r}")
+               for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10 * RANK_TIMEOUT_S)
+    check(not any(t.is_alive() for t in threads), f"{tag}: every gloo "
+          f"rank thread ended")
+    for e in errors:
+        if e is not None:
+            raise e
+    return out
+
+
+def collective_share(label: str, g, e, steps: int, count) -> None:
+    """`steps` steps of the ranked system `g` and of its one-card twin
+    `e`, each under torch.profiler: the card's time by kernel (and copy)
+    name, and what the ranked step spends beyond its twin, name by name
+    (the collective and the permuted copy that replaces the transpose),
+    as a share of its busy time; NCCL's kernels by name."""
+    def by_name(fn):
+        with ps.traced() as prof:
+            fn()
+        out: Dict[str, float] = {}
+        for ev in ps.device_events(prof.key_averages()):
+            out[ev.key] = out.get(ev.key, 0.0) + ps.device_us(ev)
+        return out
+
+    ranked = by_name(lambda: count(lambda: g.run(steps)))
+    one = by_name(lambda: e.run(steps))
+    busy = sum(ranked.values())
+    extra = {k: v - one.get(k, 0.0) for k, v in ranked.items()
+             if v - one.get(k, 0.0) > 0.01 * busy}
+    nccl = {k: v for k, v in ranked.items() if "nccl" in k.lower()}
+    print(f"{label} profiled {steps} steps: device_busy_ms_per_step ranked "
+          f"{busy / 1e3 / steps} one_card {sum(one.values()) / 1e3 / steps}"
+          f"; ranked beyond its twin, ms per step: "
+          f"{ {k: v / 1e3 / steps for k, v in extra.items()} } share "
+          f"{sum(extra.values()) / busy if busy else None}; nccl kernels "
+          f"ms per step { {k: v / 1e3 / steps for k, v in nccl.items()} }")
+    top = sorted(ranked.items(), key=lambda kv: -kv[1])[:8]
+    print(f"{label} ranked top kernels ms per step "
+          f"{[(k[:60], v / 1e3 / steps) for k, v in top]}")
+
+
+def rank_ring(label: str, kernel: str, build, group, launches: dict,
+              check_fn) -> dict:
+    """The cross-shard ring at full width on a ranked mesh of 8 slots over
+    the NCCL group, with graphs (the collectives captured), against its
+    one-card twin (cross_shard_d8's system, graphs too): a first run of
+    STEPS, PAIRS interleaved timed runs (ranked, one card), a profiled
+    run (the collective's share), the closed form, the carries (integers
+    bit-equal, floats within RTOL/ATOL) and K1/K2 once per step."""
+    g = build(make_mesh(8, group=group))
+    e = build(None)
+    check(g.mesh.world_size == 1 and g.ranks.backend == "nccl" and
+          not g._eager, f"{label}: a ranked system stepping on graphs")
+    for s in (g, e):
+        seed_ring_full(s)
+    t0 = time.perf_counter()
+    g.warmup()
+    print(f"{label} warmup_s {time.perf_counter() - t0}")
+    e.warmup()
+    count = Launches()
+    count(lambda: g.run(STEPS))
+    e.run(STEPS)
+    times = {"ranked": [], "one_card": []}
+    for _ in range(PAIRS):
+        times["ranked"].append(count(lambda: bm.cuda_ms(
+            lambda: g.run(STEPS), iters=1, warmup=0)) / STEPS)
+        times["one_card"].append(bm.cuda_ms(lambda: e.run(STEPS), iters=1,
+                                            warmup=0) / STEPS)
+    for mode, ts in times.items():
+        print(f"{label} {mode} ms_per_step {float(np.median(ts))} "
+              f"pairs {ts}")
+    print(f"{label} ranked_over_one_card "
+          f"{np.median(times['ranked']) / np.median(times['one_card'])}")
+    collective_share(label, g, e, PROFILE_STEPS, count)
+    torch.cuda.synchronize()
+    check_fn(g, g._host_step)
+    check_twin(label, g, e, "one-card twin")
+    graph_line(label, g)
+    check(g._graphs.stats()["captures"] >= 1, f"{label}: the step and its "
+          f"all_to_all_single captured")
+    count.report(label, kernel, launches, g._host_step)
+    flat = {"K2" if kernel == "ring_slots" else "K1": flat_inputs(g)}
+    del g, e
+    free()
+    return flat
+
+
+def rank_gloo_ring(launches: dict) -> dict:
+    """rank_gloo_ring: the full-width cross-shard ring on two gloo ranks
+    (threads of this process) of 4 slots each, every rank's tensors on
+    the card, eager steps, RANK_GLOO_STEPS steps; every rank's global
+    carry held to the one-card twin's. Prints whether gloo took the CUDA
+    tensors or the port staged them through pinned host memory."""
+    label = "rank_gloo_ring"
+    twin = build_cross_shard(256, 4096, n_devices=8, device="cuda")
+    seed_ring_full(twin)
+    twin.warmup()
+    twin.run(RANK_GLOO_STEPS)
+    want = numpy_carry(twin)
+    del twin
+    free()
+
+    def rank(r, group):
+        mesh = make_mesh(8, device="cuda:0", group=group)
+        s = build_cross_shard(256, 4096, n_devices=8, mesh=mesh)
+        check(s._eager and s.local_shards == 4, f"{label}: rank {r} steps "
+              f"eagerly over its 4 shards")
+        seed_ring_full(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run(RANK_GLOO_STEPS)
+        s.block_until_ready()
+        ms = (time.perf_counter() - t0) * 1e3 / RANK_GLOO_STEPS
+        carry = numpy_carry(s)
+        return ms, carry, flat_inputs(s)
+
+    count = Launches()
+    outs = count(lambda: gloo_ranks(2, rank, label))
+    print(f"{label}: a gloo group cannot be captured, so its steps are "
+          f"eager; gloo took the CUDA tensors as they are (the port "
+          f"stages nothing through host memory)")
+    for r, (ms, carry, _) in enumerate(outs):
+        print(f"{label} rank {r} ms_per_step {ms} (host clock, eager)")
+        check(sorted(carry) == sorted(want), f"{label}: the carry's fields")
+        for k, a in want.items():
+            if a.dtype.kind == "f":
+                check(np.allclose(carry[k], a, rtol=RTOL, atol=ATOL),
+                      f"{label} rank {r} vs one-card twin: {k}")
+            else:
+                check(np.array_equal(carry[k], a),
+                      f"{label} rank {r} vs one-card twin: {k} bit-equal")
+    check((outs[0][1]["state/received"] == RANK_GLOO_STEPS).all(),
+          f"{label}: every entity received one token per step")
+    counts = count.counts
+    print(f"{label} launches {counts} (2 ranks x {RANK_GLOO_STEPS} steps)")
+    check(counts["ring_reduce"] >= RANK_GLOO_STEPS, f"{label}: K1 launched "
+          f"on every rank's step")
+    launches[label] = dict(counts)
+    flat = {"K1": outs[0][2]}
+    del outs
+    free()
+    return flat
+
+
+def region_spec(n_devices: int) -> DeviceEntity:
+    return DeviceEntity("counter", counter_behavior(PAYLOAD_W), n_shards=256,
+                        entities_per_shard=4096, n_devices=n_devices,
+                        spare_blocks=2)
+
+
+def rank_region(label: str, mesh, trace, directory: str, count) -> dict:
+    """region_serve's region on `mesh` (every rank calls this alike):
+    RANK_WAVES[0] ask waves, a checkpoint, a restore into a fresh region
+    on the same directory, RANK_WAVES[1] waves; every reply and every
+    total equal to the host oracle. Returns the fresh system's delivery
+    inputs as a wave's tells land."""
+    a, b = RANK_WAVES
+    region = DeviceShardRegion(region_spec(mesh.size), mesh=mesh)
+    region.system.warmup()
+    region.attach_journal(directory)
+    region.attach_entity_journal(directory)
+    oracle = {}
+    t0 = time.perf_counter()
+    count(lambda: ask_waves(region, trace[:a], oracle, label))
+    asks_s = a * WAVE_ASKS / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    region.checkpoint()
+    ckpt_ms = (time.perf_counter() - t0) * 1e3
+    del region
+    fresh = DeviceShardRegion(region_spec(mesh.size), mesh=mesh)
+    fresh.system.warmup()
+    fresh.attach_journal(directory)
+    fresh.attach_entity_journal(directory)
+    t0 = time.perf_counter()
+    step = count(fresh.restore)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    count(lambda: ask_waves(fresh, trace[a:a + b], oracle, label))
+    names = sorted(oracle)
+    got = fresh.system.read_state(
+        "total", np.asarray([fresh.entity_ref(n).row for n in names]))
+    check(all(float(g) == oracle[n] for g, n in zip(got, names)),
+          f"{label}: every total == the host oracle's")
+    check(fresh.ask_pool_stats()["in_flight"] == 0,
+          f"{label}: no ask left in flight")
+    sys_ = fresh.system
+    print(f"{label} rank {mesh.rank}/{mesh.world_size} slots "
+          f"{sys_.local_shards} rows {sys_.n_rows} of {sys_.capacity} "
+          f"asks_per_s {asks_s} (host clock, {a} waves) checkpoint_ms "
+          f"{ckpt_ms} restore_ms {restore_ms} step {step} entities "
+          f"{len(names)} eager {sys_._eager}")
+    for i in range(WAVE_ASKS):  # a wave's tells as they land
+        sys_.tell(i * 4099 % sys_.capacity,
+                  [1.0, 0.0, 0.0, float(sys_.capacity - 1)])
+    sys_._flush_staged()
+    return {"K1": flat_inputs(sys_)}
+
+
+def rank_banks(label: str, mesh, replicas: int) -> None:
+    """converge_over_mesh of a 2^20-key uint32 max bank and an "or" set
+    over the mesh's ranks, held to the one-card amax (any) of the whole
+    stack; every rank builds the stack from one seed and keeps its
+    replicas."""
+    per = replicas // mesh.world_size
+    lo = mesh.rank * per
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    stack = torch.randint(0, 2 ** 32, (replicas, 1 << 20, 8),
+                          generator=gen, device="cuda")
+    gmax = stack.to(torch.int32).view(torch.uint32)
+    gset = torch.randint(0, 8, (replicas, 1 << 20, 4), generator=gen,
+                         device="cuda") == 0
+    one = make_mesh(replicas, axis_name="replica")
+    for name, bank, op in (("gcounter", gmax, "max"), ("gset", gset, "or")):
+        want = ddt.converge_over_mesh(bank, one, op=op)[lo:lo + per]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ddt.converge_over_mesh(bank[lo:lo + per].clone(), mesh, op=op)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(got.dtype == bank.dtype and torch.equal(
+            got.view(torch.int32) if op == "max" else got,
+            want.view(torch.int32) if op == "max" else want),
+            f"{label}: {name} converged == the one-card join")
+        print(f"{label} rank {mesh.rank} {name} {tuple(got.shape)} "
+              f"{got.dtype} ms {ms} (host clock)")
+
+
+def rank_actor_system() -> None:
+    """rank_actor_system: an ActorSystem started with
+    akka.jax-distributed.enabled initializes its own NCCL group of world
+    size 1 (an all_reduce over it and a host ask go through), and
+    terminate() destroys it."""
+    label = "rank_actor_system"
+    check(not dist.is_initialized(), f"{label}: no group before it")
+    system = ActorSystem.create("rank-actors", {"akka": {"jax-distributed": {
+        "enabled": True, "coordinator-address": f"127.0.0.1:{free_port()}",
+        "num-processes": 1, "process-id": 0}}})
+    try:
+        check(dist.is_initialized() and dist.get_backend() == "nccl",
+              f"{label}: the system started an NCCL group")
+        t = torch.arange(4, dtype=torch.int32, device="cuda")
+        make_mesh(1, group=process_group()).ranks.all_reduce(t, "max")
+        check(t.tolist() == [0, 1, 2, 3], f"{label}: an all_reduce over it")
+        echo = system.actor_of(Props.create(Echo))
+        check(ask_sync(echo, "hi", 10.0, system) == "hi",
+              f"{label}: a host ask")
+    finally:
+        system.terminate()
+        check(system.await_termination(10.0), f"{label}: terminated")
+    check(not dist.is_initialized(), f"{label}: terminate() destroyed the "
+          f"group")
+    print(f"{label} ok: started and destroyed its own NCCL group")
+
+
+def rank_paths(launches: dict) -> dict:
+    """The ranks phase (ROADMAP A10.2). On an NCCL group of world size 1
+    (initialize_distributed on 127.0.0.1): rank_nccl_ring and
+    rank_nccl_slots (the full-width cross-shard ring and its bounded
+    slots twin on a ranked mesh of 8 slots, graphs with the collective
+    captured, against cross_shard_d8's one-card twins), rank_region_nccl
+    (2 slots) and rank_banks_nccl. Then two gloo ranks as threads, every
+    rank's tensors on the card: rank_gloo_ring, rank_region_gloo (1 slot
+    each) and rank_banks_gloo. Every group is torn down in a finally;
+    then rank_actor_system. Returns each leg's fullest rank-local
+    delivery inputs by kernel."""
+    flats = {}
+    trace = make_trace(3, sum(RANK_WAVES))
+    try:
+        check(initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0),
+              "rank: this call started the NCCL group")
+        group = process_group()
+        t0 = time.perf_counter()
+        flats["rank_nccl_ring"] = rank_ring(
+            "rank_nccl_ring", "ring_reduce",
+            lambda mesh: build_cross_shard(256, 4096, n_devices=8,
+                                           mesh=mesh, device="cuda"),
+            group, launches, cross_shard_ring_check("rank_nccl_ring", 8))
+        print(f"rank_nccl_ring phase_s {time.perf_counter() - t0}")
+        t0 = time.perf_counter()
+
+        def slots_check(r, steps):
+            check((r.read_state("received") == steps).all(),
+                  "rank_nccl_slots: every entity received one token a step")
+            check(r.total_dropped == 0 and r.mailbox_overflow == 0,
+                  "rank_nccl_slots: nothing dropped")
+
+        flats["rank_nccl_slots"] = rank_ring(
+            "rank_nccl_slots", "ring_slots",
+            lambda mesh: build_cross_shard_slots(
+                256, 4096, n_devices=8, slots=SLOTS, mesh=mesh,
+                device="cuda"), group, launches, slots_check)
+        print(f"rank_nccl_slots phase_s {time.perf_counter() - t0}")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                         ignore_cleanup_errors=True) as d:
+            count = Launches()
+            flats["rank_region_nccl"] = rank_region(
+                "rank_region_nccl", make_mesh(2, group=group), trace, d,
+                count)
+            count.report("rank_region_nccl", "ring_reduce", launches)
+        free()
+        rank_banks("rank_banks_nccl", make_mesh(2, axis_name="replica",
+                                                group=group), 2)
+        print(f"rank_region_nccl + banks phase_s {time.perf_counter() - t0}")
+
+        t0 = time.perf_counter()
+        flats["rank_gloo_ring"] = rank_gloo_ring(launches)
+        print(f"rank_gloo_ring phase_s {time.perf_counter() - t0}")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                         ignore_cleanup_errors=True) as d:
+            count = Launches()
+
+            def region_rank(r, g):
+                out = rank_region("rank_region_gloo",
+                                  make_mesh(2, device="cuda:0", group=g),
+                                  trace, d, lambda fn: fn())
+                rank_banks("rank_banks_gloo", make_mesh(
+                    2, axis_name="replica", device="cuda:0", group=g), 2)
+                return out
+
+            outs = count(lambda: gloo_ranks(2, region_rank,
+                                            "rank_region_gloo"))
+            count.report("rank_region_gloo", "ring_reduce", launches)
+            flats["rank_region_gloo"] = outs[0]
+        free()
+        print(f"rank_region_gloo + banks phase_s {time.perf_counter() - t0}")
+    finally:
+        shutdown_distributed()
+    t0 = time.perf_counter()
+    rank_actor_system()
+    print(f"rank_actor_system phase_s {time.perf_counter() - t0}")
+    return flats
+
+
 def path_dtype(label: str) -> str:
     """The payload dtype of a path's system, by the path's name."""
     for name in ("int32", "bf16"):
@@ -2981,11 +3392,14 @@ def main() -> int:
     t0 = time.perf_counter()
     failover = failover_paths(launches)
     print(f"failover_phase_s {time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    ranks = rank_paths(launches)
+    print(f"rank_phase_s {time.perf_counter() - t0}")
     # both kernels at the shapes the new paths gave them
     t0 = time.perf_counter()
     for label, flat in (("sharded_d8", sharded), ("region", region),
                         ("gateway", gateway), ("router", router),
-                        *failover.items()):
+                        *failover.items(), *ranks.items()):
         for k, (inputs, n) in flat.items():
             rows.setdefault(label, {})[k] = kernel_rows(
                 label, inputs, n, lib, kernels=(k,))[k]
@@ -2994,7 +3408,7 @@ def main() -> int:
             else typed[path_dtype(label)]
         table.setdefault(label, {})[k] = kernel_rows(
             label, inputs, n, lib, kernels=(k,), slots=slots)[k]
-    del sharded, region, gateway, actor, router, failover
+    del sharded, region, gateway, actor, router, failover, ranks
     print(f"path_kernels_s {time.perf_counter() - t0}")
 
     entry = {"K1": ("ring_reduce", "_run(with_slots=False)"),

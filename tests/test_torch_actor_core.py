@@ -353,16 +353,46 @@ def test_scheduler_tell(system):
 
 # ------------------------------------------------- what the port refuses
 @pytest.mark.parametrize("config, item", [
-    ({"akka": {"jax-distributed": {"enabled": True}}}, "A10.2"),
+    ({"akka": {"jax-distributed": {"enabled": True, "device": "cpu",
+                                   "coordinator-address": "127.0.0.1:1",
+                                   "num-processes": 2,
+                                   "process-id": 1}}}, None),
     ({"akka": {"actor": {"provider": "remote"}}}, "A12"),
     ({"akka": {"actor": {"provider": "cluster"}}}, "A12"),
 ], ids=["jax-distributed", "remote", "cluster"])
-def test_unported_configurations_raise_naming_their_item(config, item):
-    """Refused before the system builds anything: no thread starts."""
+def test_unported_configurations_raise_naming_their_item(config, item,
+                                                         monkeypatch):
+    """A remote or cluster provider is refused before the system builds
+    anything: no thread starts. `akka.jax-distributed` is ported: the
+    system calls the hook at start, which starts this process's rank of
+    a process group (`dist.init_process_group`, recorded here instead),
+    and terminate() destroys the group it started."""
+    import torch.distributed as dist
+
+    from akka_tpu_torch.parallel import mesh as tmesh
+    calls = []
+    monkeypatch.setattr(tmesh, "_distributed_initialized", False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **kw: calls.append(("init", a, kw)))
+    monkeypatch.setattr(dist, "destroy_process_group",
+                        lambda *a, **kw: calls.append(("destroy",)))
+    monkeypatch.setattr(dist, "is_initialized",
+                        lambda: len(calls) == 1)
     before = _threads()
-    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
-        ActorSystem.create("refused", config)
-    assert_no_new_threads(before)
+    if item is not None:
+        with pytest.raises(ValueError, match=f"ROADMAP {item}"):
+            ActorSystem.create("refused", config)
+        assert calls == []
+        assert_no_new_threads(before)
+        return
+    system = ActorSystem.create("ranked", config)
+    assert calls == [("init", ("gloo",), {
+        "init_method": "tcp://127.0.0.1:1", "world_size": 2, "rank": 1})]
+    assert tmesh._distributed_initialized
+    system.terminate()
+    assert system.await_termination(10.0)
+    assert calls[1:] == [("destroy",)]
+    assert not tmesh._distributed_initialized
 
 
 def test_tpu_batched_type_is_registered(system):

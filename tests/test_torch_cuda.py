@@ -1230,3 +1230,65 @@ def test_bank_convergence_on_the_card_matches_the_cpu(card):
                     .view(torch.int32), rep.cpu().view(torch.int32))
     assert torch.equal(out["cuda"][0], out["cpu"][0])
     assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
+# ------------------------------------------------------------------ ranks
+def _ring_carry(mesh=None, steps=6, slots=False):
+    build = tbb.build_cross_shard_slots if slots else tbb.build_cross_shard
+    s = build(8, 256, n_devices=4, mesh=mesh, device="cuda")
+    tbb.seed_ring_full(s)
+    s.run(steps)
+    return numpy_carry(s), s
+
+
+@pytest.mark.parametrize("slots", [False, True], ids=["ring", "slots"])
+def test_gloo_ranks_on_the_card_match_one_card(card, slots):
+    """Two gloo ranks (threads) with every tensor on the card, eager
+    steps: every rank's global carry equals the one-card system's."""
+    from akka_tpu_torch.parallel import make_mesh
+    from torch_rank_fixture import run_ranks
+    want, _ = _ring_carry(slots=slots)
+
+    def rank(r, group):
+        carry, s = _ring_carry(make_mesh(4, device="cuda:0", group=group),
+                               slots=slots)
+        assert s._eager and s.local_shards == 2
+        return carry
+
+    for carry in run_ranks(2, rank, f"card-gloo-{slots}"):
+        for k, v in want.items():
+            np.testing.assert_array_equal(carry[k], v, err_msg=k)
+
+
+def test_nccl_world_one_captures_the_collective(card):
+    """An NCCL group of world size 1 (initialize_distributed on
+    127.0.0.1): the ranked system steps through a CUDA graph with its
+    all_to_all_single inside, K1 once a step, equal to the one-card
+    system; the group is destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from akka_tpu_torch.parallel import (initialize_distributed, make_mesh,
+                                         process_group, shutdown_distributed)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        want, _ = _ring_carry(steps=8)
+        mesh = make_mesh(4, group=process_group())
+        s = tbb.build_cross_shard(8, 256, n_devices=4, mesh=mesh)
+        tbb.seed_ring_full(s)
+        assert not s._eager and s.ranks.backend == "nccl"
+        s.warmup()
+        cm.reset_launches()
+        s.run(8)
+        assert cm.LAUNCHES["ring_reduce"] == 8
+        assert s._graphs.stats()["captures"] == 1
+        got = numpy_carry(s)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+    finally:
+        assert shutdown_distributed()
+    assert not dist.is_initialized()

@@ -119,14 +119,14 @@ def test_gset_and_flag_merges_match_the_reference():
 @pytest.mark.parametrize("fn", ["converge_over_mesh", "replicate_bank"])
 def test_mesh_functions_wait_for_a10(fn):
     """The mesh functions run over a one-card mesh of shard slots
-    (tests/test_torch_mesh.py holds them to the reference); a mesh over
-    several cards waits for ranks (ROADMAP A10.2), and no mesh is a
-    TypeError."""
+    (tests/test_torch_mesh.py holds them to the reference) and over ranks
+    (tests/test_torch_ranks.py); a rank whose slots lie on several cards
+    is refused (one process per card), and no mesh is a TypeError."""
     from akka_tpu_torch.parallel import ShardSlot, make_mesh
     two_cards = make_mesh(axis_name="replica", devices=[
         ShardSlot(0, torch.device("cuda", 0)),
         ShardSlot(1, torch.device("cuda", 1))])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.2"):
+    with pytest.raises(NotImplementedError, match="one card per process"):
         getattr(tt, fn)(_t(_bank(2, 4, 2)), mesh=two_cards)
     with pytest.raises(TypeError, match="Mesh"):
         getattr(tt, fn)(_t(_bank(4, 2)), mesh=None)

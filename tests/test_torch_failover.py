@@ -431,15 +431,20 @@ def test_disabled_injector_is_bit_invisible(local):
 
 def test_slots_of_one_card_only(fleet):
     """The default slots are the first n of an 8-slot pool on the card;
-    slots on two cards are refused naming ROADMAP A10.2 (this machine has
+    slots on two cards of one rank are refused (one process per card),
+    and slots over several ranks naming ROADMAP A10.3 (this machine has
     no card, so a CUDA default raises)."""
     s = fleet.port("defaults", 16, [T_SUM], n_devices=2, payload_width=P)
     assert s.devices == slots(2) and s.device == torch.device("cpu")
     assert s.system.mesh.slots == tuple(slots(2))
-    with pytest.raises(NotImplementedError, match="A10.2"):
+    with pytest.raises(NotImplementedError, match="one card per process"):
         MeshSentinel(16, [T_SUM], checkpoint_dir=str(fleet.root / "x"),
                      devices=[ShardSlot(0, torch.device("cuda", 0)),
                               ShardSlot(1, torch.device("cuda", 1))])
+    cpu = torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="A10.3"):
+        MeshSentinel(16, [T_SUM], checkpoint_dir=str(fleet.root / "z"),
+                     devices=[ShardSlot(0, cpu), ShardSlot(1, cpu, 1)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             MeshSentinel(16, [T_SUM], checkpoint_dir=str(fleet.root / "y"),

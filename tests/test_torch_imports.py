@@ -265,9 +265,6 @@ UNPORTED_MODULES = {
 UNPORTED_NAMES = {
     ("batched/bridge.py", "I32"): "for good: a jnp dtype",
     ("batched/bridge.py", "F32"): "for good: a jnp dtype",
-    ("parallel/mesh.py", "initialize_distributed"): "A10.2",
-    ("parallel/mesh.py", "maybe_initialize_distributed_from_config"):
-        "A10.2",
     **{("pattern/backoff.py", n): "A12.1" for n in (
         "BackoffSupervisor", "CurrentChild", "GetCurrentChild",
         "GetRestartCount", "RestartCount", "graceful_stop", "retry")},
@@ -361,17 +358,14 @@ def test_ported_file_has_the_references_public_names(rel):
 
 
 def test_exception_lists_name_only_later_items():
-    """The exceptions belong to A10.2 and A12, and the jnp dtypes; they
-    name no module the port has a file for, and no name the port has.
-    Only the two distributed names carry A10.2."""
+    """The exceptions belong to A12, and the jnp dtypes; they name no
+    module the port has a file for, and no name the port has. A10.2 (the
+    distributed init and its config hook) is ported: no A10.2 label is
+    left."""
     labels = set(UNPORTED_MODULES.values()) | set(UNPORTED_NAMES.values())
-    assert labels <= {"A10.2", "A12.1", "A12.3", "A12.4", "A12.5",
+    assert labels <= {"A12.1", "A12.3", "A12.4", "A12.5",
                       "for good: a jnp dtype"}, labels
-    assert sorted(n for (_, n), item in UNPORTED_NAMES.items()
-                  if item == "A10.2") == [
-        "initialize_distributed",
-        "maybe_initialize_distributed_from_config"]
-    assert "A10.2" not in UNPORTED_MODULES.values()
+    assert "A10.2" not in labels
     for mod in UNPORTED_MODULES:
         assert (ROOT / "akka_tpu" / mod).exists(), mod
         assert not (PKG / mod).exists(), f"{mod} is ported: drop it"

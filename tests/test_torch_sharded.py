@@ -570,11 +570,13 @@ def test_flat_delivery_equals_local_calls(d):
 
 def test_mesh_and_unknown_backends_raise():
     """A mesh of shard slots on one card sets the shard count and the
-    device; a mesh over several cards is ROADMAP A10.2; and the port's
-    backends only: the reference's "reference" family is not ported."""
+    device; a rank whose slots lie on several cards is refused (one
+    process per card: ranks over a process group are
+    tests/test_torch_ranks.py's); and the port's backends only: the
+    reference's "reference" family is not ported."""
     two_cards = make_mesh(devices=[ShardSlot(0, torch.device("cuda", 0)),
                                    ShardSlot(1, torch.device("cuda", 1))])
-    with pytest.raises(NotImplementedError, match="A10.2"):
+    with pytest.raises(NotImplementedError, match="one card per process"):
         TSharded(capacity=8, behaviors=[t_ring], mesh=two_cards,
                  device="cpu")
     with pytest.raises(TypeError, match="Mesh"):
