@@ -376,10 +376,10 @@ def reference_config() -> Config:
             },
             "persistence": {
                 "journal": {"plugin": "akka.persistence.journal.inmem",
-                            "inmem": {"class": "akka_tpu.persistence.journal.InMemJournal"},
-                            "file": {"class": "akka_tpu.persistence.journal.FileJournal", "dir": "journal"}},
+                            "inmem": {"class": "akka_tpu_torch.persistence.journal.InMemJournal"},
+                            "file": {"class": "akka_tpu_torch.persistence.journal.FileJournal", "dir": "journal"}},
                 "snapshot-store": {"plugin": "akka.persistence.snapshot-store.local",
-                                   "local": {"class": "akka_tpu.persistence.snapshot.LocalSnapshotStore",
+                                   "local": {"class": "akka_tpu_torch.persistence.snapshot.LocalSnapshotStore",
                                              "dir": "snapshots"}},
                 "max-concurrent-recoveries": 50,
                 "at-least-once-delivery": {

@@ -1,10 +1,10 @@
 """Serialization: id->serializer registry with class bindings + manifests.
 
 A copy of `akka_tpu/serialization/serialization.py` at commit 5d9b7cd (host
-code, no jax; the port keeps its own copy of every module it needs). One
-change: `TensorSerializer` binds `torch.Tensor` where the reference binds
+code, no jax; the port keeps its own copy of every module it needs). Two
+changes: `TensorSerializer` binds `torch.Tensor` where the reference binds
 `jax.Array`; a tensor travels as its host copy (bf16, which numpy lacks,
-as float32).
+as float32). `PickleSerializer` reads through `records.load_record`.
 
 Reference parity: akka-actor/src/main/scala/akka/serialization/ —
 `Serialization.findSerializerFor` walks class->serializer bindings (most
@@ -31,6 +31,8 @@ from typing import Any, Dict, Optional, Tuple, Type
 import numpy as np
 import torch
 
+from .records import load_record
+
 
 class Serializer:
     identifier: int = 0
@@ -50,7 +52,9 @@ class PickleSerializer(Serializer):
     """The reference's JavaSerializer analogue — and like it, OFF on the
     wire unless explicitly enabled (akka.remote.allow-pickle; reference:
     allow-java-serialization, off since 2.6). `enabled` is enforced on BOTH
-    directions so a peer can't feed us pickles just because it built some."""
+    directions so a peer can't feed us pickles just because it built some.
+    Reads go through records.load_record (the JAX package's class paths
+    map onto the port's; jax is never imported)."""
 
     identifier = 1
 
@@ -70,7 +74,7 @@ class PickleSerializer(Serializer):
             raise SerializationError(
                 "inbound pickle payload refused (akka.remote.allow-pickle "
                 "is off)")
-        return pickle.loads(data)
+        return load_record(data)
 
 
 class StringSerializer(Serializer):

@@ -250,6 +250,30 @@ phase's systems, and their graph pools, are freed before the next.
    all_reduce and a host ask go through) and terminate() destroys it.
    K1 and K2 are counted on every leg and held to their plain versions
    on each leg's fullest rank-local inbox.
+16. Event-sourced typed actors over device counters
+   (typed_persistence_paths, ROADMAP A12.1). A typed ActorSystem on the
+   file journal and the local snapshot store (absolute dirs under one
+   temporary directory) whose guardian spawns 4096 slots_counter device
+   actors through TypedActorContext.spawn(props=device_props(...)) on a
+   tpu-batched dispatcher of actor_ask's shape (2^20 rows, 4 bounded
+   slots: K2, depth 4, 256 promise rows) and 64 EventSourcedBehavior
+   ledgers (a snapshot every 64 events), each registered with the
+   Receptionist; ledger 0 runs under a BackoffSupervisor. The script
+   finds the ledgers through Find and sends 16 rounds of 256 commands
+   (seed 5; the counters of a round distinct, the ledgers uniform): a
+   ledger tells the add to its counter, asks it (ctx.ask, piped to
+   itself), persists (counter, value, total) as plain numbers and
+   replies. Every reply, every counter's device state and every ledger's
+   state equal a host oracle; K2 launches once a step. A fresh system on
+   the same dirs: every ledger recovers from its snapshot plus the tail
+   to the oracle, PersistenceQuery's current events of two ledgers equal
+   what they persisted, and a poison command crashes ledger 0, whose
+   supervisor restarts it after its minimum backoff; it recovers and
+   answers the next command (GetRestartCount 1). It prints commands/s,
+   command and journal-write p50/p99 (host clock), the ledgers' recovery
+   ms, and K2 is held to its plain version on the fullest carried inbox
+   of all 16 rounds (its valid rows counted after every step, a sync a
+   step inside the timed rounds). The phase must finish within 60 s.
 
 Any failure raises and the exit code is non-zero. The last lines are the
 kernel report (JSON, one row per kernel and payload dtype; `ms` and the
@@ -308,8 +332,17 @@ from akka_tpu_torch.models.baseline_benches import (PAYLOAD_W,
                                                     ring_behavior,
                                                     seed_ring_full)
 from akka_tpu_torch.ops import cuda_mailbox as cm
+from akka_tpu_torch.pattern.ask import ask
+from akka_tpu_torch.pattern.backoff import (BackoffSupervisor,
+                                            GetRestartCount,
+                                            RestartCount)
 from akka_tpu_torch.parallel import (initialize_distributed, make_mesh,
                                      process_group, shutdown_distributed)
+from akka_tpu_torch.persistence import (Effect, EventSourcedBehavior,
+                                        LocalSnapshotStore, Persistence,
+                                        PersistenceId, PersistenceQuery,
+                                        RetentionCriteria,
+                                        SnapshotSelectionCriteria)
 from akka_tpu_torch.sharding import (AskBatcher, DeviceEntity,
                                      DeviceShardRegion)
 from akka_tpu_torch.stream import DevicePipeline
@@ -320,6 +353,9 @@ from akka_tpu_torch.tools import gateway_load as gl
 from akka_tpu_torch.tools import profile_step as ps
 from akka_tpu_torch.tools import serving_gateway as sg
 from akka_tpu_torch.tools import trace_export
+from akka_tpu_torch.typed import (Behaviors, Find, Listing, Receptionist,
+                                  ServiceKey, props_from_behavior)
+from akka_tpu_torch.typed import ActorSystem as TypedActorSystem
 from akka_tpu_torch.utils.carry import numpy_carry
 
 RTOL, ATOL = bm.RTOL, bm.ATOL
@@ -1704,6 +1740,12 @@ def observed_paths(launches: dict) -> None:
 ACTOR_N = N - 256           # the actor ring's block; promise rows follow
 ASK_ACTORS, ASK_CONC, ASK_ROUNDS = 4096, 256, 32  # actor_ask's trace
 ASK_SLOTS = 4               # actor_ask's mailbox slots (bounded: K2)
+# actor_ask's dispatcher, which the staging legs and typed_persistence
+# share: 2^20 rows, bounded slots (K2), depth 4, 256 promise rows
+ASK_DISPATCHER = {"type": "tpu-batched", "capacity": N,
+                  "payload-width": PAYLOAD_W, "mailbox-slots": ASK_SLOTS,
+                  "spill-capacity": 0, "promise-rows": 256,
+                  "host-inbox": 4096, "pipeline-depth": 4}
 BLAT_ROUNDS = 200           # rounds per leg of the bridge-latency pair
 ACTOR_TIMEOUT = 30.0        # every ask, result() and probe wait
 ADD, GET = 0, 1
@@ -2165,12 +2207,7 @@ def actor_paths(launches: dict) -> dict:
                             "capacity": N, "payload-width": PAYLOAD_W,
                             "mailbox-slots": 0, "promise-rows": 256,
                             "host-inbox": ACTOR_N},
-                        "ask-dispatcher": {
-                            "type": "tpu-batched", "capacity": N,
-                            "payload-width": PAYLOAD_W,
-                            "mailbox-slots": ASK_SLOTS, "spill-capacity": 0,
-                            "promise-rows": 256, "host-inbox": 4096,
-                            "pipeline-depth": 4}}}}
+                        "ask-dispatcher": dict(ASK_DISPATCHER)}}}
     flat: dict = {}
     system = ActorSystem.create("actor-paths", cfg)
     try:
@@ -2436,15 +2473,9 @@ def staging_paths(launches: dict) -> None:
     prints tell p50/p99 and asks/s (steps/s for the ring), must hold its
     oracle, stage through its buffer and drop nothing; K2 (K1) once a
     step."""
-    disp = {}
-    for native in (True, False):
-        disp[native] = {
-            "type": "tpu-batched", "capacity": N, "payload-width": PAYLOAD_W,
-            "mailbox-slots": ASK_SLOTS, "spill-capacity": 0,
-            "promise-rows": 256, "host-inbox": 4096, "pipeline-depth": 4}
     cfg = {"akka": {"stdout-loglevel": "OFF", "log-dead-letters": 0,
-                    "actor": {"ask-native": disp[True],
-                              "ask-list": disp[False]}}}
+                    "actor": {"ask-native": dict(ASK_DISPATCHER),
+                              "ask-list": dict(ASK_DISPATCHER)}}}
     system = ActorSystem.create("staging-paths", cfg)
     try:
         legs = {}
@@ -3348,6 +3379,403 @@ def rank_paths(launches: dict) -> dict:
     return flats
 
 
+# --------------------------------------- typed persistence (ROADMAP A12.1)
+TP_COUNTERS, TP_LEDGERS = 4096, 64    # device counters, event-sourced ledgers
+TP_ROUNDS, TP_CONC = 16, 256          # rounds of concurrent commands, seed 5
+TP_SNAPSHOT_EVERY = 64                # RetentionCriteria.snapshot_every_n
+TP_BACKOFF = 0.25                     # the supervised ledger's min backoff
+TP_PHASE_S = 60.0                     # the phase's limit
+TP_DISPATCHER = "akka.actor.ledger-dispatcher"
+TP_KEY = ServiceKey("ledgers")
+
+
+@dataclasses.dataclass(frozen=True)
+class LedgerAdd:
+    """Add `value` to device counter `counter`; the reply is ("ok", the
+    counter's total after it, the event's sequence number)."""
+    counter: int
+    value: float
+    reply_to: object
+
+
+@dataclasses.dataclass(frozen=True)
+class CounterReplied:
+    """A device counter's reply to a ledger's ask, piped to the ledger."""
+    cmd: LedgerAdd
+    total: float
+    error: str
+
+
+@dataclasses.dataclass(frozen=True)
+class LedgerState:
+    reply_to: object
+
+
+@dataclasses.dataclass(frozen=True)
+class Poison:
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class GetRefs:
+    reply_to: object
+
+
+def ledger_event(state, event):
+    """A ledger's state: (events, sum of added values, sum of the totals
+    the counters replied), all plain Python numbers."""
+    _k, v, total = event
+    return (state[0] + 1, state[1] + v, state[2] + total)
+
+
+def ledger(i: int, counters, recovery: dict):
+    """Ledger i: an EventSourcedBehavior (PersistenceId Ledger|i, a
+    snapshot every TP_SNAPSHOT_EVERY events) that registers with the
+    Receptionist under TP_KEY. A LedgerAdd tells the add to its device
+    counter and asks the counter (ctx.ask, piped to itself); on the
+    reply it persists (counter, value, total) and then replies. Its
+    registration's ack is its first message, which starts its recovery:
+    recovery[i] holds (spawn time, recovery-completed time)."""
+    def setup(ctx):
+        t0 = time.perf_counter()
+        Receptionist.get(ctx.system).register(TP_KEY, ctx.self,
+                                              reply_to=ctx.self)
+
+        def on_command(state, cmd):
+            if isinstance(cmd, LedgerAdd):
+                ref = counters[cmd.counter]
+                ref.tell((ADD, [cmd.value]))
+                ctx.ask(ref, (GET, [0.0]), lambda got, exc: CounterReplied(
+                    cmd, float(got[0]) if exc is None else 0.0,
+                    "" if exc is None else repr(exc)), ACTOR_TIMEOUT)
+                return Effect.none()
+            if isinstance(cmd, CounterReplied):
+                if cmd.error:
+                    return Effect.reply(cmd.cmd.reply_to, ("error",
+                                                           cmd.error))
+                return Effect.persist((cmd.cmd.counter, cmd.cmd.value,
+                                       cmd.total)).then_reply(
+                    cmd.cmd.reply_to, lambda s: ("ok", cmd.total, s[0]))
+            if isinstance(cmd, LedgerState):
+                return Effect.reply(cmd.reply_to, state)
+            if isinstance(cmd, Poison):
+                raise RuntimeError(f"ledger {i}: poison command")
+            return Effect.none()   # the Receptionist's Registered ack
+
+        def recovered(_state, _ctx):
+            recovery[i] = (t0, time.perf_counter())
+
+        return EventSourcedBehavior(
+            PersistenceId.of("Ledger", str(i)), (0, 0.0, 0.0), on_command,
+            ledger_event,
+            retention=RetentionCriteria.snapshot_every_n(TP_SNAPSHOT_EVERY),
+            recovery_completed=recovered)
+    return Behaviors.setup(setup)
+
+
+def ledger_guardian(recovery: dict):
+    """The typed guardian: spawns TP_COUNTERS slots_counter device actors
+    (one block, through TypedActorContext.spawn with device_props on the
+    ledger dispatcher), TP_LEDGERS - 1 ledgers and ledger 0 under a
+    BackoffSupervisor (min backoff TP_BACKOFF, no jitter); answers
+    GetRefs with (the counter block, ledger 0's supervisor)."""
+    def setup(ctx):
+        counters = ctx.spawn(None, "counters", props=device_props(
+            slots_counter, n=TP_COUNTERS, dispatcher=TP_DISPATCHER))
+        sup = ctx.spawn(None, "ledger-0-backoff", props=BackoffSupervisor
+                        .props(props_from_behavior(ledger(0, counters,
+                                                          recovery)),
+                               "ledger-0", TP_BACKOFF, 4 * TP_BACKOFF,
+                               random_factor=0.0))
+        for i in range(1, TP_LEDGERS):
+            ctx.spawn(ledger(i, counters, recovery), f"ledger-{i}")
+
+        def on_message(msg):
+            if isinstance(msg, GetRefs):
+                msg.reply_to.tell((counters, sup))
+            return Behaviors.same
+        return Behaviors.receive_message(on_message)
+    return Behaviors.setup(setup)
+
+
+def ledger_system(directory: str, name: str):
+    """A typed ActorSystem on the file journal and the local snapshot
+    store under `directory` (absolute dirs), with the ledger dispatcher:
+    actor_ask's full-width shape (2^20 rows, 4 bounded slots: K2,
+    pipeline depth 4, 256 promise rows). Returns (system, recovery
+    dict, counter block, ledger 0's supervisor, the file journal)."""
+    cfg = {"akka": {"stdout-loglevel": "OFF", "log-dead-letters": 0,
+                    "actor": {"ledger-dispatcher": dict(ASK_DISPATCHER)},
+                    "persistence": {
+                        "journal": {"plugin": "akka.persistence.journal.file",
+                                    "file": {"dir": os.path.join(
+                                        directory, "journal")}},
+                        "snapshot-store": {
+                            "plugin": "akka.persistence.snapshot-store.local",
+                            "local": {"dir": os.path.join(
+                                directory, "snapshots")}}}}}
+    recovery: dict = {}
+    system = TypedActorSystem.create(ledger_guardian(recovery), name, cfg)
+    classic = system.classic
+    counters, sup = ask(system.guardian, lambda r: GetRefs(r),
+                        timeout=ACTOR_TIMEOUT,
+                        system=classic).result(ACTOR_TIMEOUT)
+    journal = Persistence.get(classic).journal_plugin_for()
+    return system, recovery, counters, sup, journal
+
+
+def find_ledgers(system) -> dict:
+    """The ledgers by index, through the Receptionist's Find (polled until
+    all TP_LEDGERS have registered)."""
+    classic = system.classic
+    rec = Receptionist.get(classic)
+    deadline = time.monotonic() + ACTOR_TIMEOUT
+    while True:
+        listing = ask(rec.ref, lambda r: Find(TP_KEY, r),
+                      timeout=ACTOR_TIMEOUT,
+                      system=classic).result(ACTOR_TIMEOUT)
+        check(isinstance(listing, Listing), "typed_persistence: a Listing")
+        refs = {int(r.path.name.split("-")[1]): r
+                for r in listing.service_instances}
+        if len(refs) == TP_LEDGERS:
+            return refs
+        check(time.monotonic() < deadline, f"typed_persistence: "
+              f"{len(refs)} of {TP_LEDGERS} ledgers registered")
+        time.sleep(0.01)
+
+
+def timed_writes(journal, out: list) -> None:
+    """Time every write_atomic of the file journal (host clock)."""
+    write = journal.write_atomic
+
+    def timed(aw):
+        t = time.perf_counter()
+        try:
+            return write(aw)
+        finally:
+            out.append(time.perf_counter() - t)
+    journal.write_atomic = timed
+
+
+def ledger_states(refs: dict, classic) -> dict:
+    futs = {i: ask(r, lambda to: LedgerState(to), timeout=ACTOR_TIMEOUT,
+                   system=classic) for i, r in refs.items()}
+    return {i: f.result(ACTOR_TIMEOUT) for i, f in futs.items()}
+
+
+def typed_persistence_paths(launches: dict) -> dict:
+    """typed_persistence (ROADMAP A12.1): a typed ActorSystem whose
+    guardian spawns TP_COUNTERS device counters (K2 at S = 4, m = 2^20 +
+    4096) and TP_LEDGERS event-sourced ledgers on the file journal and
+    local snapshot store; TP_ROUNDS rounds of TP_CONC commands (seed 5,
+    counters distinct within a round, ledgers uniform) sent to the
+    ledgers found through the Receptionist; every reply, every counter's
+    device state and every ledger's state held to a host oracle. Then a
+    fresh system on the same dirs: every ledger recovers from its
+    snapshot plus the tail to the oracle, PersistenceQuery's current
+    events of two ledgers equal what they persisted, and ledger 0 under
+    its BackoffSupervisor crashes on a poison command, restarts after
+    its minimum backoff, recovers and answers the next command. Returns
+    K2's fullest carried inbox of all the rounds (counted after every
+    step)."""
+    label = "typed_persistence"
+    rng = np.random.default_rng(5)
+    oracle = np.zeros(TP_COUNTERS)
+    # each ledger's events by sequence number, as its replies number them
+    # (a ledger persists in the order its counters reply)
+    events = {i: {} for i in range(TP_LEDGERS)}
+    lat, bad, writes = [], [], []
+    flat = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                     ignore_cleanup_errors=True) as d:
+        t0 = time.perf_counter()
+        system, _, counters, _, journal = ledger_system(d, "ledgers")
+        classic = system.classic
+        try:
+            timed_writes(journal, writes)
+            refs = find_ledgers(system)
+            h = get_handle(classic, TP_DISPATCHER)
+            check(h.runtime.spill_cap == 0 and
+                  h.runtime.mailbox_slots == ASK_SLOTS,
+                  f"{label}: bounded slots mailboxes")
+            print(f"{label} setup_s {time.perf_counter() - t0}")
+
+            def command_round():
+                picks = rng.choice(TP_COUNTERS, TP_CONC, replace=False)
+                vals = rng.integers(1, 100, TP_CONC).astype(np.float64)
+                owners = rng.integers(0, TP_LEDGERS, TP_CONC)
+                futs = []
+                for k, v, j in zip(picks, vals, owners):
+                    oracle[k] += v
+                    ev = (int(k), float(v), float(oracle[k]))
+                    t = time.perf_counter()
+                    f = ask(refs[int(j)], lambda r, k=ev[0], v=ev[1]:
+                            LedgerAdd(k, v, r), timeout=ACTOR_TIMEOUT,
+                            system=classic)
+                    f.add_done_callback(
+                        lambda _f, t=t: lat.append(time.perf_counter() - t))
+                    futs.append((int(j), ev, f))
+                for j, ev, f in futs:
+                    got = f.result(ACTOR_TIMEOUT)
+                    if got[:2] != ("ok", ev[2]) or got[2] in events[j]:
+                        bad.append((got, ev))
+                    else:
+                        events[j][got[2]] = ev
+
+            def drive():
+                # a live-row count after every step of every round (a sync
+                # a step, inside the timed window): K2's input is the
+                # fullest carried inbox of all the rounds
+                t = time.perf_counter()
+                with StepProbe(h, live=True) as live:
+                    for _ in range(TP_ROUNDS):
+                        command_round()
+                return time.perf_counter() - t, live
+
+            (wall, live), steps, count = handle_window(h, drive)
+            check(not bad, f"{label}: every reply equals the oracle "
+                  f"({bad[:4]})")
+            n_cmd = TP_ROUNDS * TP_CONC
+            check(len(lat) == n_cmd and len(writes) == n_cmd,
+                  f"{label}: {len(lat)} replies, {len(writes)} journal "
+                  f"writes of {n_cmd} commands")
+            check(np.array_equal(counters.read_state("count"),
+                                 oracle.astype(np.float32)),
+                  f"{label}: every counter's device state equals the "
+                  f"oracle")
+            events = {i: [ev[n] for n in range(1, len(ev) + 1)]
+                      for i, ev in events.items()}  # KeyError: a gap
+            want_states = {i: ledger_event_fold(ev)
+                           for i, ev in events.items()}
+            check(ledger_states(refs, classic) == want_states,
+                  f"{label}: every ledger's state equals the oracle")
+            store = LocalSnapshotStore(os.path.join(d, "snapshots"))
+            deadline = time.monotonic() + ACTOR_TIMEOUT
+            for i, ev in events.items():   # the snapshot store's writes
+                while snapshot_of(store, i)[0] != last_snapshot(ev):
+                    check(time.monotonic() < deadline, f"{label}: ledger "
+                          f"{i}'s snapshot written")
+                    time.sleep(0.01)
+            print(f"{label} commands_per_s {n_cmd / wall} command "
+                  f"{json.dumps(pcts_us(lat))} journal_write "
+                  f"{json.dumps(pcts_us(writes))} (host clock)")
+            replays, busy = len(live.events), live.busy_ms
+            print(f"{label} steps {steps} replays {replays} wall_ms "
+                  f"{wall * 1e3} busy_ms {busy} busy_share "
+                  f"{busy / (wall * 1e3)} (CUDA events around each replay)")
+            inputs, n = live.inputs if live.inputs is not None else (None, 0)
+            check(live.rows > 0 and int(inputs[3].sum()) > 0,
+                  f"{label}: K2's input carries messages ({live.rows} rows)")
+            print(f"{label} kernel_input live_rows {live.rows} of "
+                  f"{inputs[0].shape[0]}")
+            count.report(label, "ring_slots", launches, steps)
+            flat[label] = ("K2", (inputs, n), ASK_SLOTS)
+            pool = h.ask_pool_stats()
+            check(pool["in_flight"] == 0, f"{label}: no ask left in flight")
+        finally:
+            system.terminate()
+        check(system.await_termination(ACTOR_TIMEOUT),
+              f"{label}: the system terminated")
+        del system, counters, refs, h, journal
+        free()
+
+        # a fresh system on the same dirs
+        t0 = time.perf_counter()
+        system, recovery, counters, sup, _ = ledger_system(d, "ledgers-2")
+        classic = system.classic
+        try:
+            refs = find_ledgers(system)
+            states = ledger_states(refs, classic)
+            check(states == want_states, f"{label}: every ledger recovered "
+                  f"to the oracle")
+            check(sorted(recovery) == list(range(TP_LEDGERS)),
+                  f"{label}: every ledger completed its recovery")
+            rec_s = [b - a for a, b in recovery.values()]
+            snapped = 0
+            for i, ev in events.items():
+                last = last_snapshot(ev)
+                check(snapshot_of(store, i) ==
+                      (last, ledger_event_fold(ev[:last]) if last else None),
+                      f"{label}: ledger {i}'s snapshot at {last}")
+                snapped += last > 0
+            print(f"{label} recovery_s {time.perf_counter() - t0} "
+                  f"recovery {json.dumps(pcts_us(rec_s))} max_us "
+                  f"{max(rec_s) * 1e6} of {TP_LEDGERS} ledgers ({snapped} "
+                  f"from a snapshot plus the tail, the rest from the journal; "
+                  f"spawn to recovery completed, host clock)")
+            rj = PersistenceQuery.get(classic).read_journal_for()
+            for i in (1, TP_LEDGERS - 1):
+                envs = rj.current_events_by_persistence_id(
+                    PersistenceId.of("Ledger", str(i)).id)
+                check([(e.sequence_nr, e.event) for e in envs] ==
+                      list(enumerate(events[i], 1)),
+                      f"{label}: the query's events of ledger {i}")
+
+            # ledger 0 under its BackoffSupervisor: a poison command stops
+            # it; a command sent once the supervisor counted the restart
+            # waits in its buffer for the new incarnation
+            t = time.perf_counter()
+            sup.tell(Poison())
+
+            def restarts() -> int:
+                rc = ask(sup, GetRestartCount(), timeout=ACTOR_TIMEOUT,
+                         system=classic).result(ACTOR_TIMEOUT)
+                check(isinstance(rc, RestartCount), f"{label}: {rc}")
+                return rc.count
+
+            while restarts() == 0:
+                check(time.perf_counter() - t < ACTOR_TIMEOUT,
+                      f"{label}: no restart counted")
+                time.sleep(0.005)
+            k, v = int(rng.integers(TP_COUNTERS)), 7.0
+            got = ask(sup, lambda r: LedgerAdd(k, v, r),
+                      timeout=ACTOR_TIMEOUT,
+                      system=classic).result(ACTOR_TIMEOUT)
+            after = time.perf_counter() - t
+            # a fresh system's counters start at 0
+            check(got == ("ok", v, len(events[0]) + 1),
+                  f"{label}: the restarted ledger answers {got}")
+            check(after >= TP_BACKOFF, f"{label}: the restart waited its "
+                  f"backoff ({after} s)")
+            check(restarts() == 1, f"{label}: GetRestartCount gives 1")
+            events[0].append((k, v, v))
+            new0 = ask(sup, lambda r: LedgerState(r), timeout=ACTOR_TIMEOUT,
+                       system=classic).result(ACTOR_TIMEOUT)
+            check(new0 == ledger_event_fold(events[0]),
+                  f"{label}: the restarted ledger recovered the journal")
+            print(f"{label} backoff poison_to_reply_s {after} "
+                  f"restart_count 1")
+        finally:
+            system.terminate()
+        check(system.await_termination(ACTOR_TIMEOUT),
+              f"{label}: the fresh system terminated")
+        del system, counters, sup, refs
+        free()
+    return flat
+
+
+def last_snapshot(evs) -> int:
+    """The sequence number of a ledger's last snapshot (0: none)."""
+    return len(evs) // TP_SNAPSHOT_EVERY * TP_SNAPSHOT_EVERY
+
+
+def snapshot_of(store, i: int) -> tuple:
+    """(sequence number, state) of ledger i's latest snapshot on disk
+    ((0, None): none)."""
+    sel = store.load(PersistenceId.of("Ledger", str(i)).id,
+                     SnapshotSelectionCriteria.latest())
+    return (0, None) if sel is None else (sel.metadata.sequence_nr,
+                                          sel.snapshot)
+
+
+def ledger_event_fold(evs) -> tuple:
+    state = (0, 0.0, 0.0)
+    for ev in evs:
+        state = ledger_event(state, ev)
+    return state
+
+
+
 def path_dtype(label: str) -> str:
     """The payload dtype of a path's system, by the path's name."""
     for name in ("int32", "bf16"):
@@ -3395,6 +3823,12 @@ def main() -> int:
     t0 = time.perf_counter()
     ranks = rank_paths(launches)
     print(f"rank_phase_s {time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    ledgers = typed_persistence_paths(launches)
+    phase_s = time.perf_counter() - t0
+    print(f"typed_persistence_phase_s {phase_s}")
+    check(phase_s < TP_PHASE_S, f"typed_persistence: {phase_s} s, more "
+          f"than {TP_PHASE_S}")
     # both kernels at the shapes the new paths gave them
     t0 = time.perf_counter()
     for label, flat in (("sharded_d8", sharded), ("region", region),
@@ -3403,12 +3837,12 @@ def main() -> int:
         for k, (inputs, n) in flat.items():
             rows.setdefault(label, {})[k] = kernel_rows(
                 label, inputs, n, lib, kernels=(k,))[k]
-    for label, (k, (inputs, n), slots) in actor.items():
-        table = rows if label == "actor_ring" or label == "actor_ask" \
-            else typed[path_dtype(label)]
+    for label, (k, (inputs, n), slots) in {**actor, **ledgers}.items():
+        dtype = path_dtype(label)
+        table = rows if dtype == "float32" else typed[dtype]
         table.setdefault(label, {})[k] = kernel_rows(
             label, inputs, n, lib, kernels=(k,), slots=slots)[k]
-    del sharded, region, gateway, actor, router, failover, ranks
+    del sharded, region, gateway, actor, router, failover, ranks, ledgers
     print(f"path_kernels_s {time.perf_counter() - t0}")
 
     entry = {"K1": ("ring_reduce", "_run(with_slots=False)"),

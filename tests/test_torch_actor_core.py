@@ -4,9 +4,12 @@ pattern) on the CPU: a port of the 16 scenarios of tests/test_actor_core.py
 configurations the port refuses, the unconditional `tpu-batched` type, and
 the copied serialization registry held to the reference's bytes.
 
-Every ActorSystem starts through the `system` fixture, which terminates it,
+Every ActorSystem starts through the `systems` fixture (the `system`
+fixture is its port system named "test"), which terminates each system,
 asserts that termination finished, and asserts that no thread the test
-started is still alive (5 s join)."""
+started is still alive (5 s join). The backoff scenarios run on both
+packages through `side_by_side` and hold the port's trace to the
+reference's."""
 
 import threading
 import time
@@ -20,35 +23,28 @@ from akka_tpu_torch import (Actor, ActorSystem, Props, PoisonPill, Kill,
                             OneForOneStrategy, Resume, Stop, ask_sync,
                             AskTimeoutException)
 
+from torch_host_fixture import (WAIT, Systems, assert_no_new_threads,
+                                side_by_side)
+from torch_host_fixture import threads as _threads
+
 CFG = {"akka": {"loglevel": "WARNING", "stdout-loglevel": "ERROR",
                 "log-dead-letters": 0}}
 
 
-def _threads() -> set:
-    return {t.ident for t in threading.enumerate()}
-
-
-def assert_no_new_threads(before: set) -> None:
-    """Join every thread started since `before` (5 s in all) and fail on
-    any still alive."""
-    deadline = time.monotonic() + 5.0
-    left = [t for t in threading.enumerate() if t.ident not in before]
-    for t in left:
-        t.join(max(0.0, deadline - time.monotonic()))
-    alive = [t.name for t in left if t.is_alive()]
-    assert not alive, f"threads left running: {alive}"
+@pytest.fixture()
+def systems():
+    s = Systems()
+    try:
+        yield s
+    finally:
+        s.close()
 
 
 @pytest.fixture()
-def system():
-    before = _threads()
+def system(systems):
     sys_ = ActorSystem.create("test", CFG)
-    try:
-        yield sys_
-    finally:
-        sys_.terminate()
-        assert sys_.await_termination(10.0), "system failed to terminate"
-        assert_no_new_threads(before)
+    systems.open.append(sys_)
+    return sys_
 
 
 class Echo(Actor):
@@ -448,3 +444,97 @@ def test_wire_codec_matches_the_reference():
     with pytest.raises(tcodec.WireCodecError):
         # an unregistered class outside the port is refused, never imported
         tcodec._resolve_class("akka_tpu.actor.messages:PoisonPillType")
+
+
+# ------------------ pattern/backoff (tests/test_routing_patterns.py:161-213)
+
+def _backoff_restart(P, systems):
+    B = P.backoff
+
+    class Crashy(P.Actor):
+        def receive(self, message):
+            if message == "boom":
+                raise RuntimeError("crash")
+            self.sender.tell("alive", self.self_ref)
+
+    system = systems.classic(P, "backoff", CFG)
+    sup = system.actor_of(B.BackoffSupervisor.props(
+        P.Props.create(Crashy), "crashy", min_backoff=0.05, max_backoff=0.5))
+    trace = [P.ask_sync(sup, "ping", timeout=WAIT)]
+    first = P.ask_sync(sup, B.GetCurrentChild(), timeout=WAIT)
+    trace.append((type(first).__name__, first.ref is not None))
+    sup.tell("boom")
+    deadline = time.monotonic() + WAIT
+    while True:
+        rc = P.ask_sync(sup, B.GetRestartCount(), timeout=WAIT)
+        if rc.count >= 1:
+            break
+        assert time.monotonic() < deadline, "no restart counted"
+        time.sleep(0.02)
+    trace.append(type(rc).__name__)
+    # asks sent while no child lives are buffered and forwarded to it
+    trace.append(P.ask_sync(sup, "ping", timeout=WAIT))
+    trace.append(P.ask_sync(sup, B.GetRestartCount(), timeout=WAIT).count)
+    second = P.ask_sync(sup, B.GetCurrentChild(), timeout=WAIT).ref
+    trace.append((second is not None, second != first.ref))
+    systems.close_one(system)
+    return trace
+
+
+def test_backoff_supervisor_restarts_child(systems):
+    """A crash stops the child (the supervisor's decider); the supervisor
+    respawns it after its minimum backoff, counts the restart, and
+    forwards the next messages to the new incarnation, as the reference's
+    does."""
+    assert side_by_side(_backoff_restart, systems) == [
+        "alive", ("CurrentChild", True), "RestartCount", "alive", 1,
+        (True, True)]
+
+
+def _retry(P, systems):
+    from concurrent.futures import Future
+    system = systems.classic(P, "retry", CFG)
+    attempts = [0]
+
+    def attempt():
+        attempts[0] += 1
+        f = Future()
+        if attempts[0] < 3:
+            f.set_exception(RuntimeError(f"fail {attempts[0]}"))
+        else:
+            f.set_result("done")
+        return f
+
+    out = P.backoff.retry(attempt, attempts=5, delay=0.02,
+                          scheduler=system.scheduler)
+    trace = [out.result(WAIT), attempts[0]]
+    # out of attempts: the last failure completes the future
+    attempts[0] = -10
+    failed = P.backoff.retry(attempt, attempts=2, delay=0.02,
+                             scheduler=system.scheduler)
+    err = failed.exception(WAIT)
+    trace.append((type(err).__name__, str(err), attempts[0]))
+    systems.close_one(system)
+    return trace
+
+
+def test_retry_succeeds_after_failures(systems):
+    assert side_by_side(_retry, systems) == [
+        "done", 3, ("RuntimeError", "fail -8", -8)]
+
+
+def _graceful_stop(P, systems):
+    class Echo(P.Actor):
+        def receive(self, message):
+            self.sender.tell(message, self.self_ref)
+
+    system = systems.classic(P, "stop", CFG)
+    echo = system.actor_of(P.Props.create(Echo))
+    fut = P.backoff.graceful_stop(echo, 5.0, system)
+    trace = [fut.result(WAIT), echo.is_terminated]
+    systems.close_one(system)
+    return trace
+
+
+def test_graceful_stop(systems):
+    assert side_by_side(_graceful_stop, systems) == [True, True]

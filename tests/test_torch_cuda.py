@@ -14,6 +14,9 @@ run them without the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import os
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1292,3 +1295,129 @@ def test_nccl_world_one_captures_the_collective(card):
     finally:
         assert shutdown_distributed()
     assert not dist.is_initialized()
+
+
+# ------------------- event-sourced typed actors over device counters
+
+ES_ADD, ES_GET = 0, 1
+
+
+def _es_counter():
+    from akka_tpu_torch.batched import Emit, behavior, reply_dst
+
+    @behavior("es_counter", {"count": ((), torch.float32)}, inbox="slots")
+    def es_counter(state, mailbox, ctx):
+        def apply(carry, t, pl):
+            cnt, rdst = carry
+            return (torch.where(t == ES_ADD, cnt + pl[:, 0], cnt),
+                    torch.where(t == ES_GET, reply_dst(pl), rdst))
+
+        n = ctx.actor_id.shape[0]
+        dev = ctx.actor_id.device
+        cnt, rdst = mailbox.fold(
+            (state["count"], torch.full((n,), -1, dtype=torch.int32,
+                                        device=dev)), apply)
+        reply = torch.zeros((n, tbb.PAYLOAD_W), device=dev)
+        reply[:, 0] = cnt
+        return ({"count": cnt},
+                Emit.single(rdst, reply, 1, tbb.PAYLOAD_W, when=rdst >= 0))
+    return es_counter
+
+
+def test_event_sourced_behavior_over_device_counters_recovers(card,
+                                                              tmp_path):
+    """A typed guardian spawns 64 device counters (bounded slots: K2)
+    and one EventSourcedBehavior on the file journal and local snapshot
+    store under tmp_path; each command adds to a counter, asks it through
+    ctx.ask and persists the total it replied. Every reply and counter
+    equals a host oracle, K2 launched; a fresh system on the same dirs
+    recovers the ledger's state from its snapshot plus the tail."""
+    from akka_tpu_torch.batched import device_props
+    from akka_tpu_torch.pattern.ask import ask
+    from akka_tpu_torch.persistence import (Effect, EventSourcedBehavior,
+                                            PersistenceId,
+                                            RetentionCriteria)
+    from akka_tpu_torch.typed import ActorSystem, Behaviors
+
+    counter = _es_counter()
+    cfg = {"akka": {"stdout-loglevel": "OFF", "log-dead-letters": 0,
+                    "actor": {"es-dispatcher": {
+                        "type": "tpu-batched", "capacity": 4096,
+                        "payload-width": tbb.PAYLOAD_W, "mailbox-slots": 2,
+                        "spill-capacity": 0, "promise-rows": 32,
+                        "host-inbox": 256}},
+                    "persistence": {
+                        "journal": {"plugin": "akka.persistence.journal.file",
+                                    "file": {"dir": str(tmp_path / "j")}},
+                        "snapshot-store": {
+                            "plugin": "akka.persistence.snapshot-store.local",
+                            "local": {"dir": str(tmp_path / "s")}}}}}
+
+    def guardian():
+        def setup(ctx):
+            block = ctx.spawn(None, "counters", props=device_props(
+                counter, n=64, dispatcher="akka.actor.es-dispatcher"))
+
+            def on_command(state, cmd):
+                if cmd[0] == "add":
+                    _, k, v, reply_to = cmd
+                    block[k].tell((ES_ADD, [v]))
+                    ctx.ask(block[k], (ES_GET, [0.0]),
+                            lambda got, exc: ("added", k, v,
+                                              float(got[0]), reply_to),
+                            10.0)
+                    return Effect.none()
+                if cmd[0] == "added":
+                    _, k, v, total, reply_to = cmd
+                    return Effect.persist((k, v, total)).then_reply(
+                        reply_to, lambda _s: total)
+                if cmd[0] == "state":
+                    return Effect.reply(cmd[1], state)
+                if cmd[0] == "block":
+                    return Effect.reply(cmd[1], block)
+                return Effect.none()
+
+            return EventSourcedBehavior(
+                PersistenceId.of("Ledger", "0"), (0, 0.0),
+                on_command, lambda s, e: (s[0] + 1, s[1] + e[2]),
+                retention=RetentionCriteria.snapshot_every_n(8))
+        return Behaviors.setup(setup)
+
+    rng = np.random.default_rng(3)
+    oracle, want = np.zeros(64), (0, 0.0)
+    system = ActorSystem.create(guardian(), "es-cuda-1", cfg)
+    try:
+        cm.reset_launches()
+        for _ in range(3):
+            picks = rng.choice(64, 7, replace=False)
+            futs = []
+            for k in picks:
+                v = float(rng.integers(1, 50))
+                oracle[k] += v
+                futs.append((float(oracle[k]), ask(
+                    system.guardian, lambda r, k=int(k), v=v:
+                    ("add", k, v, r), 10.0, system.classic)))
+            for total, f in futs:
+                assert f.result(10.0) == total
+                want = (want[0] + 1, want[1] + total)
+        assert cm.LAUNCHES["ring_slots"] > 0
+        block = ask(system.guardian, lambda r: ("block", r), 10.0,
+                    system.classic).result(10.0)
+        np.testing.assert_array_equal(block.read_state("count"),
+                                      oracle.astype(np.float32))
+        assert ask(system.guardian, lambda r: ("state", r), 10.0,
+                   system.classic).result(10.0) == want
+        deadline = time.monotonic() + 10.0   # the last snapshot's write
+        while not any("-16-" in f for f in os.listdir(tmp_path / "s")):
+            assert time.monotonic() < deadline, "no snapshot at 16"
+            time.sleep(0.01)
+    finally:
+        system.terminate()
+        assert system.await_termination(10.0)
+    system = ActorSystem.create(guardian(), "es-cuda-2", cfg)
+    try:
+        assert ask(system.guardian, lambda r: ("state", r), 10.0,
+                   system.classic).result(10.0) == want
+    finally:
+        system.terminate()
+        assert system.await_termination(10.0)

@@ -104,7 +104,28 @@ def test_port_imports_no_jax_and_no_reference_module():
                  # failover and the elastic mesh over shard slots
                  "akka_tpu_torch.parallel",
                  "akka_tpu_torch.parallel.mesh",
-                 "akka_tpu_torch.batched.autoscale"):
+                 "akka_tpu_torch.batched.autoscale",
+                 # the typed API and the host tier of persistence
+                 "akka_tpu_torch.serialization.versioned",
+                 "akka_tpu_torch.serialization.records",
+                 "akka_tpu_torch.typed",
+                 "akka_tpu_torch.typed.behavior",
+                 "akka_tpu_torch.typed.behaviors",
+                 "akka_tpu_torch.typed.adapter",
+                 "akka_tpu_torch.typed.actor_system",
+                 "akka_tpu_torch.typed.receptionist",
+                 "akka_tpu_torch.typed.routers",
+                 "akka_tpu_torch.typed.pubsub",
+                 "akka_tpu_torch.typed.delivery",
+                 "akka_tpu_torch.persistence.messages",
+                 "akka_tpu_torch.persistence.snapshot",
+                 "akka_tpu_torch.persistence.persistence",
+                 "akka_tpu_torch.persistence.eventsourced",
+                 "akka_tpu_torch.persistence.at_least_once",
+                 "akka_tpu_torch.persistence.adapter",
+                 "akka_tpu_torch.persistence.typed",
+                 "akka_tpu_torch.persistence.query",
+                 "akka_tpu_torch.persistence.testkit"):
         assert name in MODULES, name
 
 
@@ -158,7 +179,7 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
 # ------------------------------------------------ exports (ROADMAP C1)
 
 EXPORT_PACKAGES = ("batched", "ops", "sharding", "gateway", "event",
-                   "serialization", "testkit")
+                   "serialization", "testkit", "typed", "persistence")
 
 
 def _reference_exports(sub: str) -> set:
@@ -242,10 +263,6 @@ def test_package_exports_what_the_reference_package_exports():
 # Reference modules the port has no file for yet, by the item that ports
 # them: a name a reference __init__ imports from one of them is excepted.
 UNPORTED_MODULES = {
-    **{f"persistence/{m}.py": "A12.1" for m in (
-        "eventsourced", "typed", "snapshot", "query", "adapter",
-        "at_least_once", "messages", "persistence", "testkit")},
-    "serialization/versioned.py": "A12.1",
     **{f"ddata/{m}.py": "A12.3" for m in (
         "crdt", "version_vector", "durable", "replicator")},
     **{f"sharding/{m}.py": "A12.4" for m in (
@@ -265,12 +282,6 @@ UNPORTED_MODULES = {
 UNPORTED_NAMES = {
     ("batched/bridge.py", "I32"): "for good: a jnp dtype",
     ("batched/bridge.py", "F32"): "for good: a jnp dtype",
-    **{("pattern/backoff.py", n): "A12.1" for n in (
-        "BackoffSupervisor", "CurrentChild", "GetCurrentChild",
-        "GetRestartCount", "RestartCount", "graceful_stop", "retry")},
-    **{("persistence/journal.py", n): "A12.1" for n in (
-        "FileJournal", "InMemJournal", "JournalActor", "JournalPlugin",
-        "SharedInMemStore")},
 }
 
 
@@ -360,12 +371,13 @@ def test_ported_file_has_the_references_public_names(rel):
 def test_exception_lists_name_only_later_items():
     """The exceptions belong to A12, and the jnp dtypes; they name no
     module the port has a file for, and no name the port has. A10.2 (the
-    distributed init and its config hook) is ported: no A10.2 label is
+    distributed init and its config hook) and A12.1 (the typed API and
+    the host tier of persistence) are ported: no label of theirs is
     left."""
     labels = set(UNPORTED_MODULES.values()) | set(UNPORTED_NAMES.values())
-    assert labels <= {"A12.1", "A12.3", "A12.4", "A12.5",
+    assert labels <= {"A12.3", "A12.4", "A12.5",
                       "for good: a jnp dtype"}, labels
-    assert "A10.2" not in labels
+    assert "A10.2" not in labels and "A12.1" not in labels
     for mod in UNPORTED_MODULES:
         assert (ROOT / "akka_tpu" / mod).exists(), mod
         assert not (PKG / mod).exists(), f"{mod} is ported: drop it"
@@ -373,12 +385,53 @@ def test_exception_lists_name_only_later_items():
         assert name not in _port_binds(PKG / rel), f"{rel} {name} ported"
     assert "models/baseline_benches.py" not in {r for r, _ in UNPORTED_NAMES}
     assert "batched/metrics_slab.py" not in {r for r, _ in UNPORTED_NAMES}
-    for rel in ("routing/batched.py", "ddata/tensor.py", "stream/device.py",
+    for rel in ("typed/behavior.py", "typed/delivery.py",
+                "persistence/typed.py", "persistence/journal.py",
+                "persistence/query.py", "serialization/versioned.py",
+                "pattern/backoff.py",
+                "routing/batched.py", "ddata/tensor.py", "stream/device.py",
                 "batched/sentinel.py", "batched/autoscale.py",
                 "parallel/mesh.py", "native/lib.py", "native/queues.py",
                 "native/integration.py", "batched/metrics_slab.py",
                 "models/baseline_benches.py"):
         assert rel in PORTED_FILES, rel
+
+
+def _config_strings(node):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _config_strings(k)
+            yield from _config_strings(v)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _config_strings(v)
+    elif isinstance(node, str):
+        yield node
+
+
+def test_default_config_names_no_module_of_the_reference():
+    """No string of the port's default config names a module under
+    akka_tpu: the persistence plugins' classes are the port's own."""
+    import importlib
+
+    from akka_tpu_torch.config import reference_config
+
+    cfg = reference_config()
+    strings = list(_config_strings(cfg.to_dict()))
+    assert strings
+    bad = [s for s in strings if s == "akka_tpu" or
+           s.startswith("akka_tpu.")]
+    assert not bad, bad
+    for path, want in (
+            ("akka.persistence.journal.inmem.class",
+             "akka_tpu_torch.persistence.journal.InMemJournal"),
+            ("akka.persistence.journal.file.class",
+             "akka_tpu_torch.persistence.journal.FileJournal"),
+            ("akka.persistence.snapshot-store.local.class",
+             "akka_tpu_torch.persistence.snapshot.LocalSnapshotStore")):
+        assert cfg.get_string(path) == want
+        module, _, name = want.rpartition(".")
+        assert hasattr(importlib.import_module(module), name), want
 
 
 def test_metrics_slab_host_helpers_match_the_reference():
