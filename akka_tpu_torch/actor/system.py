@@ -3,10 +3,11 @@
 A copy of `akka_tpu/actor/system.py` at commit 5d9b7cd (host code, no jax;
 the port keeps its own copy of every module it needs). Where the
 reference falls back silently, the port refuses: the `tpu-batched`
-dispatcher type is registered unconditionally, and the configurations
-whose modules the port lacks raise `ValueError` naming the ROADMAP item
-that ports them, before anything is built (`_refuse_unported`): a remote
-or cluster provider (A12.2). The defaults reach none of them.
+dispatcher type is registered unconditionally. A remote or cluster
+provider (`akka.actor.provider = remote | cluster`) builds the port's
+`remote.provider.RemoteActorRefProvider`, whose `post_init` binds the
+transport once the guardians exist, as the reference does; when it
+raises, the port terminates the system before re-raising.
 `akka.jax-distributed.enabled` calls the reference's hook at start
 (`parallel.mesh.maybe_initialize_distributed_from_config`: this process's
 rank of a torch.distributed process group; `akka.jax-distributed.device`,
@@ -43,15 +44,6 @@ from .props import Props
 from .provider import LocalActorRefProvider
 from .ref import ActorRef
 from .scheduler import Scheduler
-
-
-def _refuse_unported(cfg: Config, provider_kind: str) -> None:
-    """Raise ValueError for a configuration that needs a module the port
-    does not have yet, naming the ROADMAP item that ports it."""
-    if provider_kind in ("remote", "cluster"):
-        raise ValueError(
-            f"akka.actor.provider = {provider_kind}: the remote and "
-            f"cluster providers are not ported (ROADMAP A12.2)")
 
 
 class Settings:
@@ -156,7 +148,6 @@ class ActorSystem:
         self.name = name
         self.settings = Settings((config or Config()).with_fallback(reference_config()))
         cfg = self.settings.config
-        _refuse_unported(cfg, self.settings.provider_kind)
 
         self.event_stream = EventStream(debug=self.settings.debug_event_stream)
         self._stdout_logger = StdOutLogger(level_for(self.settings.stdout_loglevel))
@@ -223,7 +214,12 @@ class ActorSystem:
             except RuntimeError:
                 self.scheduler.shutdown()
                 raise
-        self.provider = LocalActorRefProvider(name, self.settings, self.event_stream)
+        provider_kind = self.settings.provider_kind
+        if provider_kind in ("remote", "cluster"):
+            from ..remote.provider import RemoteActorRefProvider
+            self.provider = RemoteActorRefProvider(name, self.settings, self.event_stream)
+        else:
+            self.provider = LocalActorRefProvider(name, self.settings, self.event_stream)
 
         self.dead_letters = self.provider.dead_letters
         self.log = LoggingAdapter(self.event_stream, f"ActorSystem({name})",
@@ -242,6 +238,16 @@ class ActorSystem:
         self._dead_letter_count = 0
         if self.settings.log_dead_letters:
             self.event_stream.subscribe(self._on_dead_letter, DeadLetter)
+
+        if provider_kind in ("remote", "cluster"):
+            try:
+                self.provider.post_init(self)
+            except BaseException:
+                # a transport that cannot start (a bad PEM file, a bound
+                # port) leaves no thread of this system running
+                self.terminate()
+                self.await_termination(10.0)
+                raise
 
     # -- factory -------------------------------------------------------------
     @staticmethod

@@ -1,7 +1,12 @@
 """Receptionist: typed service discovery registry.
 
 A copy of `akka_tpu/typed/receptionist.py` at commit 1001e26 (host code, no
-jax; the port keeps its own copy of every module it needs).
+jax; the port keeps its own copy of every module it needs). One change:
+on a system with the cluster provider, `Receptionist.get` raises
+ValueError: the cluster registry replicates through ddata's replicator,
+which comes with ROADMAP A12.3 (the reference would go clustered; a
+registry silently kept local would not be its semantics). A system with
+the remote provider keeps its registry local, as the reference's does.
 
 Reference parity: akka-actor-typed/src/main/scala/akka/actor/typed/
 receptionist/Receptionist.scala (:26-37 ServiceKey; Register/Deregister/
@@ -230,6 +235,11 @@ class Receptionist:
     @staticmethod
     def get(system) -> "Receptionist":
         classic = getattr(system, "classic", system)
+        if classic.settings.provider_kind == "cluster":
+            raise ValueError(
+                "the receptionist of a cluster system replicates its "
+                "registry through ddata's replicator, which is not ported "
+                "(ROADMAP A12.3)")
         with Receptionist._lock:
             inst = Receptionist._instances.get(classic)
             if inst is None:

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (akka_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --remote-phase N   # remote_paths alone, N times
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the
    ring-mailbox kernels from akka_tpu_torch/csrc (nvcc, sm_90a).
@@ -174,8 +175,9 @@ phase's systems, and their graph pools, are freed before the next.
 10. Holds both kernels against their plain versions once more at the
    shapes these paths gave them: the 8-shard flat inboxes (sharded_d8),
    the region's inbox as a wave's tells land (region), the gateway
-   region's (gateway) and the actor paths' inboxes (actor_ring,
-   actor_ask at S = 4, actor_lifecycle_bf16).
+   region's (gateway), the actor paths' inboxes (actor_ring, actor_ask
+   at S = 4, actor_lifecycle_bf16) and those of the later phases
+   (typed_persistence, remote_ask_*, cluster_router).
 11. BASELINE configs 4 and 1 (baseline_paths). router and router_api:
    build_router / build_router_api at 2^20 producers and 100k routees
    (1,148,576 rows), step cells against their eager twins; every routee
@@ -274,6 +276,38 @@ phase's systems, and their graph pools, are freed before the next.
    ms, and K2 is held to its plain version on the fullest carried inbox
    of all 16 rounds (its valid rows counted after every step, a sync a
    step inside the timed rounds). The phase must finish within 60 s.
+17. Device actors across nodes (remote_paths). remote_ask_inproc,
+   remote_ask_tcp, remote_ask_tls: two provider = remote systems in
+   this process over the in-proc transport, TCP and TLS (the committed
+   test PKI, tests/data/torch_pki) on 127.0.0.1 port 0; node B holds
+   actor_ask's dispatcher shape (2^20 rows, 4 bounded slots: K2, depth
+   4, 256 promise rows), 4096 slots_counter device actors and a host
+   Front at /user/front (a device actor replies to asks only: the front
+   tells the add, asks the counter and pipes the reply); node A resolves
+   B's front as a RemoteActorRef and sends 16 rounds of 256 remote asks
+   (seed 5, a round's counters distinct), every reply and every
+   counter's state held to a host oracle, a live-row count after every
+   step (K2's input: the fullest carried inbox). Then a remote tell to a
+   DeviceActorRef's canonical path (B resolves that path to the very
+   ref), read back; on TCP a 2^16-float32 card tensor told over the
+   large-message lane, equal on arrival, the lane's own connection
+   asserted; a remote watch of a device ref that B stops (Terminated on
+   A). Each leg prints asks/s, ask p50/p99, steps, replays and the busy
+   share (CUDA events around each replay); K2 once a step.
+   cluster_router: three provider = cluster systems over TCP loopback
+   (gossip 0.05 s, heartbeat 0.1 s, pause 2 s, keep-majority after
+   1 s), each a reduce-mode dispatcher (2^20 rows: K1) with 1024
+   counter_behavior counters and a Front; node 0's ClusterRouterGroup
+   of RoundRobinGroup(["/user/front"]) reaches 3 routees; 8 rounds of
+   256 asks through it, each reply (node, counter, total) held to that
+   node's oracle; node 0 watches node 2's front; node 2 crashes
+   (provider.shutdown_transport(), then terminate()); the survivors
+   remove it, the router falls to 2 routees, node 0 gets Terminated
+   (address terminated); 8 more rounds. It prints the time to form,
+   crash to removed, asks/s and p50/p99 before and after, and K1
+   launches by node (once a step on every handle). Every system is
+   terminated and awaited before the next leg; the phase must finish
+   within 60 s.
 
 Any failure raises and the exit code is non-zero. The last lines are the
 kernel report (JSON, one row per kernel and payload dtype; `ms` and the
@@ -332,7 +366,9 @@ from akka_tpu_torch.models.baseline_benches import (PAYLOAD_W,
                                                     ring_behavior,
                                                     seed_ring_full)
 from akka_tpu_torch.ops import cuda_mailbox as cm
-from akka_tpu_torch.pattern.ask import ask
+from akka_tpu_torch.cluster import (Cluster, ClusterRouterGroup,
+                                    ClusterRouterGroupSettings, MemberStatus)
+from akka_tpu_torch.pattern.ask import ask, pipe
 from akka_tpu_torch.pattern.backoff import (BackoffSupervisor,
                                             GetRestartCount,
                                             RestartCount)
@@ -343,11 +379,14 @@ from akka_tpu_torch.persistence import (Effect, EventSourcedBehavior,
                                         PersistenceId, PersistenceQuery,
                                         RetentionCriteria,
                                         SnapshotSelectionCriteria)
+from akka_tpu_torch.remote.provider import RemoteActorRef
+from akka_tpu_torch.routing.router import GetRoutees, RoundRobinGroup
 from akka_tpu_torch.sharding import (AskBatcher, DeviceEntity,
                                      DeviceShardRegion)
 from akka_tpu_torch.stream import DevicePipeline
 from akka_tpu_torch.testkit import TestProbe
 from akka_tpu_torch.testkit.chaos import CRASH_SALT, chaos_hit_np, inject
+from akka_tpu_torch.testkit.cluster import FAST_MEMBERSHIP
 from akka_tpu_torch.tools import bench_mailbox as bm
 from akka_tpu_torch.tools import gateway_load as gl
 from akka_tpu_torch.tools import profile_step as ps
@@ -1819,16 +1858,38 @@ def handle_window(h, fn):
     launch counts, each under the handle's step lock, so that a step of
     its pump thread falls wholly inside or outside the window. Returns
     (fn's result, steps taken, the window's Launches)."""
+    out, steps, count = handles_window([h], fn)
+    return out, steps[0], count
+
+
+def handles_window(hs, fn):
+    """handle_window over several handles: the readings are taken under
+    all their step locks. Returns (fn's result, steps by handle, the
+    window's Launches)."""
     count = Launches()
-    with h._step_lock:
+
+    def locked(read):
+        for h in hs:
+            h._step_lock.acquire()
+        try:
+            return read()
+        finally:
+            for h in reversed(hs):
+                h._step_lock.release()
+
+    def start():
         cm.reset_launches()
-        steps0 = h._runtime._host_step
+        return [h._runtime._host_step for h in hs]
+
+    steps0 = locked(start)
     out = fn()
-    with h._step_lock:
-        steps = h._runtime._host_step - steps0
+
+    def end():
         for k, v in cm.LAUNCHES.items():
             count.counts[k] += v
-    return out, steps, count
+        return [h._runtime._host_step - s for h, s in zip(hs, steps0)]
+
+    return out, locked(end), count
 
 
 def pcts_us(xs) -> dict:
@@ -3776,6 +3837,444 @@ def ledger_event_fold(evs) -> tuple:
 
 
 
+# --------------------------------------- device actors across nodes
+REMOTE_ROUNDS, REMOTE_CONC = 16, 256   # remote_ask's rounds of asks a leg
+CR_ROUNDS = 8               # cluster_router's rounds before and after
+CR_COUNTERS = 1024          # reduce counters on each cluster node
+REMOTE_PHASE_S = 60.0       # the phase's limit
+LANE_ELEMS = 1 << 16        # the card tensor told over the large lane
+PKI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "data", "torch_pki")
+# a reduce-mode dispatcher (K1) of a cluster node: 2^20 rows, depth 4
+CR_DISPATCHER = {"type": "tpu-batched", "capacity": N,
+                 "payload-width": PAYLOAD_W, "mailbox-slots": 0,
+                 "promise-rows": 256, "host-inbox": 4096,
+                 "pipeline-depth": 4}
+# remote deathwatch's detector at the same pace (default: 1 s, 10 s)
+FAST_WATCH = {"heartbeat-interval": "0.1s",
+              "acceptable-heartbeat-pause": "2s",
+              "expected-first-heartbeat-estimate": "0.1s"}
+
+
+def node_config(transport: str, provider: str = "remote",
+                dispatcher=None, cluster=None) -> dict:
+    """A node on the in-proc transport or on TCP / TLS (the committed
+    test PKI, tests/data/torch_pki) at 127.0.0.1, port 0."""
+    rem = {"transport": transport,
+           "canonical": {"hostname": "local" if transport == "inproc"
+                         else "127.0.0.1", "port": 0},
+           "watch-failure-detector": dict(FAST_WATCH)}
+    if transport == "tls-tcp":
+        rem["tls"] = {"cert-file": os.path.join(PKI_DIR, "node0.crt"),
+                      "key-file": os.path.join(PKI_DIR, "node0.key"),
+                      "ca-file": os.path.join(PKI_DIR, "ca.crt")}
+    actor = {"provider": provider}
+    if dispatcher is not None:
+        actor["node-dispatcher"] = dict(dispatcher)
+    akka = {"stdout-loglevel": "OFF", "log-dead-letters": 0,
+            "actor": actor, "remote": rem}
+    if cluster is not None:
+        akka["cluster"] = cluster
+    return {"akka": akka}
+
+
+def then(fut: Future, fn) -> Future:
+    """A future of fn(fut's result); a failure passes through."""
+    out: Future = Future()
+
+    def done(f):
+        if f.exception() is not None:
+            out.set_exception(f.exception())
+        else:
+            out.set_result(fn(f.result()))
+
+    fut.add_done_callback(done)
+    return out
+
+
+class Front(Actor):
+    """A node's host front of its device counters (a device actor replies
+    to asks only, through its promise rows): (i, v) adds v to counter i
+    and pipes (node, i, total) to the sender. A slots counter takes the
+    add as a tell and a GET ask; a reduce counter one ask carrying the
+    add (a reduce row takes one ask a step)."""
+
+    def __init__(self, block, node: str, reduce: bool):
+        super().__init__()
+        self.refs = [block[i] for i in range(len(block))]
+        self.node, self.reduce = node, reduce
+
+    def receive(self, message):
+        i, v = message
+        ref = self.refs[i]
+        if self.reduce:
+            fut = ref.ask([v], timeout=ACTOR_TIMEOUT)
+        else:
+            ref.tell((ADD, [v]))
+            fut = ref.ask((GET, [0.0]), timeout=ACTOR_TIMEOUT)
+        pipe(then(fut, lambda r: (self.node, i, float(r[0]))), self.sender,
+             self.self_ref)
+
+
+class Sink(Actor):
+    """Hands every message to a future (the large lane's arrival)."""
+
+    def __init__(self, out: Future):
+        super().__init__()
+        self.out = out
+
+    def receive(self, message):
+        self.out.set_result(message)
+
+
+def addr_of(system) -> str:
+    return str(system.provider.local_address)
+
+
+def ask_rounds(target, system, rounds: int, n: int, check_reply,
+               rng, lat: list) -> float:
+    """`rounds` rounds of REMOTE_CONC asks (i, v) of `target` from
+    `system`, a round's counters (of n) distinct (numpy rng), each reply
+    held by check_reply(reply, i, v); returns the wall seconds."""
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        picks = rng.choice(n, REMOTE_CONC, replace=False)
+        vals = rng.integers(1, 100, REMOTE_CONC).astype(np.float64)
+        futs = []
+        for i, v in zip(picks, vals):
+            t = time.perf_counter()
+            f = ask(target, (int(i), float(v)), timeout=ACTOR_TIMEOUT,
+                    system=system)
+            f.add_done_callback(
+                lambda _f, t=t: lat.append(time.perf_counter() - t))
+            futs.append((int(i), float(v), f))
+        for i, v, f in futs:
+            check_reply(f.result(ACTOR_TIMEOUT), i, v)
+    return time.perf_counter() - t0
+
+
+def remote_ask(transport: str, launches: dict, flat: dict) -> str:
+    """remote_ask_<transport>: node B holds actor_ask's dispatcher shape
+    (2^20 rows, 4 bounded slots: K2, depth 4, 256 promise rows), 4096
+    slots counters and a Front at /user/front; node A resolves B's front
+    (a RemoteActorRef) and sends REMOTE_ROUNDS rounds of REMOTE_CONC
+    asks (seed 5), each reply held to a host oracle, with a live-row
+    count after every step (K2's input: the fullest carried inbox). Then
+    a remote tell to a DeviceActorRef path, read back; on TCP a card
+    tensor over the large-message lane; a remote watch of a device ref
+    that B stops. Returns the leg's label."""
+    label = f"remote_ask_{'tls' if transport == 'tls-tcp' else transport}"
+    did = "akka.actor.node-dispatcher"
+    t0 = time.perf_counter()
+    a = ActorSystem.create(f"{label}-a", node_config(transport))
+    b = ActorSystem.create(f"{label}-b", node_config(
+        transport, dispatcher=ASK_DISPATCHER))
+    try:
+        block = b.actor_of(device_props(slots_counter, n=ASK_ACTORS,
+                                        dispatcher=did), "counters")
+        direct = b.actor_of(device_props(slots_counter, dispatcher=did),
+                            "direct")
+        mortal = b.actor_of(device_props(slots_counter, dispatcher=did),
+                            "mortal")
+        b.actor_of(Props.create(Front, block, "B", False), "front")
+        h = get_handle(b, did)
+        rt = h.runtime
+        check(rt.spill_cap == 0 and rt.mailbox_slots == ASK_SLOTS,
+              f"{label}: bounded slots mailboxes")
+        front = a.provider.resolve_actor_ref(f"{addr_of(b)}/user/front")
+        check(isinstance(front, RemoteActorRef),
+              f"{label}: B's front is a RemoteActorRef on A")
+        print(f"{label} setup_s {time.perf_counter() - t0} a "
+              f"{addr_of(a)} b {addr_of(b)}")
+        rng = np.random.default_rng(5)
+        oracle = np.zeros(ASK_ACTORS)
+        lat, bad = [], []
+
+        def hold(reply, i, v):
+            oracle[i] += v
+            if reply != ("B", i, oracle[i]):
+                bad.append((reply, i, oracle[i]))
+
+        def drive():
+            with StepProbe(h, live=True) as live:
+                wall = ask_rounds(front, a, REMOTE_ROUNDS, ASK_ACTORS,
+                                  hold, rng, lat)
+            return wall, live
+
+        (wall, live), steps, count = handle_window(h, drive)
+        n_ask = REMOTE_ROUNDS * REMOTE_CONC
+        check(not bad, f"{label}: replies equal the oracle ({bad[:4]})")
+        check(len(lat) == n_ask, f"{label}: every ask resolved")
+        check(np.array_equal(block.read_state("count"),
+                             oracle.astype(np.float32)),
+              f"{label}: every counter equals the oracle")
+        replays, busy = len(live.events), live.busy_ms
+        print(f"{label} asks_per_s {n_ask / wall} ask "
+              f"{json.dumps(pcts_us(lat))} (host clock)")
+        print(f"{label} steps {steps} replays {replays} wall_ms "
+              f"{wall * 1e3} busy_ms {busy} busy_share "
+              f"{busy / (wall * 1e3)} (CUDA events around each replay)")
+        inputs, n = live.inputs if live.inputs is not None else (None, 0)
+        check(live.rows > 0 and int(inputs[3].sum()) > 0,
+              f"{label}: K2's input carries messages ({live.rows} rows)")
+        print(f"{label} kernel_input live_rows {live.rows} of "
+              f"{inputs[0].shape[0]}")
+        count.report(label, "ring_slots", launches, steps)
+        flat[label] = ("K2", (inputs, n), ASK_SLOTS)
+        check(h.ask_pool_stats()["in_flight"] == 0,
+              f"{label}: no ask left in flight")
+
+        # a remote tell to a DeviceActorRef path, read back on B
+        canonical = f"{addr_of(b)}/user/direct"
+        check(b.provider.resolve_actor_ref(canonical) is direct,
+              f"{label}: B resolves its canonical path to the device ref")
+        remote_direct = a.provider.resolve_actor_ref(canonical)
+        check(isinstance(remote_direct, RemoteActorRef),
+              f"{label}: A resolves it to a RemoteActorRef")
+        remote_direct.tell((ADD, [7.0]))
+        deadline = time.monotonic() + ACTOR_TIMEOUT
+        while float(direct.ask((GET, [0.0]),
+                               timeout=ACTOR_TIMEOUT).result(
+                                   ACTOR_TIMEOUT)[0]) != 7.0:
+            check(time.monotonic() < deadline,
+                  f"{label}: the remote tell reached the row")
+            time.sleep(0.005)
+
+        if transport == "tcp":
+            # a card tensor over the large-message lane
+            arrived: Future = Future()
+            b.actor_of(Props.create(Sink, arrived), "sink")
+            sink = a.provider.resolve_actor_ref(f"{addr_of(b)}/user/sink")
+            x = torch.arange(LANE_ELEMS, device="cuda",
+                             dtype=torch.float32) * 0.5 - 3.0
+            t = time.perf_counter()
+            sink.tell(x)
+            got = arrived.result(ACTOR_TIMEOUT)
+            lane_ms = (time.perf_counter() - t) * 1e3
+            check(isinstance(got, np.ndarray) and torch.equal(
+                torch.from_numpy(got).cuda(), x),
+                f"{label}: the tensor arrived equal")
+            lanes = {k[2] for k in a.provider.transport._conns}
+            check("large" in lanes and lanes - {"large"},
+                  f"{label}: the large lane and another were used "
+                  f"({lanes})")
+            print(f"{label} large_lane {LANE_ELEMS} float32 "
+                  f"({LANE_ELEMS * 4} bytes) tell_to_arrival_ms {lane_ms} "
+                  f"lanes {sorted(lanes)}")
+
+        # a remote watch of a device ref that B stops
+        remote_mortal = a.provider.resolve_actor_ref(
+            f"{addr_of(b)}/user/mortal")
+        probe = TestProbe(a)
+        probe.watch(remote_mortal)
+        deadline = time.monotonic() + ACTOR_TIMEOUT
+        while not any(isinstance(w, RemoteActorRef)
+                      for w in mortal._watched_by):
+            check(time.monotonic() < deadline,
+                  f"{label}: the Watch reached B")
+            time.sleep(0.005)
+        mortal.stop()
+        term = probe.expect_terminated(remote_mortal, ACTOR_TIMEOUT)
+        check(term.actor.path.elements == ("user", "mortal"),
+              f"{label}: A got Terminated of B's device ref")
+        graph_line(label, h.runtime)
+    finally:
+        for s in (a, b):
+            s.terminate()
+    for s in (a, b):
+        check(s.await_termination(ACTOR_TIMEOUT),
+              f"{label}: {s.name} terminated")
+    del a, b, block, direct, mortal, h, rt
+    free()
+    return label
+
+
+def cluster_router(launches: dict, flat: dict) -> None:
+    """cluster_router: three provider = cluster nodes over TCP loopback
+    (the reference's fast gossip settings, keep-majority), each with a
+    reduce-mode dispatcher (2^20 rows: K1), CR_COUNTERS counters and a
+    Front at /user/front; on node 0 a ClusterRouterGroup of
+    RoundRobinGroup(["/user/front"]) with local routees reaches 3
+    routees; CR_ROUNDS rounds of REMOTE_CONC asks through it, each reply
+    (node, counter, total) held to that node's oracle; node 0 watches
+    node 2's front; node 2 crashes (its transport shut, then terminated);
+    the survivors drop it (keep-majority downs it, the leader removes
+    it), the router falls to 2 routees, node 0 gets Terminated; CR_ROUNDS
+    more rounds. K1 launches once a step on every node's handle."""
+    label = "cluster_router"
+    did = "akka.actor.node-dispatcher"
+    t0 = time.perf_counter()
+    systems = [ActorSystem.create(f"cr{i}", node_config(
+        "tcp", "cluster", CR_DISPATCHER, FAST_MEMBERSHIP))
+        for i in range(3)]
+    try:
+        blocks, handles = [], []
+        for i, s in enumerate(systems):
+            blocks.append(s.actor_of(device_props(
+                counter_behavior(PAYLOAD_W), n=CR_COUNTERS, dispatcher=did),
+                "counters"))
+            s.actor_of(Props.create(Front, blocks[-1], f"cr{i}", True),
+                       "front")
+            handles.append(get_handle(s, did))
+            handles[-1].runtime
+        print(f"{label} setup_s {time.perf_counter() - t0}")
+        clusters = [Cluster.get(s) for s in systems]
+
+        def up(c):
+            return sum(m.status is MemberStatus.UP for m in c.state.members)
+
+        def wait_for(cond, what):
+            deadline = time.monotonic() + ACTOR_TIMEOUT
+            while not cond():
+                check(time.monotonic() < deadline, f"{label}: {what}")
+                time.sleep(0.005)
+
+        t0 = time.perf_counter()
+        for c in clusters:
+            c.join(addr_of(systems[0]))
+        wait_for(lambda: all(up(c) == 3 for c in clusters),
+                 "the three nodes are Up")
+        form_s = time.perf_counter() - t0
+        router = systems[0].actor_of(Props.create(Echo).with_router(
+            ClusterRouterGroup(RoundRobinGroup(["/user/front"]),
+                               ClusterRouterGroupSettings(
+                                   total_instances=3,
+                                   routees_paths=("/user/front",),
+                                   allow_local_routees=True))), "router")
+
+        def routees() -> int:
+            return len(ask(router, GetRoutees(), timeout=ACTOR_TIMEOUT,
+                           system=systems[0]).result(
+                               ACTOR_TIMEOUT).routees)
+
+        wait_for(lambda: routees() == 3, "the router reaches 3 routees")
+        print(f"{label} form_s {form_s} routees 3 leader "
+              f"{clusters[0].state.leader}")
+        rng = np.random.default_rng(5)
+        oracle = {f"cr{i}": np.zeros(CR_COUNTERS) for i in range(3)}
+        bad, by_node = [], {}
+
+        def hold(reply, i, v):
+            node, j, total = reply
+            by_node[node] = by_node.get(node, 0) + 1
+            if node not in oracle or j != i:
+                bad.append((reply, i, v))
+                return
+            oracle[node][i] += v
+            if total != oracle[node][i]:
+                bad.append((reply, i, v, oracle[node][i]))
+
+        def leg(hs, tag):
+            lat: list = []
+            with StepProbe(handles[0], live=True) as live:
+                (wall, steps, count) = handles_window(
+                    hs, lambda: ask_rounds(router, systems[0], CR_ROUNDS,
+                                           CR_COUNTERS, hold, rng, lat))
+            n_ask = CR_ROUNDS * REMOTE_CONC
+            check(not bad, f"{label}: replies equal each node's oracle "
+                  f"({bad[:4]})")
+            check(len(lat) == n_ask, f"{label}: every ask resolved")
+            print(f"{label} {tag} asks_per_s {n_ask / wall} ask "
+                  f"{json.dumps(pcts_us(lat))} replies_by_node "
+                  f"{dict(sorted(by_node.items()))} steps_by_node {steps}")
+            return steps, count, live
+
+        steps_b, count_b, live_b = leg(handles, "before")
+        check(len(by_node) == 3, f"{label}: every node answered")
+        # node 0 watches node 2's front, through its remote watcher
+        probe = TestProbe(systems[0])
+        front2 = systems[0].provider.resolve_actor_ref(
+            f"{addr_of(systems[2])}/user/front")
+        probe.watch(front2)
+        watcher = systems[0].provider._remote_watcher.cell.actor
+        wait_for(lambda: watcher.fd.is_monitoring(addr_of(systems[2])),
+                 "node 0's remote watcher hears node 2")
+        crashed = addr_of(systems[2])
+        t0 = time.perf_counter()
+        systems[2].provider.shutdown_transport()
+        systems[2].terminate()
+        wait_for(lambda: all(crashed not in {m.address_str
+                                             for m in c.state.members}
+                             for c in clusters[:2]),
+                 "the survivors removed node 2")
+        removed_s = time.perf_counter() - t0
+        wait_for(lambda: routees() == 2, "the router fell to 2 routees")
+        term = probe.expect_terminated(front2, ACTOR_TIMEOUT)
+        check(term.address_terminated, f"{label}: node 0 got Terminated "
+              f"of node 2's front (address terminated)")
+        terminated_s = time.perf_counter() - t0
+        check(systems[2].await_termination(ACTOR_TIMEOUT),
+              f"{label}: node 2 terminated")
+        print(f"{label} crash_to_removed_s {removed_s} "
+              f"crash_to_terminated_s {terminated_s} members "
+              f"{[len(c.state.members) for c in clusters[:2]]}")
+        by_node.clear()
+        steps_a, count_a, live_a = leg(handles[:2], "after")
+        check(set(by_node) == {"cr0", "cr1"},
+              f"{label}: only the survivors answered")
+        for blk, node in zip(blocks[:2], ("cr0", "cr1")):
+            check(np.array_equal(blk.read_state("total"),
+                                 oracle[node].astype(np.float32)),
+                  f"{label}: {node}'s counters equal its oracle")
+        for k, v in count_a.counts.items():
+            count_b.counts[k] += v
+        steps = sum(steps_b) + sum(steps_a)
+        per_node = [b + a for b, a in zip(steps_b, steps_a + [0])]
+        print(f"{label} k1_launches_by_node {per_node} (one a step)")
+        count_b.report(label, "ring_reduce", launches, steps)
+        live = max((live_b, live_a), key=lambda x: x.rows)
+        inputs = live.inputs
+        check(live.rows > 0 and int(inputs[0][3].sum()) > 0,
+              f"{label}: K1's input carries messages ({live.rows} rows)")
+        print(f"{label} kernel_input live_rows {live.rows} of "
+              f"{inputs[0][0].shape[0]} (node 0)")
+        flat[label] = ("K1", inputs, SLOTS)
+    finally:
+        for s in systems:
+            s.terminate()
+    for s in systems:
+        check(s.await_termination(ACTOR_TIMEOUT),
+              f"{label}: {s.name} terminated")
+    del systems, blocks, handles
+    free()
+
+
+def remote_paths(launches: dict) -> dict:
+    """remote_ask over inproc, TCP and TLS, then cluster_router; returns
+    each path's delivery inputs as (kernel, (inputs, n), slots)."""
+    flat: dict = {}
+    for transport in ("inproc", "tcp", "tls-tcp"):
+        t0 = time.perf_counter()
+        label = remote_ask(transport, launches, flat)
+        print(f"{label} phase_s {time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    cluster_router(launches, flat)
+    print(f"cluster_router phase_s {time.perf_counter() - t0}")
+    return flat
+
+
+def remote_phase_only(runs: int, smi: str) -> int:
+    """`python3 chip_smoke.py --remote-phase N`: remote_paths alone, N
+    times in one process (the spread of its seconds on the host clock),
+    every check as in the whole run, K1 and K2 launched in each run. The
+    last line is {"remote_phase_s": [...]}."""
+    times = []
+    for r in range(runs):
+        launches: Dict[str, dict] = {}
+        t0 = time.perf_counter()
+        remote_paths(launches)
+        times.append(time.perf_counter() - t0)
+        k1 = sum(c["ring_reduce"] for c in launches.values())
+        k2 = sum(c["ring_slots"] for c in launches.values())
+        check(k1 > 0 and k2 > 0, f"remote_paths run {r}: K1 {k1} and K2 "
+              f"{k2} launches")
+        print(f"remote_phase_run {r} remote_phase_s {times[-1]} "
+              f"k1_launches {k1} k2_launches {k2}")
+    print(smi)
+    print(json.dumps({"remote_phase_s": times}))
+    return 0
+
+
 def path_dtype(label: str) -> str:
     """The payload dtype of a path's system, by the path's name."""
     for name in ("int32", "bf16"):
@@ -3794,6 +4293,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = cm.build(verbose=True)
     print(f"build_s {time.perf_counter() - t0}")
+    if sys.argv[1:2] == ["--remote-phase"]:
+        return remote_phase_only(int(sys.argv[2]), smi)
 
     t0 = time.perf_counter()
     rows, typed = kernel_phase(lib)
@@ -3829,6 +4330,12 @@ def main() -> int:
     print(f"typed_persistence_phase_s {phase_s}")
     check(phase_s < TP_PHASE_S, f"typed_persistence: {phase_s} s, more "
           f"than {TP_PHASE_S}")
+    t0 = time.perf_counter()
+    remote = remote_paths(launches)
+    phase_s = time.perf_counter() - t0
+    print(f"remote_phase_s {phase_s}")
+    check(phase_s < REMOTE_PHASE_S, f"remote_paths: {phase_s} s, more "
+          f"than {REMOTE_PHASE_S}")
     # both kernels at the shapes the new paths gave them
     t0 = time.perf_counter()
     for label, flat in (("sharded_d8", sharded), ("region", region),
@@ -3837,12 +4344,14 @@ def main() -> int:
         for k, (inputs, n) in flat.items():
             rows.setdefault(label, {})[k] = kernel_rows(
                 label, inputs, n, lib, kernels=(k,))[k]
-    for label, (k, (inputs, n), slots) in {**actor, **ledgers}.items():
+    for label, (k, (inputs, n), slots) in {**actor, **ledgers,
+                                           **remote}.items():
         dtype = path_dtype(label)
         table = rows if dtype == "float32" else typed[dtype]
         table.setdefault(label, {})[k] = kernel_rows(
             label, inputs, n, lib, kernels=(k,), slots=slots)[k]
     del sharded, region, gateway, actor, router, failover, ranks, ledgers
+    del remote
     print(f"path_kernels_s {time.perf_counter() - t0}")
 
     entry = {"K1": ("ring_reduce", "_run(with_slots=False)"),

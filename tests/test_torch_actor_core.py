@@ -353,19 +353,22 @@ def test_scheduler_tell(system):
                                    "coordinator-address": "127.0.0.1:1",
                                    "num-processes": 2,
                                    "process-id": 1}}}, None),
-    ({"akka": {"actor": {"provider": "remote"}}}, "A12"),
-    ({"akka": {"actor": {"provider": "cluster"}}}, "A12"),
+    ({"akka": {"actor": {"provider": "remote"}}}, "remote"),
+    ({"akka": {"actor": {"provider": "cluster"}}}, "cluster"),
 ], ids=["jax-distributed", "remote", "cluster"])
 def test_unported_configurations_raise_naming_their_item(config, item,
                                                          monkeypatch):
-    """A remote or cluster provider is refused before the system builds
-    anything: no thread starts. `akka.jax-distributed` is ported: the
-    system calls the hook at start, which starts this process's rank of
-    a process group (`dist.init_process_group`, recorded here instead),
-    and terminate() destroys the group it started."""
+    """The remote and cluster providers are ported: such a system starts,
+    binds its default transport (TCP on 127.0.0.1, port 0) and
+    terminates, joining the transport's threads. `akka.jax-distributed`
+    is ported: the system calls the hook at start, which starts this
+    process's rank of a process group (`dist.init_process_group`,
+    recorded here instead), and terminate() destroys the group it
+    started."""
     import torch.distributed as dist
 
     from akka_tpu_torch.parallel import mesh as tmesh
+    from akka_tpu_torch.remote.provider import RemoteActorRefProvider
     calls = []
     monkeypatch.setattr(tmesh, "_distributed_initialized", False)
     monkeypatch.setattr(dist, "init_process_group",
@@ -376,8 +379,17 @@ def test_unported_configurations_raise_naming_their_item(config, item,
                         lambda: len(calls) == 1)
     before = _threads()
     if item is not None:
-        with pytest.raises(ValueError, match=f"ROADMAP {item}"):
-            ActorSystem.create("refused", config)
+        system = ActorSystem.create(f"bound-{item}", config)
+        try:
+            assert isinstance(system.provider, RemoteActorRefProvider)
+            address = system.provider.local_address
+            assert (address.host, address.system) == ("127.0.0.1",
+                                                      f"bound-{item}")
+            assert address.port > 0
+            assert system.address == address
+        finally:
+            system.terminate()
+        assert system.await_termination(10.0)
         assert calls == []
         assert_no_new_threads(before)
         return

@@ -125,7 +125,26 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "akka_tpu_torch.persistence.adapter",
                  "akka_tpu_torch.persistence.typed",
                  "akka_tpu_torch.persistence.query",
-                 "akka_tpu_torch.persistence.testkit"):
+                 "akka_tpu_torch.persistence.testkit",
+                 # remoting and cluster membership
+                 "akka_tpu_torch.utils.hashing",
+                 "akka_tpu_torch.pki",
+                 "akka_tpu_torch.pki.pem",
+                 "akka_tpu_torch.remote",
+                 "akka_tpu_torch.remote.transport",
+                 "akka_tpu_torch.remote.instrument",
+                 "akka_tpu_torch.remote.provider",
+                 "akka_tpu_torch.remote.deploy",
+                 "akka_tpu_torch.cluster",
+                 "akka_tpu_torch.cluster.vector_clock",
+                 "akka_tpu_torch.cluster.member",
+                 "akka_tpu_torch.cluster.reachability",
+                 "akka_tpu_torch.cluster.gossip",
+                 "akka_tpu_torch.cluster.events",
+                 "akka_tpu_torch.cluster.daemon",
+                 "akka_tpu_torch.cluster.sbr",
+                 "akka_tpu_torch.cluster.cluster",
+                 "akka_tpu_torch.cluster.routing"):
         assert name in MODULES, name
 
 
@@ -179,7 +198,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
 # ------------------------------------------------ exports (ROADMAP C1)
 
 EXPORT_PACKAGES = ("batched", "ops", "sharding", "gateway", "event",
-                   "serialization", "testkit", "typed", "persistence")
+                   "serialization", "testkit", "typed", "persistence",
+                   "pki", "cluster", "remote")
 
 
 def _reference_exports(sub: str) -> set:
@@ -371,13 +391,18 @@ def test_ported_file_has_the_references_public_names(rel):
 def test_exception_lists_name_only_later_items():
     """The exceptions belong to A12, and the jnp dtypes; they name no
     module the port has a file for, and no name the port has. A10.2 (the
-    distributed init and its config hook) and A12.1 (the typed API and
-    the host tier of persistence) are ported: no label of theirs is
-    left."""
+    distributed init and its config hook), A12.1 (the typed API and the
+    host tier of persistence) and A12.2 (remoting, PKI and cluster
+    membership) are ported: no label of theirs is left, and no source of
+    the port names A12.2."""
     labels = set(UNPORTED_MODULES.values()) | set(UNPORTED_NAMES.values())
     assert labels <= {"A12.3", "A12.4", "A12.5",
                       "for good: a jnp dtype"}, labels
-    assert "A10.2" not in labels and "A12.1" not in labels
+    assert not labels & {"A10.2", "A12.1", "A12.2"}, labels
+    for path in SOURCES + sorted(ROOT.glob("tests/*torch_*.py")) + [
+            ROOT / "chip_smoke.py"]:
+        if path.name != "test_torch_imports.py":
+            assert "A12.2" not in path.read_text(), path
     for mod in UNPORTED_MODULES:
         assert (ROOT / "akka_tpu" / mod).exists(), mod
         assert not (PKG / mod).exists(), f"{mod} is ported: drop it"
@@ -393,7 +418,11 @@ def test_exception_lists_name_only_later_items():
                 "batched/sentinel.py", "batched/autoscale.py",
                 "parallel/mesh.py", "native/lib.py", "native/queues.py",
                 "native/integration.py", "batched/metrics_slab.py",
-                "models/baseline_benches.py"):
+                "models/baseline_benches.py", "utils/hashing.py",
+                "pki/pem.py", "remote/transport.py", "remote/instrument.py",
+                "remote/provider.py", "remote/deploy.py",
+                "cluster/daemon.py", "cluster/sbr.py", "cluster/cluster.py",
+                "cluster/routing.py"):
         assert rel in PORTED_FILES, rel
 
 

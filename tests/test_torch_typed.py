@@ -5,8 +5,9 @@ stash, message adapters) and the 8 of tests/test_typed_ecosystem.py
 (receptionist, reliable delivery, work pulling, topics). Each scenario is
 written once, runs on both packages, and the port's trace of replies and
 listings must equal the reference's. The two ecosystem scenarios that need
-modules the port does not have yet (the cluster receptionist, ROADMAP
-A12.2, and the stream-typed adapters, A12.5) check the port's refusal.
+modules the port does not have yet (the cluster receptionist's
+replicator, ROADMAP A12.3, and the stream-typed adapters, A12.5) check
+the port's refusal.
 
 Every system starts through the `systems` fixture
 (tests/torch_host_fixture.py), which asserts `await_termination(10.0)` and
@@ -362,9 +363,9 @@ def _paths(refs):
     return sorted(r.path.name for r in refs)
 
 
-def _receptionist(P, systems):
+def _receptionist(P, systems, config=None):
     T, A = P.typed, actors(P)
-    system = systems.classic(P, "typed-eco")
+    system = systems.classic(P, "typed-eco", config)
     probe_of = P.testkit.TestProbe
     rec = T.Receptionist.get(system)
     key = T.ServiceKey("echo-service")
@@ -410,16 +411,35 @@ def test_receptionist_register_find_subscribe(systems):
     assert side_by_side(_receptionist, systems)[-1] == ("found", ["svc2"])
 
 
+def test_receptionist_of_a_remote_system_keeps_a_local_registry(systems):
+    """A `provider = remote` system (no cluster) keeps its receptionist's
+    registry local on both packages: the reference's receptionist tries
+    Cluster.get, which a remote provider refuses, and stays local. Group
+    routers, topics and work pulling find their services through it."""
+    remote = {"akka": {"actor": {"provider": "remote"},
+                       "remote": {"transport": "inproc",
+                                  "canonical": {"hostname": "local",
+                                                "port": 0}},
+                       **QUIET["akka"]}}
+    trace = side_by_side(_receptionist, systems, remote)
+    assert trace[-1] == ("found", ["svc2"])
+
+
 def test_receptionist_cluster_visibility(systems):
     """The cluster receptionist replicates its registry through the
-    cluster's distributed data; the port has neither the cluster provider
-    nor the replicator (ROADMAP A12.2, A12.3). A clustered config is
-    refused naming A12.2, and a local system's receptionist keeps its
-    registry local, as the reference's does without a cluster."""
+    cluster's distributed data; the port has the cluster provider but not
+    the replicator (ROADMAP A12.3). A clustered system starts, and its
+    receptionist is refused naming A12.3; a local system's receptionist
+    keeps its registry local, as the reference's does without a
+    cluster."""
     P = package("akka_tpu_torch")
-    with pytest.raises(ValueError, match="A12.2"):
-        P.ActorSystem.create("rc-refused", {"akka": {
-            "actor": {"provider": "cluster"}, **QUIET["akka"]}})
+    clustered = systems.classic(P, "rc-refused", {"akka": {
+        "actor": {"provider": "cluster"},
+        "remote": {"transport": "inproc",
+                   "canonical": {"hostname": "local", "port": 0}},
+        **QUIET["akka"]}})
+    with pytest.raises(ValueError, match="A12.3"):
+        P.typed.Receptionist.get(clustered)
     system = systems.classic(P, "rc-local")
     rec = P.typed.Receptionist.get(system)
     probe = P.testkit.TestProbe(system)
