@@ -1,10 +1,7 @@
 """Split-brain resolver: downing strategies applied after a stable period.
 
 A copy of `akka_tpu/cluster/sbr.py` at commit 56e9e23 (host code, no jax;
-the port keeps its own copy of every module it needs). One change:
-`strategy_from_config` refuses `lease-majority`, whose lease provider
-(`cluster_tools/lease.py`) comes with ROADMAP A12.3; `LeaseMajority`
-itself takes any lease factory.
+the port keeps its own copy of every module it needs).
 
 Reference parity: akka-cluster/src/main/scala/akka/cluster/sbr/
 SplitBrainResolver.scala (:96 actor, :134 stable-after logic, :536 strategy
@@ -177,11 +174,19 @@ def strategy_from_config(cfg, system=None, self_owner: str = ""
     if name == "down-all":
         return DownAll()
     if name == "lease-majority":
-        # the lease provider is cluster_tools/lease.py, which the port
-        # has not yet (LeaseMajority itself takes any lease factory)
-        raise ValueError(
-            "split-brain-resolver active-strategy lease-majority: its "
-            "lease provider (cluster_tools) is not ported (ROADMAP A12.3)")
+        if system is None:
+            raise ValueError("lease-majority needs the actor system")
+        lease_name = cfg.get_string(
+            "lease-majority.lease-name",
+            f"{system.name}-akka-sbr")
+
+        def factory():
+            from ..cluster_tools.lease import LeaseProvider
+            return LeaseProvider.get(system).get_lease(
+                lease_name, "akka.cluster.split-brain-resolver.lease-majority",
+                self_owner)
+        return LeaseMajority(factory, cfg.get_duration(
+            "lease-majority.acquire-lease-delay-for-minority", 2.0))
     raise ValueError(f"unknown split-brain-resolver strategy {name!r}")
 
 

@@ -9,11 +9,10 @@ The planes, each its own module:
               ask waves across sockets)
 - admission:  per-tenant token buckets + runtime-pressure load shedding
 - dedup:      reply-cache dedup (exactly-once retry effects)
-- replica:    hot-entity read replica (local mode)
+- replica:    hot-entity read replica (local, or fed by ddata's replicator)
 - slo:        p50/p99 latency vs targets, error budget, per-tenant counters
 
-Not ported: the "stream" transport (ROADMAP A12) and the replica's ddata
-feed (A11/A12).
+Not ported: the "stream" transport (ROADMAP A12.5).
 """
 
 from .admission import (AdmissionController, AskPoolExhausted, Reject,

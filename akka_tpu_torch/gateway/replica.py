@@ -1,8 +1,9 @@
 """Replicated read path for hot entities.
 
-Port of `akka_tpu/gateway/replica.py` in its local mode. The ddata-fed
-mode (a `system` with a cluster and a replicator) is not ported: passing
-`system` raises NotImplementedError (ROADMAP A11/A12).
+Port of `akka_tpu/gateway/replica.py`, the local mode and the ddata feed
+(a `system` with a cluster and its replicator). One change: a `system`
+the feed cannot run on (no cluster, no replicator) raises ValueError; the
+reference falls back silently to the local mode.
 
 A gateway "get" is `add(0)` riding the full admission → ask-wave →
 device-step → readback pipeline — the cheapest traffic served the most
@@ -49,15 +50,17 @@ __all__ = ["ReadReplicaCache", "REPLICA_KEY_ID"]
 
 REPLICA_KEY_ID = "gw-replica-totals"
 
+_STEP_PREFIX = "s:"  # map key of an entity's publish step
+
 
 class ReadReplicaCache:
-    """Hot-entity read replica, local mode.
+    """Hot-entity read replica over a ddata-replicated PNCounterMap.
 
     `step_fn` reads the shared ATT_STEP axis (the region system's
-    `_host_step`). The cache runs local-only: the reference's
-    promotion/staleness contract, no cross-node feed. `system` and
-    `key_id` keep the reference's signature; a `system` raises (the
-    ddata feed is ROADMAP A11/A12)."""
+    `_host_step`). Without `system` the cache runs local-only: same
+    promotion/staleness contract, no cross-node feed — the single-gateway
+    fast path. A `system` without a cluster's replicator raises
+    ValueError."""
 
     def __init__(self, step_fn: Callable[[], int], system=None,
                  key_id: str = REPLICA_KEY_ID,
@@ -89,19 +92,71 @@ class ReadReplicaCache:
                 "gateway_replica_step_lag",
                 "step lag of replica-served reads (ATT_STEP axis)")
         self._registry = registry
-        # the ddata feed is not ported: local-only, never replicated
+        # -- optional ddata feed ------------------------------------------
         self._replicator = None
+        self._node_id = None
+        self._key = None
+        self._subscriber = None
         if system is not None:
-            raise NotImplementedError(
-                "ReadReplicaCache's ddata-fed mode (cluster + replicator) "
-                "is not ported yet (ROADMAP A11/A12); build it without "
-                "`system` for the local mode")
+            self._wire_ddata(system, key_id)
 
-    # ------------------------------------------------------------ publish
+    def _wire_ddata(self, system, key_id: str) -> None:
+        from ..cluster.cluster import Cluster
+        from ..ddata import DistributedData, Key, Subscribe
+        from ..ddata.replicator import unique_node_id
+        try:
+            dd = DistributedData.get(system)
+            node_id = unique_node_id(Cluster.get(system).self_unique_address)
+        except Exception as e:  # noqa: BLE001 — named in the refusal
+            raise ValueError(
+                "ReadReplicaCache(system=...) feeds the cache through the "
+                "cluster's ddata replicator, which this system cannot run "
+                f"({e!r}); build it without `system` for the local mode"
+            ) from e
+        self._replicator = dd.replicator
+        self._key = Key(key_id)
+        self._node_id = node_id
+        from ..actor.props import Props
+        cache = self
+
+        from ..actor.actor import Actor
+        from ..ddata import Changed
+
+        class _ReplicaFeed(Actor):
+            def receive(self, msg):
+                if isinstance(msg, Changed):
+                    cache._ingest_map(msg.data)
+                return True
+
+        self._subscriber = system.system_actor_of(
+            Props(factory=_ReplicaFeed), f"gwReplicaFeed-{id(self):x}")
+        self._replicator.tell(
+            Subscribe(self._key, self._subscriber), self._subscriber)
+
+    # ------------------------------------------------------------- feed side
+    def _ingest_map(self, data) -> None:
+        """Replicated map -> local replica view. Steps are monotonic per
+        entity, so a stale notification can never roll a stamp back."""
+        try:
+            entries = dict(data.entries)  # each value computed once
+        except Exception:
+            return
+        with self._lock:
+            for k, v in entries.items():
+                if k.startswith(_STEP_PREFIX) or v is None:
+                    continue
+                step = entries.get(_STEP_PREFIX + k)
+                if step is None:
+                    continue
+                cur = self._replica.get(k)
+                if cur is None or int(step) >= cur[1]:
+                    self._replica[k] = (float(v) / self.scale, int(step))
+
     def publish_wave(self, totals: Dict[str, float]) -> None:
         """ONE batched publish per ask wave: the authoritative post-wave
         totals of the wave's ok outcomes, stamped with the current device
-        step, into the local view."""
+        step. Local view updates synchronously; the replicated map gets a
+        single Update whose op delta carries only the touched entries."""
         if not totals:
             return
         step = int(self.step_fn())
@@ -110,17 +165,43 @@ class ReadReplicaCache:
                 self._replica[e] = (float(total), step)
             self._stats["publishes"] += 1
             self._stats["published_entities"] += len(totals)
+        if self._replicator is not None:
+            self._publish_ddata(totals, step)
+
+    def _publish_ddata(self, totals: Dict[str, float], step: int) -> None:
+        from ..ddata import PNCounterMap, Update, WriteLocal
+        node, scale = self._node_id, self.scale
+
+        def modify(m):
+            # every change of the wave in one copy of the map (the
+            # reference increments entry by entry, copying the map each
+            # time)
+            changes = []
+            for e, total in totals.items():
+                fp = int(round(total * scale))
+                cur = int(m.get(e) or 0)
+                if fp != cur:
+                    changes.append((e, fp - cur))
+                sk = _STEP_PREFIX + e
+                cs = int(m.get(sk) or 0)
+                if step > cs:
+                    changes.append((sk, step - cs))
+            return m.increment_many(node, changes) if changes else m
+
+        self._replicator.tell(
+            Update(self._key, PNCounterMap.empty(), WriteLocal(),
+                   modify=modify), self._subscriber)
 
     def republish_restored(self,
                            totals: Optional[Dict[str, float]]) -> None:
         """Durable-restore seam: after a restart or in-process failover
         replays the entity journal, the device rows hold the acked
-        frontier — but this cache can still hold pre-crash post-wave
-        totals whose step stamps read as FRESH against the restored
-        `_host_step`, because the restored step lands near the crash
-        frontier. Entries the
+        frontier — but this cache (and the replicated map feeding peer
+        gateways) can still hold pre-crash post-wave totals whose step
+        stamps read as FRESH against the restored `_host_step`, because
+        the restored step lands near the crash frontier. Entries the
         journal covers are re-published at the NEW step (overwriting the
-        stale stamp); entries it does
+        stale stamp locally and in the replicated map); entries it does
         not cover are dropped, since they can only describe pre-crash
         unacked state — those reads fall through to the wave."""
         totals = dict(totals) if totals else {}

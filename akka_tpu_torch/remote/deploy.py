@@ -1,7 +1,13 @@
 """Remote deployment: create an actor ON another node from a local Props.
 
 A copy of `akka_tpu/remote/deploy.py` at commit 56e9e23 (host code, no jax;
-the port keeps its own copy of every module it needs).
+the port keeps its own copy of every module it needs). One repair: the
+daemon remembers the names of its deployed children that stopped (as it
+does those whose creation failed, for as long), and answers a Watch of
+such a child, and a Watch still buffered when its child's creation
+deadline passes, with `Terminated(existence_confirmed=False)`, as Akka
+answers a Watch of a dead actor. The reference drops both to dead
+letters, so the watcher never learns that the actor is gone.
 
 Reference parity: akka-remote/src/main/scala/akka/remote/
 RemoteActorRefProvider.scala:152 (actorOf consults the deployer; a
@@ -136,6 +142,7 @@ class RemoteSystemDaemon(Actor):
         self.provider = provider
         self._pending: Dict[str, list] = {}   # child_name -> early messages
         self._failed: Dict[str, str] = {}     # child_name -> reason
+        self._stopped: set = set()            # names of stopped children
         # origin parent path -> daemon-child names whose life is tied to it
         self._parent_children: Dict[str, set] = {}
 
@@ -150,13 +157,14 @@ class RemoteSystemDaemon(Actor):
         elif isinstance(message, _DeliverToChild):
             self._deliver(message)
         elif isinstance(message, tuple) and message and message[0] == "drop-pending":
-            for m, snd, _sys in self._pending.pop(message[1], ()):
-                self.context.system.event_stream.publish(
-                    DeadLetter(m, snd, self.self_ref))
+            for m, snd, sys_ in self._pending.pop(message[1], ()):
+                self._reject(message[1], m, snd, sys_)
         elif isinstance(message, tuple) and message and message[0] == "drop-failed":
             # failure records only need to live long enough to dead-letter
             # in-flight sends; on a long-lived node they must not accumulate
             self._failed.pop(message[1], None)
+        elif isinstance(message, tuple) and message and message[0] == "drop-stopped":
+            self._stopped.discard(message[1])
         elif isinstance(message, tuple) and message and message[0] == "origin-parent-died":
             for name in self._parent_children.pop(message[1], ()):
                 child = self.context.child(name)
@@ -167,6 +175,13 @@ class RemoteSystemDaemon(Actor):
             # once an origin parent has no deployed children left, unwatch it
             # and drop its (now empty) entry
             name = message.actor.path.name
+            if self.context.child(name) is None:
+                # remembered as long as a failure is: a Watch that races
+                # the stop is answered, not buffered
+                self._stopped.add(name)
+                me = self.self_ref
+                self.context.system.scheduler.schedule_once(
+                    5.0, lambda: me.tell(("drop-stopped", name)))
             for parent, kids in list(self._parent_children.items()):
                 kids.discard(name)
                 if not kids:
@@ -200,9 +215,8 @@ class RemoteSystemDaemon(Actor):
         if child is not None:
             self._send_to(child, msg.message, msg.sender, msg.system)
             return
-        if msg.child_name in self._failed:
-            self.context.system.event_stream.publish(
-                DeadLetter(msg.message, msg.sender, self.self_ref))
+        if msg.child_name in self._failed or msg.child_name in self._stopped:
+            self._reject(msg.child_name, msg.message, msg.sender, msg.system)
             return
         # creation may still be in flight (unordered transport); buffer with
         # a deadline after which unclaimed messages become dead letters
@@ -218,6 +232,23 @@ class RemoteSystemDaemon(Actor):
         else:
             buf.append((msg.message, msg.sender, msg.system))
 
+    def _reject(self, child_name: str, message, sender, system: bool) -> None:
+        """A message for a child that does not exist: a Watch is answered
+        with Terminated(existence_confirmed=False), anything else goes to
+        dead letters."""
+        from ..actor.ref import MinimalActorRef
+        from ..dispatch import sysmsg as _sysmsg
+        if system and isinstance(message, _sysmsg.Watch) \
+                and message.watcher is not None:
+            gone = MinimalActorRef(self.self_ref.path / child_name,
+                                   self.provider)
+            message.watcher.send_system_message(
+                _sysmsg.DeathWatchNotification(gone,
+                                               existence_confirmed=False))
+            return
+        self.context.system.event_stream.publish(
+            DeadLetter(message, sender, self.self_ref))
+
     def _create(self, msg: DaemonMsgCreate) -> None:
         allow_import = self.provider.serialization.allow_pickle
         try:
@@ -231,6 +262,7 @@ class RemoteSystemDaemon(Actor):
             if existing is not None:
                 return  # idempotent re-delivery
             child = self.context.actor_of(props, msg.child_name)
+            self._stopped.discard(msg.child_name)
             self.context.watch(child)
             # tie the child's life to its origin-side parent: when the parent
             # (or its whole node) dies, stop the orphans (the reference keeps
@@ -258,9 +290,8 @@ class RemoteSystemDaemon(Actor):
             me, name = self.self_ref, msg.child_name
             self.context.system.scheduler.schedule_once(
                 5.0, lambda: me.tell(("drop-failed", name)))
-            for m, snd, _sys in self._pending.pop(msg.child_name, ()):
-                self.context.system.event_stream.publish(
-                    DeadLetter(m, snd, self.self_ref))
+            for m, snd, sys_ in self._pending.pop(msg.child_name, ()):
+                self._reject(msg.child_name, m, snd, sys_)
             self.context.system.event_stream.publish(DeadLetter(
                 DaemonMsgCreateFailed(msg.child_name, repr(e)),
                 None, self.self_ref))

@@ -402,7 +402,12 @@ class TcpTransport(Transport):
 
     def _peer_lock(self, key: Tuple[str, int, str]) -> threading.Lock:
         # per-(peer, lane) lock so a slow/blocked transfer on one lane
-        # doesn't stall sends (e.g. failure-detector heartbeats) on others
+        # doesn't stall sends (e.g. failure-detector heartbeats) on others;
+        # found without the transport's lock (one dict read), so that the
+        # senders of every lane do not convoy on it
+        lock = self._peer_locks.get(key)
+        if lock is not None:
+            return lock
         with self._conn_lock:
             lock = self._peer_locks.get(key)
             if lock is None:

@@ -1,7 +1,10 @@
 """Fixed-schema wire codec: tag-based values + allowlisted object graphs.
 
 A copy of `akka_tpu/serialization/codec.py` at commit 5d9b7cd (host code, no
-jax; the port keeps its own copy of every module it needs).
+jax; the port keeps its own copy of every module it needs). One repair: a
+class reference takes no memo slot on encode, as on decode
+(`_is_cycle_kind`); and `_resolve_class` reads the registry without its
+lock (writers still take it).
 
 Reference parity: akka-remote's protobuf serializers for internal messages
 (remote/serialization/, the shaded akka-protobuf runtime) and the Artery
@@ -77,8 +80,10 @@ def _class_key(cls: type) -> str:
 
 
 def _resolve_class(key: str) -> type:
-    with _registry_lock:
-        cls = _registered.get(key)
+    # a lock-free read (one dict lookup is atomic): every object decoded
+    # resolves its class here, and a lock taken by every reader thread for
+    # each lookup convoys them behind the interpreter lock
+    cls = _registered.get(key)
     if cls is not None:
         return cls
     module, _, qual = key.partition(":")
@@ -133,10 +138,15 @@ def _is_cycle_kind(obj: Any) -> bool:
     order or every later backref is misaligned (silent corruption). The
     isinstance checks therefore mirror the encode dispatch exactly:
     NamedTuples (tuple subclasses, 'n'-coded) and refused builtin
-    subclasses never take a slot."""
+    subclasses never take a slot, and nor does a class reference ('C'
+    coded, which decode never registers; the reference gives it a slot on
+    encode alone, so every later backref of its payload points one slot
+    off)."""
     t = type(obj)
     if t in (list, set, dict):
         return True
+    if isinstance(obj, type):
+        return False
     if obj is None or isinstance(
             obj, (bool, int, float, str, bytes, tuple, frozenset, list, set,
                   dict, np.ndarray, np.generic, enum.Enum)):

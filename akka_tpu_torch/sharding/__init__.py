@@ -1,9 +1,9 @@
 """Cluster sharding on the device (port of `akka_tpu/sharding`): the
 region's data plane (`DeviceShardRegion`), its synchronous ask engine,
 the futures front end (`AskBatcher`, `ContinuousWaveScheduler`) and the
-remember-entities stores (the ddata store raises until its replicator
-is ported). The host control plane (ShardRegion/ShardCoordinator
-actors) is not ported yet (ROADMAP A12)."""
+remember-entities stores (in-proc, journal and ddata). The host control
+plane (ShardRegion/ShardCoordinator actors) is not ported yet (ROADMAP
+A12.4)."""
 
 from .ask_batch import (AskBatcher, BatchAsk, ContinuousWaveScheduler,
                         execute_ask_batch, wait_adaptive_close)

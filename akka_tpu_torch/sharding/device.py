@@ -58,7 +58,7 @@ import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -356,9 +356,45 @@ class DeviceShardRegion:
                 self._shard_block.astype(np.int32) * np.int32(self.eps))})
 
     # ------------------------------------------------------------- entities
-    def entity_ref(self, entity_id: str) -> DeviceEntityRef:
+    def entity_ref(self, entity_id: str,
+                   remember: bool = True) -> DeviceEntityRef:
         """Resolve the device entity for an id, allocating its row on first
-        use (StartEntity semantics)."""
+        use (StartEntity semantics). `remember=False` (a port addition)
+        does not add a new id to the remember store: the respawn of ids
+        the store gave back."""
+        return self.entity_refs([entity_id], remember)[0]
+
+    def entity_refs(self, entity_ids: Sequence[str],
+                    remember: bool = True) -> List[DeviceEntityRef]:
+        """`entity_ref` of each id, in batches (a port addition): one flush
+        of entities.log, the new ids given to the remember store in one
+        call where it takes a batch (`add_many`, with their rows), and the
+        new rows made live in one write of the tables."""
+        refs, new = [], []
+        for eid in entity_ids:
+            ref, is_new = self._allocate(eid)
+            refs.append(ref)
+            if is_new and remember:
+                new.append(ref)
+        with self._lock:
+            if self._ents_fh is not None:
+                self._ents_fh.flush()
+        store = self.spec.remember_store
+        if new and store is not None:
+            add_many = getattr(store, "add_many", None)
+            if add_many is not None:
+                add_many(self.type_name, [(str(r.shard), r.entity_id,
+                                           r.index) for r in new])
+            else:
+                for r in new:
+                    store.add(self.type_name, str(r.shard), r.entity_id)
+        self._spawn(refs)
+        return refs
+
+    def _allocate(self, entity_id: str) -> Tuple[DeviceEntityRef, bool]:
+        """The entity's ref, its row allocated (and written to
+        entities.log, flushed by the caller) on first use; whether it was
+        new."""
         shard = self.shard_of(entity_id)
         new = False
         with self._lock:
@@ -375,21 +411,27 @@ class DeviceShardRegion:
                     # a tell journaled to an entity allocated after the
                     # last snapshot must find its row alive on replay
                     self._ents_fh.write(f"{shard}\t{idx}\t{entity_id}\n")
-                    self._ents_fh.flush()
-        if new and self.spec.remember_store is not None:
-            self.spec.remember_store.add(self.type_name, str(shard),
-                                         entity_id)
-        self._ensure_spawned(shard, idx)
-        return DeviceEntityRef(self, shard, idx, entity_id)
+        return DeviceEntityRef(self, shard, idx, entity_id), new
 
-    def _ensure_spawned(self, shard: int, idx: int) -> None:
+    def _spawn(self, refs: Sequence[DeviceEntityRef]) -> None:
+        """Make live every row of each ref's shard up to the ref's, in one
+        write of `behavior_id` and `alive` for all of them."""
+        top: Dict[int, int] = {}
+        for r in refs:
+            top[r.shard] = max(top.get(r.shard, -1), r.index)
+        spans = []
         with self._lock:
-            if idx < self._spawned[shard]:
-                return
-            start_idx = int(self._spawned[shard])
-            self._spawned[shard] = idx + 1
-            base = int(self._shard_block[shard]) * self.eps
-        rows = slice(base + start_idx, base + idx + 1)
+            for shard, idx in top.items():
+                start_idx = int(self._spawned[shard])
+                if idx < start_idx:
+                    continue
+                self._spawned[shard] = idx + 1
+                base = int(self._shard_block[shard]) * self.eps
+                spans.append((base + start_idx, base + idx + 1))
+        if not spans:
+            return
+        rows = slice(*spans[0]) if len(spans) == 1 else np.concatenate(
+            [np.arange(a, b, dtype=np.int64) for a, b in spans])
         # device writes go under the ask lock (never during a step), taken
         # outside the registry lock
         with self._ask_lock:
@@ -598,16 +640,44 @@ class DeviceShardRegion:
         union of the remember store's ids and the entity journal's fold,
         allocating rows for ids the sidecar and entities.log missed. Runs
         before the replay, so replayed totals find their rows alive.
-        Sorted order makes the placement deterministic."""
-        ids = set()
+        Sorted order makes the placement deterministic, and the store's
+        ids are not added back to it (the reference adds them again). A
+        store that records each id's row (`remembered_rows`, the ddata
+        store) re-hosts those ids first, by shard and row: each takes the
+        row it had, so the WAL's tells, which name rows, replay onto the
+        right entities even when entities.log is lost (the reference
+        sorts those ids too, and misplaces them). An id that cannot take
+        its recorded row (a row of the shard unrecorded, or held by
+        another id) raises RuntimeError."""
+        stored, placed = set(), []
         store = self.spec.remember_store
+        rows_of = getattr(store, "remembered_rows", None)
         if store is not None:
             for shard in range(self.spec.n_shards):
-                ids.update(store.remembered(self.type_name, str(shard)))
+                if rows_of is None:
+                    stored.update(store.remembered(self.type_name,
+                                                   str(shard)))
+                    continue
+                for eid, index in rows_of(self.type_name,
+                                          str(shard)).items():
+                    if index is None:
+                        stored.add(eid)
+                    else:
+                        placed.append((shard, index, eid))
+        placed.sort()
+        refs = self.entity_refs([eid for _s, _i, eid in placed],
+                                remember=False)
+        for (shard, index, eid), ref in zip(placed, refs):
+            if ref.index != index:
+                raise RuntimeError(
+                    f"remembered entity {eid!r} of shard {shard} had row "
+                    f"{index} and would be re-hosted at row {ref.index}")
+        journal = set()
         if self._entity_journal is not None:
-            ids.update(self._entity_journal.totals())
-        for eid in sorted(ids):
-            self.entity_ref(eid)
+            journal = set(self._entity_journal.totals())
+        given = stored | {eid for _s, _i, eid in placed}
+        for eid in sorted(stored | journal):
+            self.entity_ref(eid, remember=eid not in given)
 
     def _replay_entities(self) -> Dict[str, float]:
         """Write the entity journal's fold (snapshot + event tail: the
@@ -623,7 +693,7 @@ class DeviceShardRegion:
         self._durable_replayed_totals = totals
         if not totals:
             return totals
-        rows = [self.entity_ref(eid).row for eid in totals]
+        rows = [ref.row for ref in self.entity_refs(list(totals))]
         col = self.system.state[self._durable_col]
         self.system.set_rows(col, np.asarray(rows, np.int64),
                              np.asarray(list(totals.values())))

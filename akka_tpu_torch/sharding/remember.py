@@ -5,8 +5,14 @@ itself imports the host actor runtime, so only these classes are copied):
 the `RememberEntitiesStore` interface, the process-global
 `InProcRememberEntitiesStore` and the durable record-log
 `JournalRememberEntitiesStore`, whose file format is the reference's, so
-either package reads the other's store. The replicated store
-(`DDataRememberEntitiesStore`) needs the ddata replicator, ROADMAP A12.
+either package reads the other's store, and the replicated
+`DDataRememberEntitiesStore` (one ORSet of ids per shard in the ddata
+replicator). The port adds to `DDataRememberEntitiesStore` a grow-only
+set of (id, row index) per shard beside each ORSet: `add_many` records a
+batch of a region's new ids with their rows (every touched shard's two
+updates in flight at once), and `remembered_rows` reads them back, with
+which a region re-hosts ids at the rows they had, whichever nodes wrote
+them.
 
 A region with `DeviceEntity.remember_store` adds every entity id on its
 first allocation, and `restore()` respawns every remembered id before the
@@ -18,7 +24,7 @@ from __future__ import annotations
 import os
 import pickle
 import threading
-from typing import Any, Dict, Set, Tuple
+from typing import Any, Dict, Iterable, Optional, Set, Tuple
 
 from ..persistence.journal import repair_record_log, scan_record_log
 
@@ -166,11 +172,128 @@ class JournalRememberEntitiesStore(RememberEntitiesStore):
 
 
 class DDataRememberEntitiesStore(RememberEntitiesStore):
-    """The replicated store of the reference (one ORSet of entity ids per
-    (type, shard) in the ddata replicator). Not ported: the replicator is
-    ROADMAP A12."""
+    """Replicated store: one ORSet of entity ids per (type, shard) key in
+    the ddata Replicator — adds/removes travel as the op-based deltas of
+    ddata/crdt.py (an add to a 10k-id set gossips O(1 id), not the set), and a
+    region restarted on ANY node of the cluster reads back the ids with
+    one local Get (reference: DDataRememberEntitiesShardStore.scala).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DDataRememberEntitiesStore is not ported yet (ROADMAP A12: "
-            "the ddata replicator)")
+    Local-first semantics: updates are WriteLocal (the shard's add must
+    never block on a quorum — the reference uses majority writes but
+    batches behind the shard's message stash; here gossip + delta ticks
+    converge the set) and reads are ReadLocal."""
+
+    def __init__(self, system, key_prefix: str = "sharding-remember",
+                 timeout: float = 5.0):
+        from ..ddata import DistributedData
+        dd = DistributedData.get(system)
+        self.system = system
+        self.replicator = dd.replicator
+        self.node = dd.self_unique_address
+        self.key_prefix = key_prefix
+        self.timeout = float(timeout)
+
+    def _key(self, type_name: str, shard_id: str):
+        from ..ddata import Key
+        return Key(f"{self.key_prefix}-{type_name}-{shard_id}")
+
+    def remembered(self, type_name, shard_id):
+        from ..ddata import Get, GetSuccess, ReadLocal
+        from ..pattern.ask import ask_sync
+        rep = ask_sync(self.replicator,
+                       Get(self._key(type_name, shard_id), ReadLocal()),
+                       timeout=self.timeout, system=self.system)
+        if isinstance(rep, GetSuccess):
+            return set(rep.data.elements)
+        return set()  # NotFound: nothing remembered yet
+
+    def _rows_key(self, type_name: str, shard_id: str):
+        from ..ddata import Key
+        return Key(f"{self.key_prefix}-{type_name}-{shard_id}-rows")
+
+    def remembered_rows(self, type_name, shard_id) -> Dict[str, Optional[int]]:
+        """Every remembered id with the row index its region gave it
+        (`add_many`), or None where no row was recorded (an id of `add`). A
+        port addition: a region that lost its allocation log re-hosts the
+        ids at these rows (`_respawn_remembered`), whichever nodes wrote
+        them. Raises ValueError where two rows were recorded for one id
+        (two regions allocated the shard at once)."""
+        from ..ddata import Get, GetSuccess, ReadLocal
+        from ..pattern.ask import ask
+        got = [ask(self.replicator, Get(k, ReadLocal()), timeout=self.timeout,
+                   system=self.system)
+               for k in (self._key(type_name, shard_id),
+                         self._rows_key(type_name, shard_id))]
+        ids, rows = (f.result(self.timeout) for f in got)
+        if not isinstance(ids, GetSuccess):
+            return {}
+        out: Dict[str, Optional[int]] = dict.fromkeys(ids.data.elements)
+        for eid, index in (rows.data.elements
+                           if isinstance(rows, GetSuccess) else ()):
+            if eid not in out:
+                continue  # removed since
+            if out[eid] is not None and out[eid] != index:
+                raise ValueError(
+                    f"remember-entities: {eid!r} of shard {shard_id} has "
+                    f"two recorded rows ({out[eid]}, {index})")
+            out[eid] = index
+        return out
+
+    def add_many(self, type_name: str,
+                 entries: Iterable[Tuple[str, str, int]]) -> None:
+        """Remember a batch of (shard_id, entity_id, row index): per touched
+        shard one update of its rows set, then one of its ORSet, all in
+        flight at once (a port addition: a region's wave of new ids costs
+        one round trip, not one per id). The rows go first, so a peer that
+        sees an id through the deltas sees its row too."""
+        from ..ddata import GSet, ORSet, Update, UpdateSuccess, WriteLocal
+        from ..pattern.ask import ask
+        by_shard: Dict[str, list] = {}
+        for shard_id, eid, index in entries:
+            by_shard.setdefault(shard_id, []).append((eid, int(index)))
+
+        def add_rows(s, items):
+            for item in items:
+                s = s.add(item)
+            return s
+
+        def add_ids(s, items):
+            for eid, _ in items:
+                s = s.add(self.node, eid)
+            return s
+        pending = []
+        for shard_id, items in by_shard.items():
+            for key, empty, modify in (
+                    (self._rows_key(type_name, shard_id), GSet.empty(),
+                     add_rows),
+                    (self._key(type_name, shard_id), ORSet.empty(),
+                     add_ids)):
+                pending.append(ask(
+                    self.replicator,
+                    Update(key, empty, WriteLocal(),
+                           modify=lambda s, m=modify, i=items: m(s, i)),
+                    timeout=self.timeout, system=self.system))
+        for f in pending:
+            rep = f.result(self.timeout)
+            if not isinstance(rep, UpdateSuccess):
+                raise RuntimeError(
+                    f"remember-entities ddata update failed: {rep!r}")
+
+    def _update(self, type_name, shard_id, modify) -> None:
+        from ..ddata import ORSet, Update, UpdateSuccess, WriteLocal
+        from ..pattern.ask import ask_sync
+        rep = ask_sync(self.replicator,
+                       Update(self._key(type_name, shard_id),
+                              ORSet.empty(), WriteLocal(), modify=modify),
+                       timeout=self.timeout, system=self.system)
+        if not isinstance(rep, UpdateSuccess):
+            raise RuntimeError(
+                f"remember-entities ddata update failed: {rep!r}")
+
+    def add(self, type_name, shard_id, entity_id):
+        self._update(type_name, shard_id,
+                     lambda s: s.add(self.node, entity_id))
+
+    def remove(self, type_name, shard_id, entity_id):
+        self._update(type_name, shard_id,
+                     lambda s: s.remove(self.node, entity_id))

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --remote-phase N   # remote_paths alone, N times
+    python3 chip_smoke.py --ddata-phase N    # ddata_paths alone, N times
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the
    ring-mailbox kernels from akka_tpu_torch/csrc (nvcc, sm_90a).
@@ -308,6 +309,38 @@ phase's systems, and their graph pools, are freed before the next.
    launches by node (once a step on every handle). Every system is
    terminated and awaited before the next leg; the phase must finish
    within 60 s.
+18. Replicated state and cluster tools (ddata_paths, ROADMAP A12.3).
+   Three provider = cluster systems over TCP loopback (cluster_router's
+   membership settings; the split-brain resolver's lease-majority over
+   the in-proc lease), each running ddata's replicator at the fast
+   settings (gossip 0.1 s, delta propagation and notify 0.05 s). Node 0
+   holds gateway_region(0)'s full-width counter region (K1) with the tell
+   WAL and the entity journal, its remember store the replicated
+   DDataRememberEntitiesStore, its coordination lease an InProcLease of
+   the LeaseProvider, and a ReadReplicaCache that publishes each wave's
+   totals through the replicator. make_trace(seed=7) of 32 waves of 256
+   adds, a checkpoint after wave 16, every reply held to a host oracle;
+   K1 once per region step; a wave's new ids go to the store in one
+   batch. remember_ddata: every shard's ORSet read locally on nodes 1
+   and 2 equals node 0's ids, each with its row; node 1 restores a fresh
+   region of the same spec, with its own store, from a copy of node 0's
+   directory without the entity journal and entities.log: every
+   remembered id at its row, the ids equal the ORSets' union, every
+   total equals the oracle, K1 once per replayed step. replica_ddata:
+   the caches of nodes 1 and 2, fed by their replicators alone, equal
+   node 0's view (publish-to-visible p50/p99 on node 2, host clock).
+   receptionist: a ReplicaReader per node, registered with the cluster
+   Receptionist; node 0 finds the three through the replicated registry
+   and each answers 64 reads with the oracle's totals. lease: a rival
+   holds the region's lease and rebalance raises; released, the region
+   takes it, rebalances, and 4 more waves equal the oracle. Node 2
+   crashes; the lease-majority resolver of nodes 0 and 1 takes the SBR
+   lease and removes it (the lease's holder checked; crash to removal
+   printed). metrics: ClusterMetricsExtension with the device
+   probe on node 0 samples used memory > 0 and the card's total memory
+   as the limit. K1 is held to its plain version on the fullest inbox of
+   node 0's waves. Every system is terminated and awaited; the phase
+   must finish within 60 s.
 
 Any failure raises and the exit code is non-zero. The last lines are the
 kernel report (JSON, one row per kernel and payload dtype; `ms` and the
@@ -1817,38 +1850,41 @@ def system_inputs(s):
 
 
 class StepProbe:
-    """For one stretch of a path, wraps a handle's runtime `_advance` (the
-    graph replay of each step): CUDA events around each replay, whose
-    times sum to the stretch's device-busy time in its steps, and, with
-    `live`, after each step a count of the carried inbox's valid rows (a
-    sync a step) and a clone of the fullest inbox, the delivery input of
-    the step after it."""
+    """For one stretch of a path, wraps `method` of a system: by default a
+    BatchedSystem's `_advance` (the graph replay of each step); for a
+    sharded system `_flush_staged`, with which each of its runs starts.
+    CUDA events around each call, whose times sum to the stretch's
+    device-busy time in its steps, and, with `live`, after each call a
+    count of the carried inbox's valid rows (a sync a call) and a clone of
+    the fullest inbox (`inputs` of the system), the delivery input of the
+    step after it."""
 
-    def __init__(self, h, live: bool = False):
-        self.rt, self.live = h.runtime, live
+    def __init__(self, rt, live: bool = False, method: str = "_advance",
+                 inputs=system_inputs):
+        self.rt, self.live, self.method, self.of = rt, live, method, inputs
         self.events, self.rows, self.inputs = [], 0, None
         self.busy_ms = 0.0
 
     def __enter__(self):
-        rt, advance = self.rt, self.rt._advance
+        rt, call = self.rt, getattr(self.rt, self.method)
 
-        def probed(n_steps: int) -> None:
+        def probed(*args) -> None:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            advance(n_steps)
+            call(*args)
             end.record()
             self.events.append((start, end))
             if self.live:
                 rows = int(rt.inbox_valid.sum())
                 if rows > self.rows:
-                    self.rows, self.inputs = rows, system_inputs(rt)
+                    self.rows, self.inputs = rows, self.of(rt)
 
-        rt._advance = probed
+        setattr(rt, self.method, probed)
         return self
 
     def __exit__(self, *exc) -> None:
-        del self.rt._advance
+        delattr(self.rt, self.method)
         torch.cuda.synchronize()
         self.busy_ms = sum(s.elapsed_time(e) for s, e in self.events)
 
@@ -2060,13 +2096,13 @@ def actor_ask(system, launches: dict, flat: dict) -> None:
         blat = bridge_latency(h, refs[0].row)
         print(f"actor_ask bridge_latency {json.dumps(blat)}")
         st1 = h.pipeline_stats()
-        with StepProbe(h) as probe:
+        with StepProbe(h.runtime) as probe:
             t0 = time.perf_counter()
             for _ in range(ASK_ROUNDS):
                 ask_round(lat)
             wall = time.perf_counter() - t0
         st2 = h.pipeline_stats()
-        with StepProbe(h, live=True) as live:
+        with StepProbe(h.runtime, live=True) as live:
             ask_round([])
         return wall, (st0, st1, st2), probe, live
 
@@ -2234,7 +2270,7 @@ def actor_lifecycle(launches: dict, flat: dict) -> None:
         bf.runtime
 
         def ask():
-            with StepProbe(bf, live=True) as live:
+            with StepProbe(bf.runtime, live=True) as live:
                 got = bf.ask_sync(row, (0, [3.0, 0, 0, 0]),
                                   timeout=ACTOR_TIMEOUT)
             return got, live
@@ -3688,7 +3724,7 @@ def typed_persistence_paths(launches: dict) -> dict:
                 # a step, inside the timed window): K2's input is the
                 # fullest carried inbox of all the rounds
                 t = time.perf_counter()
-                with StepProbe(h, live=True) as live:
+                with StepProbe(h.runtime, live=True) as live:
                     for _ in range(TP_ROUNDS):
                         command_round()
                 return time.perf_counter() - t, live
@@ -3996,7 +4032,7 @@ def remote_ask(transport: str, launches: dict, flat: dict) -> str:
                 bad.append((reply, i, oracle[i]))
 
         def drive():
-            with StepProbe(h, live=True) as live:
+            with StepProbe(h.runtime, live=True) as live:
                 wall = ask_rounds(front, a, REMOTE_ROUNDS, ASK_ACTORS,
                                   hold, rng, lat)
             return wall, live
@@ -4166,7 +4202,7 @@ def cluster_router(launches: dict, flat: dict) -> None:
 
         def leg(hs, tag):
             lat: list = []
-            with StepProbe(handles[0], live=True) as live:
+            with StepProbe(handles[0].runtime, live=True) as live:
                 (wall, steps, count) = handles_window(
                     hs, lambda: ask_rounds(router, systems[0], CR_ROUNDS,
                                            CR_COUNTERS, hold, rng, lat))
@@ -4275,6 +4311,449 @@ def remote_phase_only(runs: int, smi: str) -> int:
     return 0
 
 
+# ------------------------- replicated state and cluster tools (ROADMAP A12.3)
+DD_PHASE_S = 60.0           # the phase's limit
+DD_READS = 64               # entities each replica reader is asked for
+DD_LEASE_WAVES = 4          # waves after the lease leg's rebalance
+# the replicator at the fast settings of the reference's tests
+# (ReplicatorSettings: gossip 0.1 s, delta propagation and notify 0.05 s)
+DD_REPLICATOR = {"gossip-interval": "0.1s",
+                 "notify-subscribers-interval": "0.05s",
+                 "delta-crdt": {"delta-propagation-interval": "0.05s"}}
+# cluster_router's membership settings with the lease-majority resolver
+DD_CLUSTER = {**{k: v for k, v in FAST_MEMBERSHIP.items()
+                 if k != "split-brain-resolver"},
+              "split-brain-resolver": {
+                  "active-strategy": "lease-majority", "stable-after": "1s",
+                  "lease-majority": {
+                      "lease-name": "ddata-sbr",
+                      "lease-implementation": "in-proc",
+                      "heartbeat-timeout": "2s",
+                      "acquire-lease-delay-for-minority": 2.0}},
+              "distributed-data": DD_REPLICATOR,
+              # node 0's metrics extension samples the card
+              "metrics": {"collect-interval": "0.1s",
+                          "gossip-interval": "0.1s", "probe-device": True}}
+DD_KEY = ServiceKey("replica-reader")
+# the region's system is probed where each run flushes its staged tells
+DD_PROBE = ("_flush_staged", flat_inputs)
+
+
+def ddata_region(store, lease, device: str = "cuda"):
+    """gateway_region(0)'s full-width counter region (K1) with a remember
+    store and a coordination lease."""
+    return DeviceShardRegion(DeviceEntity(
+        "counter", counter_behavior(PAYLOAD_W), n_shards=256,
+        entities_per_shard=4096, n_devices=1, spare_blocks=2,
+        mailbox_slots=0, remember_store=store, lease=lease), device=device)
+
+
+class Visible:
+    """Publish-to-visible on a peer's replica cache: each published wave
+    (its step stamp and entities) is visible once the peer's view holds
+    every one of its entities at that step or later; the peer's ingest is
+    wrapped to take the time."""
+
+    def __init__(self, cache):
+        self.cache, self.pending, self.lat = cache, [], []
+        self._lock = threading.Lock()
+        ingest = cache._ingest_map
+
+        def wrapped(data):
+            ingest(data)
+            now = time.perf_counter()
+            with cache._lock:
+                view = dict(cache._replica)
+            with self._lock:
+                left = []
+                for t, step, names in self.pending:
+                    if all(n in view and view[n][1] >= step for n in names):
+                        self.lat.append(now - t)
+                    else:
+                        left.append((t, step, names))
+                self.pending = left
+
+        cache._ingest_map = wrapped
+
+    def mark(self, step: int, names) -> None:
+        with self._lock:
+            self.pending.append((time.perf_counter(), step, list(names)))
+
+
+class ReplicaReader(Actor):
+    """A node's host reader of its replica cache: a list of entity ids is
+    answered with (node, [(id, total, step), ...]) from the cache's view
+    (None where the view has no entry)."""
+
+    def __init__(self, cache, node: str):
+        super().__init__()
+        self.cache, self.node = cache, node
+
+    def receive(self, message):
+        with self.cache._lock:
+            view = dict(self.cache._replica)
+        self.sender.tell((self.node, [(n, *view.get(n, (None, None)))
+                                      for n in message]), self.self_ref)
+
+
+def dd_wait(cond, what: str, limit: float = 10.0) -> float:
+    """Poll cond() until true; fails after `limit` s. Returns the wait."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < limit, f"ddata_paths: {what}")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def dd_waves(region, trace, oracle: dict, cache, seen, count,
+             split: dict) -> int:
+    """Each wave through ask_many (launches counted), every reply held to
+    the oracle's running total; after each wave ONE publish of its
+    post-wave totals to the replica cache, marked on the peer's probe.
+    Returns the region steps taken; adds the host seconds of the waves'
+    entity lookups (a wave's new ids go to the remember store in one
+    batch), asks and publishes to `split`."""
+    s0 = region.system._host_step
+    for asks in trace:
+        t0 = time.perf_counter()
+        refs = region.entity_refs([n for n, _ in asks])
+        t1 = time.perf_counter()
+        out = count(lambda: region.ask_many(
+            [(r.shard, r.index, [v]) for r, (_, v) in zip(refs, asks)]))
+        t2 = time.perf_counter()
+        totals = {}
+        for (n, v), o in zip(asks, out):
+            check(not isinstance(o, BaseException), f"ddata_paths: {o!r}")
+            oracle[n] = oracle.get(n, 0.0) + v
+            check(float(o[0]) == oracle[n], f"ddata_paths: reply {o[0]} "
+                  f"== oracle {oracle[n]} for {n}")
+            totals[n] = float(o[0])
+        cache.publish_wave(totals)
+        seen.mark(int(region.system._host_step), totals)
+        t3 = time.perf_counter()
+        for k, dt in (("refs", t1 - t0), ("asks", t2 - t1),
+                      ("publish", t3 - t2)):
+            split[k] = split.get(k, 0.0) + dt
+    return region.system._host_step - s0
+
+
+def ddata_paths(launches: dict, device: str = "cuda") -> dict:
+    """ddata_paths (ROADMAP A12.3): three provider = cluster nodes over
+    TCP loopback (cluster_router's membership, lease-majority over the
+    in-proc lease, the replicator at the fast settings). Node 0 holds
+    gateway_region(0)'s region, journaled, its remember store the
+    replicated DDataRememberEntitiesStore and its lease an InProcLease
+    from the LeaseProvider, and a ReadReplicaCache that publishes each
+    wave's totals. make_trace(seed=7) of 2 x RESTORE_WAVES waves, a
+    checkpoint after the first half. Legs: remember_ddata (the ORSets
+    converge on nodes 1 and 2; node 1 restores a fresh region from a
+    copy of node 0's directory without the entity journal and
+    entities.log), replica_ddata (node 2's cache, fed by its replicator
+    alone, equals node 0's view; publish-to-visible p50/p99), receptionist
+    (a ReplicaReader per node registered with the cluster Receptionist;
+    node 0 finds all three and reads DD_READS entities of each), lease
+    (a rebalance refused while a rival holds the region's lease, then
+    done, DD_LEASE_WAVES more waves), a crash of node 2 (the survivors
+    take the SBR lease and remove it), metrics (node 0's device probe).
+    Returns the fullest inbox of node 0's waves for the K1 row."""
+    from akka_tpu_torch.cluster_tools import (ClusterMetricsExtension,
+                                              InProcLease, LeaseProvider,
+                                              LeaseSettings,
+                                              TimeoutSettings)
+    from akka_tpu_torch.cluster_tools import metrics as cmetrics
+    from akka_tpu_torch.cluster.sbr import LeaseMajority
+    from akka_tpu_torch.gateway.replica import ReadReplicaCache
+    from akka_tpu_torch.sharding.remember import DDataRememberEntitiesStore
+    label = "ddata_paths"
+    t_phase = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ddata_")
+    systems = [ActorSystem.create(f"dd{i}", node_config(
+        "tcp", "cluster", cluster=DD_CLUSTER)) for i in range(3)]
+    region = fresh = None
+    try:
+        clusters = [Cluster.get(s) for s in systems]
+        for c in clusters:
+            c.join(addr_of(systems[0]))
+        form_s = dd_wait(lambda: all(
+            sum(m.status is MemberStatus.UP for m in c.state.members) == 3
+            for c in clusters), "the three nodes are Up")
+        stores = [DDataRememberEntitiesStore(s, timeout=ACTOR_TIMEOUT)
+                  for s in systems]
+        region_lease = LeaseProvider.get(systems[0]).get_lease(
+            "ddata-region", "akka.coordination.lease", "region-0")
+        region = ddata_region(stores[0], region_lease, device)
+        n_shards = region.spec.n_shards
+        d0, d1 = (os.path.join(directory, n) for n in ("n0", "n1"))
+        region.attach_journal(d0)
+        region.attach_entity_journal(d0)
+        region.system.warmup()
+        caches = [ReadReplicaCache(
+            (lambda: region.system._host_step) if i == 0 else (lambda: 0),
+            system=s) for i, s in enumerate(systems)]
+        seen = Visible(caches[2])
+        print(f"{label} setup_s {time.perf_counter() - t_phase} form_s "
+              f"{form_s} rows {region.system.capacity}")
+
+        # ---- the waves: K1 once a region step, the fullest inbox kept
+        trace = make_trace(seed=7, n_waves=2 * RESTORE_WAVES)
+        oracle: dict = {}
+        split: dict = {}
+        count = Launches()
+        t0 = time.perf_counter()
+        with StepProbe(region.system, True, *DD_PROBE) as inbox:
+            steps = dd_waves(region, trace[:RESTORE_WAVES], oracle,
+                             caches[0], seen, count, split)
+            t1 = time.perf_counter()
+            region.checkpoint()
+            ckpt_ms = (time.perf_counter() - t1) * 1e3
+            steps += dd_waves(region, trace[RESTORE_WAVES:], oracle,
+                              caches[0], seen, count, split)
+        waves_s = time.perf_counter() - t0
+        n_ask = len(trace) * WAVE_ASKS
+        print(f"{label} waves {len(trace)} asks_per_s {n_ask / waves_s} "
+              f"steps {steps} checkpoint_ms {ckpt_ms} entities "
+              f"{len(oracle)} host_s {json.dumps(split)}")
+
+        # ---- remember_ddata: the ORSets and their rows converge, node 1
+        # restores
+        allocated = [dict(region._entities[sh]) for sh in range(n_shards)]
+        conv_s = dd_wait(lambda: all(
+            [st.remembered_rows("counter", str(sh))
+             for sh in range(n_shards)] == allocated for st in stores[1:]),
+            "the ORSets on nodes 1 and 2 equal node 0's ids, each with "
+            "its row")
+        print(f"{label} remember_ddata convergence_ms {conv_s * 1e3} "
+              f"ids {sum(map(len, allocated))}")
+        shutil.copytree(d0, d1)
+        for name in ("entities.journal", "entities.log"):
+            os.remove(os.path.join(d1, name))
+        fresh = ddata_region(stores[1], None, device)
+        fresh.attach_journal(d1)
+        fresh.system.warmup()
+        union = [set().union(*(st.remembered("counter", str(sh))
+                               for st in stores)) for sh in range(n_shards)]
+        cm.reset_launches()
+        t0 = time.perf_counter()
+        step = fresh.restore()
+        fresh.block_until_ready()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        replay = dict(cm.LAUNCHES)
+        replayed = int(fresh.restore_timings["replayed_steps"])
+        check(replay["ring_reduce"] == replayed > 0, f"{label}: "
+              f"{replay['ring_reduce']} K1 launches, one per replayed step "
+              f"({replayed})")
+        check([set(fresh._entities[sh]) for sh in range(n_shards)] == union,
+              f"{label}: the restored region's ids == the ORSets' union")
+        names = sorted(oracle)
+        check(all(fresh.entity_ref(n).index == region.entity_ref(n).index
+                  for n in names), f"{label}: every remembered id at its row")
+        rows = np.asarray([fresh.entity_ref(n).row for n in names])
+        check(bool(fresh.system.alive[torch.as_tensor(
+            rows, device=fresh.system.alive.device)].all()),
+              f"{label}: every remembered id holds a live row")
+        got = fresh.system.read_state("total", rows)
+        check(all(float(g) == oracle[n] for g, n in zip(got, names)),
+              f"{label}: every restored total == the host oracle "
+              f"({len(names)} entities)")
+        launches[f"{label}_restore"] = replay
+        print(f"{label} remember_ddata restore_ms {restore_ms} load_ms "
+              f"{fresh.restore_timings['load_ms']} replay_ms "
+              f"{fresh.restore_timings['replay_ms']} replayed_steps "
+              f"{replayed} step {step} launches {replay}")
+        del fresh
+        fresh = None
+        free()
+
+        # ---- replica_ddata: node 2's cache through its replicator alone
+        def view(c):
+            with c._lock:
+                return dict(c._replica)
+        want = view(caches[0])
+        check({n: t for n, (t, _s) in want.items()} == oracle,
+              f"{label}: node 0's view == the oracle")
+        vis_s = dd_wait(lambda: all(view(c) == want for c in caches[1:]),
+                        "the replica caches on nodes 1 and 2 equal node 0's")
+        with seen._lock:
+            lat = list(seen.lat)
+        check(len(lat) > 0, f"{label}: waves became visible on node 2")
+        print(f"{label} replica_ddata publish_to_visible_ms p50 "
+              f"{np.percentile(lat, 50) * 1e3} p99 "
+              f"{np.percentile(lat, 99) * 1e3} waves_seen {len(lat)} of "
+              f"{len(trace)} (host clock) last_wave_to_equal_ms "
+              f"{vis_s * 1e3} entries {len(want)}")
+
+        # ---- receptionist: a reader per node, found through the registry
+        for i, (s, c) in enumerate(zip(systems, caches)):
+            reader = s.actor_of(Props.create(ReplicaReader, c, f"dd{i}"),
+                                "replica-reader")
+            Receptionist.get(s).register(DD_KEY, reader)
+        probe = TestProbe(systems[0])
+
+        def found():
+            Receptionist.get(systems[0]).find(DD_KEY, probe.ref)
+            return probe.receive_one(ACTOR_TIMEOUT).service_instances
+        find_s = dd_wait(lambda: len(found()) == 3,
+                         "node 0 finds three replica readers")
+        readers = found()
+        rng = np.random.default_rng(7)
+        picks = [str(x) for x in rng.choice(names, DD_READS, replace=False)]
+        answered = set()
+        for ref in readers:
+            node, rows_ = ask(ref, picks, timeout=ACTOR_TIMEOUT,
+                              system=systems[0]).result(ACTOR_TIMEOUT)
+            answered.add(node)
+            check([(n, t) for n, t, _ in rows_] ==
+                  [(n, oracle[n]) for n in picks],
+                  f"{label}: {node}'s reader answers the oracle")
+        check(answered == {"dd0", "dd1", "dd2"}, f"{label}: every node's "
+              f"reader answered ({sorted(answered)})")
+        print(f"{label} receptionist find_ms {find_s * 1e3} readers "
+              f"{sorted(answered)} reads {DD_READS}")
+
+        # ---- lease: a rebalance needs the region's lease
+        rival = InProcLease(LeaseSettings(
+            "ddata-region", "rival", TimeoutSettings(
+                heartbeat_interval=0.1, heartbeat_timeout=2.0)))
+        check(rival.acquire(), f"{label}: the rival takes the lease")
+        try:
+            region.rebalance(0)
+            refused = False
+        except RuntimeError as e:
+            refused = "lease" in str(e)
+        check(refused, f"{label}: a rebalance without the lease raises")
+        rival.release()
+        old = region.entity_ref(names[0])
+        moved = old.shard
+        region.rebalance(moved)
+        check(region_lease.check_lease(), f"{label}: the region holds its "
+              f"lease")
+        extra = make_trace(seed=8, n_waves=DD_LEASE_WAVES)
+        with StepProbe(region.system, True, *DD_PROBE) as inbox2:
+            steps += dd_waves(region, extra, oracle, caches[0], seen, count,
+                              {})
+        if inbox2.rows > inbox.rows:
+            inbox = inbox2
+        names = sorted(oracle)
+        rows = np.asarray([region.entity_ref(n).row for n in names])
+        got = region.system.read_state("total", rows)
+        check(all(float(g) == oracle[n] for g, n in zip(got, names)),
+              f"{label}: totals == the oracle after the lease's rebalance")
+        print(f"{label} lease rebalance refused while held, then shard "
+              f"{moved} moved; {DD_LEASE_WAVES} waves")
+        count.report(label, "ring_reduce", launches, steps)
+
+        # ---- node 2 crashes: the survivors take the SBR lease
+        decisions = dd_decisions(clusters[:2], LeaseMajority, InProcLease)
+        crashed = addr_of(systems[2])
+        t0 = time.perf_counter()
+        systems[2].provider.shutdown_transport()
+        systems[2].terminate()
+        removed_s = dd_wait(lambda: all(
+            crashed not in {m.address_str for m in c.state.members}
+            for c in clusters[:2]), "the survivors removed node 2",
+            limit=ACTOR_TIMEOUT)
+        check(decisions and all(
+            owner is not None and owner == st._lease.settings.owner_name
+            and crashed in {n.address_str for n in down}
+            for st, down, owner in decisions),
+              f"{label}: a survivor's lease-majority resolver downed node 2 "
+              f"holding the 'ddata-sbr' lease ({decisions})")
+        check(systems[2].await_termination(ACTOR_TIMEOUT),
+              f"{label}: node 2 terminated")
+        print(f"{label} crash_to_removed_s {removed_s} members "
+              f"{[len(c.state.members) for c in clusters[:2]]} sbr_lease "
+              f"{decisions[0][2]}")
+
+        dd_metrics(systems[0], ClusterMetricsExtension, cmetrics)
+        region_lease.release()
+        check(inbox.rows > 0 and int(inbox.inputs[0][3].sum()) > 0,
+              f"{label}: K1's input carries messages ({inbox.rows} rows)")
+        print(f"{label} kernel_input live_rows {inbox.rows} of "
+              f"{inbox.inputs[0][0].shape[0]}")
+        out = {label: ("K1", inbox.inputs, SLOTS)}
+    finally:
+        for s in systems:
+            s.terminate()
+        shutil.rmtree(directory, ignore_errors=True)
+    for s in systems:
+        check(s.await_termination(ACTOR_TIMEOUT),
+              f"{label}: {s.name} terminated")
+    del region, fresh, systems
+    free()
+    print(f"{label} phase_s {time.perf_counter() - t_phase}")
+    return out
+
+
+def dd_decisions(clusters, strategy_class, lease_class) -> list:
+    """Wraps each cluster's split-brain resolver strategy (which must be
+    `strategy_class`): every decision that downs nodes is recorded as
+    (strategy, down nodes, the owner of the 'ddata-sbr' lease in
+    `lease_class`'s table as the decision is made)."""
+    decisions = []
+    for c in clusters:
+        st = c.sbr.cell.actor.strategy
+        check(isinstance(st, strategy_class), f"ddata_paths: the resolver "
+              f"is {type(st).__name__}, not {strategy_class.__name__}")
+
+        def recorded(*args, st=st, decide=st.decide):
+            d = decide(*args)
+            if d.down_nodes:
+                with lease_class._lock:
+                    rec = lease_class._table.get("ddata-sbr")
+                decisions.append((st, list(d.down_nodes),
+                                  rec.owner if rec else None))
+            return d
+        st.decide = recorded
+    return decisions
+
+
+def dd_metrics(system, extension, metrics) -> None:
+    """ClusterMetricsExtension with the device probe on: the sampled
+    memory used is above 0 and the limit is the card's total memory."""
+    ext = extension.get(system)
+    self_addr = str(system.provider.default_address)
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def sampled():
+        nm = ext.node_metrics.get(self_addr)
+        return nm is not None and nm.metric(metrics.DEVICE_MEMORY_USED) \
+            is not None
+    dd_wait(sampled, "the device probe sampled node 0")
+    nm = ext.node_metrics[self_addr]
+    used = nm.metric(metrics.DEVICE_MEMORY_USED).value
+    limit = nm.metric(metrics.DEVICE_MEMORY_MAX).value
+    check(used > 0, f"ddata_paths: device memory used {used} > 0")
+    check(limit == total, f"ddata_paths: the limit {limit} == the card's "
+          f"total memory {total}")
+    print(f"ddata_paths metrics device_memory_used {used} "
+          f"device_memory_max {limit}")
+
+
+def ddata_phase_only(runs: int, smi: str) -> int:
+    """`python3 chip_smoke.py --ddata-phase N`: ddata_paths alone, N times
+    in one process, every check as in the whole run and K1 held to its
+    plain version on each run's fullest inbox. The last line is
+    {"ddata_phase_s": [...]}."""
+    lib = cm.build()
+    times = []
+    for r in range(runs):
+        launches: Dict[str, dict] = {}
+        t0 = time.perf_counter()
+        flat = ddata_paths(launches)
+        times.append(time.perf_counter() - t0)
+        check(times[-1] < DD_PHASE_S, f"ddata_paths run {r}: {times[-1]} "
+              f"s, more than {DD_PHASE_S}")
+        for label, (k, inputs, slots) in flat.items():
+            row = kernel_rows(label, *inputs, lib, kernels=(k,),
+                              slots=slots)[k]
+            print(f"ddata_phase_run {r} {k} {json.dumps(row)}")
+        print(f"ddata_phase_run {r} ddata_phase_s {times[-1]} "
+              f"k1_launches {launches['ddata_paths']['ring_reduce']}")
+    print(smi)
+    print(json.dumps({"ddata_phase_s": times}))
+    return 0
+
+
 def path_dtype(label: str) -> str:
     """The payload dtype of a path's system, by the path's name."""
     for name in ("int32", "bf16"):
@@ -4295,6 +4774,8 @@ def main() -> int:
     print(f"build_s {time.perf_counter() - t0}")
     if sys.argv[1:2] == ["--remote-phase"]:
         return remote_phase_only(int(sys.argv[2]), smi)
+    if sys.argv[1:2] == ["--ddata-phase"]:
+        return ddata_phase_only(int(sys.argv[2]), smi)
 
     t0 = time.perf_counter()
     rows, typed = kernel_phase(lib)
@@ -4336,6 +4817,12 @@ def main() -> int:
     print(f"remote_phase_s {phase_s}")
     check(phase_s < REMOTE_PHASE_S, f"remote_paths: {phase_s} s, more "
           f"than {REMOTE_PHASE_S}")
+    t0 = time.perf_counter()
+    ddata = ddata_paths(launches)
+    phase_s = time.perf_counter() - t0
+    print(f"ddata_phase_s {phase_s}")
+    check(phase_s < DD_PHASE_S, f"ddata_paths: {phase_s} s, more than "
+          f"{DD_PHASE_S}")
     # both kernels at the shapes the new paths gave them
     t0 = time.perf_counter()
     for label, flat in (("sharded_d8", sharded), ("region", region),
@@ -4344,14 +4831,14 @@ def main() -> int:
         for k, (inputs, n) in flat.items():
             rows.setdefault(label, {})[k] = kernel_rows(
                 label, inputs, n, lib, kernels=(k,))[k]
-    for label, (k, (inputs, n), slots) in {**actor, **ledgers,
-                                           **remote}.items():
+    for label, (k, (inputs, n), slots) in {**actor, **ledgers, **remote,
+                                           **ddata}.items():
         dtype = path_dtype(label)
         table = rows if dtype == "float32" else typed[dtype]
         table.setdefault(label, {})[k] = kernel_rows(
             label, inputs, n, lib, kernels=(k,), slots=slots)[k]
     del sharded, region, gateway, actor, router, failover, ranks, ledgers
-    del remote
+    del remote, ddata
     print(f"path_kernels_s {time.perf_counter() - t0}")
 
     entry = {"K1": ("ring_reduce", "_run(with_slots=False)"),

@@ -11,6 +11,8 @@ converted field by field into the port's (`to_port`); results of both
 sides are compared as plain values (`plain`), so every case is exact.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -417,9 +419,24 @@ def test_strategy_from_config():
         t = tc.sbr.strategy_from_config(TConfig(d))
         assert type(t).__name__ == type(j).__name__
         assert vars(t) == vars(j)
-    with pytest.raises(ValueError, match="A12.3"):
-        tc.sbr.strategy_from_config(TConfig(
-            {"active-strategy": "lease-majority"}))
+    # lease-majority: the reference's factory over LeaseProvider, built
+    # lazily (the lease is made when the resolver first decides), and
+    # refused without a system in both packages
+    d = {"active-strategy": "lease-majority",
+         "lease-majority": {"acquire-lease-delay-for-minority": "1.5s"}}
+    node = SimpleNamespace(name="sbr-node")
+    j = jc.sbr.strategy_from_config(JConfig(d), node, "owner-a")
+    t = tc.sbr.strategy_from_config(TConfig(d), node, "owner-a")
+    assert type(t).__name__ == type(j).__name__ == "LeaseMajority"
+
+    def state(s):
+        return {k: v for k, v in vars(s).items() if k != "_lease_factory"}
+    assert state(t) == state(j) and state(t)["_lease"] is None
+    assert callable(t._lease_factory)
+    for pkg, C in (("ref", JConfig), ("port", TConfig)):
+        sbr = jc.sbr if pkg == "ref" else tc.sbr
+        with pytest.raises(ValueError, match="needs the actor system"):
+            sbr.strategy_from_config(C(d))
 
 
 # ------------------------------------------------ hashing and the ring

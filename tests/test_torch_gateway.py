@@ -255,8 +255,10 @@ def test_port_admin_ops_not_ported_reply_typed_errors(tmp_path):
     """checkpoint answers ok once the region has its journal (and the
     region's restore() returns the step); failover rebuilds the region on
     the first `value` shard slots of its mesh (2 -> 1) and answers ok with
-    the recovered step, as the reference's op does on its devices; the
-    replica's ddata mode still raises naming A11/A12."""
+    the recovered step, as the reference's op does on its devices. A
+    replica whose `system` cannot run ddata's replicator is refused
+    (ValueError) where the reference falls back to its local mode; the
+    replica's ddata feed itself is held in tests/test_torch_ddata.py."""
     clock = FakeClock()
     stacks = {pkg: build(pkg, 2, 0, False, clock) for pkg in ("jax",
                                                               "torch")}
@@ -288,7 +290,9 @@ def test_port_admin_ops_not_ported_reply_typed_errors(tmp_path):
         assert got["torch"] == got["jax"]
         # the survivor is the mesh's first slot
         assert [s.index for s in stacks["torch"][0].system.mesh.slots] == [0]
-        with pytest.raises(NotImplementedError, match="A11/A12"):
+        assert JReplica(lambda: 0, system=object()).stats()[
+            "replicated"] == 0
+        with pytest.raises(ValueError, match="ddata replicator"):
             TReplica(lambda: 0, system=object())
     finally:
         for _region, backend, srv in stacks.values():

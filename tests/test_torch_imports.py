@@ -144,7 +144,19 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "akka_tpu_torch.cluster.daemon",
                  "akka_tpu_torch.cluster.sbr",
                  "akka_tpu_torch.cluster.cluster",
-                 "akka_tpu_torch.cluster.routing"):
+                 "akka_tpu_torch.cluster.routing",
+                 # replicated state and cluster tools
+                 "akka_tpu_torch.ddata.version_vector",
+                 "akka_tpu_torch.ddata.crdt",
+                 "akka_tpu_torch.ddata.durable",
+                 "akka_tpu_torch.ddata.replicator",
+                 "akka_tpu_torch.cluster_tools",
+                 "akka_tpu_torch.cluster_tools.lease",
+                 "akka_tpu_torch.cluster_tools.discovery",
+                 "akka_tpu_torch.cluster_tools.pubsub",
+                 "akka_tpu_torch.cluster_tools.singleton",
+                 "akka_tpu_torch.cluster_tools.client",
+                 "akka_tpu_torch.cluster_tools.metrics"):
         assert name in MODULES, name
 
 
@@ -283,8 +295,6 @@ def test_package_exports_what_the_reference_package_exports():
 # Reference modules the port has no file for yet, by the item that ports
 # them: a name a reference __init__ imports from one of them is excepted.
 UNPORTED_MODULES = {
-    **{f"ddata/{m}.py": "A12.3" for m in (
-        "crdt", "version_vector", "durable", "replicator")},
     **{f"sharding/{m}.py": "A12.4" for m in (
         "region", "coordinator", "messages", "sharding", "typed",
         "daemon_process")},
@@ -392,13 +402,13 @@ def test_exception_lists_name_only_later_items():
     """The exceptions belong to A12, and the jnp dtypes; they name no
     module the port has a file for, and no name the port has. A10.2 (the
     distributed init and its config hook), A12.1 (the typed API and the
-    host tier of persistence) and A12.2 (remoting, PKI and cluster
-    membership) are ported: no label of theirs is left, and no source of
-    the port names A12.2."""
+    host tier of persistence), A12.2 (remoting, PKI and cluster
+    membership) and A12.3 (ddata's replicator and CRDTs, cluster_tools)
+    are ported: no label of theirs is left, and no source of the port
+    names A12.2."""
     labels = set(UNPORTED_MODULES.values()) | set(UNPORTED_NAMES.values())
-    assert labels <= {"A12.3", "A12.4", "A12.5",
-                      "for good: a jnp dtype"}, labels
-    assert not labels & {"A10.2", "A12.1", "A12.2"}, labels
+    assert labels <= {"A12.4", "A12.5", "for good: a jnp dtype"}, labels
+    assert not labels & {"A10.2", "A12.1", "A12.2", "A12.3"}, labels
     for path in SOURCES + sorted(ROOT.glob("tests/*torch_*.py")) + [
             ROOT / "chip_smoke.py"]:
         if path.name != "test_torch_imports.py":
@@ -422,7 +432,12 @@ def test_exception_lists_name_only_later_items():
                 "pki/pem.py", "remote/transport.py", "remote/instrument.py",
                 "remote/provider.py", "remote/deploy.py",
                 "cluster/daemon.py", "cluster/sbr.py", "cluster/cluster.py",
-                "cluster/routing.py"):
+                "cluster/routing.py", "ddata/version_vector.py",
+                "ddata/crdt.py", "ddata/durable.py", "ddata/replicator.py",
+                "cluster_tools/__init__.py", "cluster_tools/lease.py",
+                "cluster_tools/discovery.py", "cluster_tools/pubsub.py",
+                "cluster_tools/singleton.py", "cluster_tools/client.py",
+                "cluster_tools/metrics.py"):
         assert rel in PORTED_FILES, rel
 
 

@@ -32,6 +32,8 @@ from akka_tpu.persistence import slab_snapshot as jslab
 from akka_tpu.persistence.tell_journal import TellJournal as JTellJournal
 from akka_tpu.sharding import \
     JournalRememberEntitiesStore as JRememberStore
+from akka_tpu.sharding.region import \
+    DDataRememberEntitiesStore as JDDataStore
 
 import akka_tpu_torch.batched as tb
 from akka_tpu_torch.persistence import EntityJournal as TEntityJournal
@@ -249,8 +251,12 @@ def test_inproc_store_and_ddata_store_refusal():
     s.remove("T", "0", "a")
     assert s.remembered("T", "0") == set()
     tremember.InProcRememberEntitiesStore.reset()
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        tremember.DDataRememberEntitiesStore(object())
+    # the replicated store needs an actor system that runs ddata's
+    # replicator, and refuses anything else as the reference's does (the
+    # store itself is held in tests/test_torch_ddata.py)
+    for Store in (JDDataStore, tremember.DDataRememberEntitiesStore):
+        with pytest.raises(AttributeError, match="settings"):
+            Store(object())
 
 
 # ---------------------------------------------------------- slab snapshots

@@ -962,21 +962,22 @@ def test_local_snapshot_store_read_by_the_other_package(
 
 
 def test_unresolvable_record_class_raises_and_keeps_the_log(tmp_path):
-    """A record whose class the port cannot resolve (here a CRDT of the
-    JAX package's ddata, which the port does not have yet) makes the
-    port's FileJournal raise ImportError on open; the log's bytes stay as
-    they were (the reference would read it as a torn tail)."""
-    from akka_tpu.ddata.crdt import GCounter
+    """A record whose class the port cannot resolve (here a message of
+    the JAX package's host sharding, which the port does not have yet,
+    ROADMAP A12.4) makes the port's FileJournal raise ImportError on
+    open; the log's bytes stay as they were (the reference would read it
+    as a torn tail)."""
+    from akka_tpu.sharding.messages import ShardingEnvelope
     ref, port = (package(n).persistence for n in ("akka_tpu",
                                                   "akka_tpu_torch"))
     d = str(tmp_path / "j")
     j = ref.FileJournal(d)
     j.write_atomic(ref.AtomicWrite((ref.PersistentRepr("ok", 1, "p"),)))
     j.write_atomic(ref.AtomicWrite((ref.PersistentRepr(
-        GCounter(), 2, "p"),)))
+        ShardingEnvelope("e1", "hi"), 2, "p"),)))
     logs = {n: open(os.path.join(d, n), "rb").read()
             for n in os.listdir(d)}
-    with pytest.raises(ImportError, match="akka_tpu_torch.ddata"):
+    with pytest.raises(ImportError, match="akka_tpu_torch.sharding.messages"):
         port.FileJournal(d)
     with pytest.raises(port.UnresolvedRecordClass):
         list(port.scan_record_log(j._pid_path("p")))
@@ -988,6 +989,44 @@ def test_unresolvable_record_class_raises_and_keeps_the_log(tmp_path):
         blob = pickle.dumps(port.PersistentRepr("ok", 1, "q"), protocol=4)
         f.write(len(blob).to_bytes(8, "little") + blob + b"\x05\x00garbage")
     assert port.repair_record_log(path) == 9
+
+
+def test_file_journal_of_crdt_events_crosses_into_the_port(
+        tmp_path, no_reference_class_loaded):
+    """A FileJournal whose events are the JAX package's CRDTs (a
+    GCounter, a PNCounter, an ORSet, an LWWMap) reads into the port as
+    equal port CRDTs: the same values, version vectors and dots, as the
+    port's own classes."""
+    from akka_tpu.ddata import crdt as jcrdt
+
+    from akka_tpu_torch.ddata import crdt as tcrdt
+    ref, port = (package(n).persistence for n in ("akka_tpu",
+                                                  "akka_tpu_torch"))
+
+    def events(C):
+        return [C.GCounter.empty().increment("n1", 3).increment("n2", 4),
+                C.PNCounter.empty().increment("n1", 9).decrement("n2", 2),
+                C.ORSet.empty().add("n1", "a").add("n2", "b")
+                .remove("n1", "a"),
+                C.LWWMap.empty().put("n1", "k", "v", clock=lambda c, v: 7)]
+
+    d = str(tmp_path / "j")
+    j = ref.FileJournal(d)
+    for seq, ev in enumerate(events(jcrdt), 1):
+        j.write_atomic(ref.AtomicWrite((ref.PersistentRepr(ev, seq, "c"),)))
+    got = []
+    port.FileJournal(d).replay("c", 1, MAX, MAX, got.append)
+    crossed = [r.payload for r in got]
+    assert [type(e).__module__ for e in crossed] == \
+        ["akka_tpu_torch.ddata.crdt"] * 4
+    want = events(tcrdt)
+    assert [e.reset_delta() for e in crossed] == \
+        [e.reset_delta() for e in want]
+    assert crossed[0].value == 7 and crossed[1].value == 7
+    assert crossed[2].elements == {"b"}
+    assert crossed[3].get("k") == "v"
+    assert any(a == "akka_tpu.ddata.crdt" for a, _ in
+               no_reference_class_loaded), "mapped the reference's paths"
 
 
 @pytest.mark.parametrize("module", ["jax.numpy", "jaxlib.xla_client",
@@ -1030,16 +1069,17 @@ def test_a_record_whose_import_loads_jax_is_refused(tmp_path, monkeypatch):
 
 
 def test_unresolvable_snapshot_class_raises(tmp_path):
-    """A snapshot that names a class the port cannot resolve fails the
-    load (LoadSnapshotFailed through the actor) instead of falling back
-    to an older snapshot."""
-    from akka_tpu.ddata.crdt import GCounter
+    """A snapshot that names a class the port cannot resolve (a message
+    of the JAX package's host sharding, ROADMAP A12.4) fails the load
+    (LoadSnapshotFailed through the actor) instead of falling back to an
+    older snapshot."""
+    from akka_tpu.sharding.messages import ShardingEnvelope
     ref, port = (package(n).persistence for n in ("akka_tpu",
                                                   "akka_tpu_torch"))
     d = str(tmp_path / "s")
     ref.LocalSnapshotStore(d).save(ref.SnapshotMetadata("p", 1, 1.0), "old")
     ref.LocalSnapshotStore(d).save(ref.SnapshotMetadata("p", 2, 2.0),
-                                   GCounter())
+                                   ShardingEnvelope("e1", "hi"))
     with pytest.raises(ImportError):
         port.LocalSnapshotStore(d).load(
             "p", port.SnapshotSelectionCriteria.latest())

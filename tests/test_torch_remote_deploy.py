@@ -10,7 +10,9 @@ package namespace and run on both packages through `side_by_side`
 (tests/torch_remote_fixture.py), each package's nodes on its own
 in-proc transport. The port's trace (replies, where each actor runs,
 Terminated events, routee counts and homes) must equal the
-reference's, and each test also asserts the trace's values.
+reference's, and each test also asserts the trace's values. One case
+runs on the port alone: a Watch of a deployed actor that has stopped, a
+fault of the reference's daemon that the port repairs (ROADMAP C).
 
 Every system starts through the `nodes` fixture. Every wait is at most
 10 s.
@@ -22,7 +24,7 @@ import pytest
 
 from akka_tpu_torch.testkit.cluster import FAST_MEMBERSHIP
 
-from torch_remote_fixture import WAIT, Nodes, addr_of, side_by_side
+from torch_remote_fixture import WAIT, Nodes, addr_of, package, side_by_side
 
 # the reference's router cluster settings (tests/test_remote_deploy.py:
 # the default split-brain resolver, stable after 20 s)
@@ -207,6 +209,49 @@ def _watchable(P, nodes):
 
 def test_remote_deployed_actor_watchable_and_stoppable(nodes):
     assert side_by_side(_watchable, nodes) == ["depB", True, True, False]
+
+
+def test_watch_of_a_stopped_deployed_actor_yields_terminated(nodes):
+    """Port only: the port repairs a fault of the reference's daemon
+    (ROADMAP C), which buffers a message for a child it does not have and
+    drops a Watch with it after 5 s. A Watch of a deployed actor that has
+    already stopped is answered at once, and a Watch of a child that was
+    never created when its buffer's deadline passes, each with
+    Terminated(existence_confirmed=False)."""
+    P = package("akka_tpu_torch")
+    a, b = _pair(P, nodes)
+    ref = a.actor_of(P.Props.create(classes(P).WhereAmI).with_deploy(
+        _remote(P, addr_of(b))), "short-lived")
+    assert P.ask_sync(ref, "where", timeout=WAIT, system=a)[1] == "depB"
+    daemon = b.provider.remote_daemon.cell
+    ref.stop()
+    P.testkit.await_condition(lambda: daemon.child(ref.path.name) is None,
+                              max_time=WAIT)
+    never = a.provider.resolve_actor_ref(
+        f"{addr_of(b)}/remote/{P.deploy.mangle('akka://depA/user/never')}")
+    seen = []
+
+    class Watcher(P.Actor):
+        def __init__(self, target):
+            super().__init__()
+            self.target = target
+
+        def pre_start(self):
+            self.context.watch(self.target)
+
+        def receive(self, message):
+            if isinstance(message, P.Terminated):
+                seen.append((self.self_ref.path.name,
+                             message.actor.path == self.target.path,
+                             message.existence_confirmed))
+
+    a.actor_of(P.Props.create(Watcher, never), "w-never")
+    a.actor_of(P.Props.create(Watcher, ref), "w-stopped")
+    P.testkit.await_condition(lambda: len(seen) == 2, max_time=WAIT,
+                              message="a Watch of a dead child was lost")
+    # the stopped child's Watch is answered at once, the unborn child's
+    # when its buffer's 5 s deadline passes
+    assert seen == [("w-stopped", True, False), ("w-never", True, False)]
 
 
 def _restarts(P, nodes):

@@ -4,10 +4,10 @@ tests/test_typed.py (behaviors, setup/stopped, supervision, watch, timers,
 stash, message adapters) and the 8 of tests/test_typed_ecosystem.py
 (receptionist, reliable delivery, work pulling, topics). Each scenario is
 written once, runs on both packages, and the port's trace of replies and
-listings must equal the reference's. The two ecosystem scenarios that need
-modules the port does not have yet (the cluster receptionist's
-replicator, ROADMAP A12.3, and the stream-typed adapters, A12.5) check
-the port's refusal.
+listings must equal the reference's. The cluster receptionist runs on two
+cluster nodes of each package over its own in-proc transport. The
+ecosystem scenario that needs modules the port does not have yet (the
+stream-typed adapters, ROADMAP A12.5) checks the port's refusal.
 
 Every system starts through the `systems` fixture
 (tests/torch_host_fixture.py), which asserts `await_termination(10.0)` and
@@ -425,31 +425,57 @@ def test_receptionist_of_a_remote_system_keeps_a_local_registry(systems):
     assert trace[-1] == ("found", ["svc2"])
 
 
-def test_receptionist_cluster_visibility(systems):
-    """The cluster receptionist replicates its registry through the
-    cluster's distributed data; the port has the cluster provider but not
-    the replicator (ROADMAP A12.3). A clustered system starts, and its
-    receptionist is refused naming A12.3; a local system's receptionist
-    keeps its registry local, as the reference's does without a
-    cluster."""
-    P = package("akka_tpu_torch")
-    clustered = systems.classic(P, "rc-refused", {"akka": {
-        "actor": {"provider": "cluster"},
+def _cluster_visibility(P, systems):
+    """tests/test_typed_ecosystem.py::test_receptionist_cluster_visibility:
+    two cluster nodes; a service registered on node 0 is found on node 1
+    through the registry the replicator spreads, and the found ref
+    answers across the nodes."""
+    cfg = {"akka": {
+        "actor": {"provider": "cluster"}, **QUIET["akka"],
         "remote": {"transport": "inproc",
                    "canonical": {"hostname": "local", "port": 0}},
-        **QUIET["akka"]}})
-    with pytest.raises(ValueError, match="A12.3"):
-        P.typed.Receptionist.get(clustered)
-    system = systems.classic(P, "rc-local")
-    rec = P.typed.Receptionist.get(system)
-    probe = P.testkit.TestProbe(system)
-    svc = system.actor_of(P.Props.create(actors(P)["Echo"]), "local-echo")
+        "cluster": {"gossip-interval": "0.05s",
+                    "leader-actions-interval": "0.05s",
+                    "distributed-data": {
+                        "gossip-interval": "0.1s",
+                        "notify-subscribers-interval": "0.05s",
+                        "delta-crdt": {
+                            "delta-propagation-interval": "0.05s"}}}}}
+    Cluster = importlib.import_module(f"{P.name}.cluster").Cluster
+    nodes = [systems.classic(P, "rc", cfg) for _ in range(2)]
+    for s in nodes:
+        Cluster.get(s).join(str(nodes[0].provider.local_address))
+    P.testkit.await_condition(
+        lambda: all(sum(1 for m in Cluster.get(s).state.members
+                        if m.status.value == "Up") == 2 for s in nodes),
+        max_time=WAIT)
     key = P.typed.ServiceKey("cluster-svc")
-    rec.register(key, svc)
-    rec.find(key, probe.ref)
-    assert probe.receive_one(WAIT).service_instances == frozenset({svc})
-    svc.tell("hi", probe.ref)
-    assert probe.receive_one(WAIT) == ("echo", "hi")
+    svc = nodes[0].actor_of(P.Props.create(actors(P)["Echo"]),
+                            "clustered-echo")
+    P.typed.Receptionist.get(nodes[0]).register(key, svc)
+
+    def found_on_node1():
+        p = P.testkit.TestProbe(nodes[1])
+        P.typed.Receptionist.get(nodes[1]).find(key, p.ref)
+        return p.receive_one(3.0).service_instances
+
+    P.testkit.await_condition(lambda: len(found_on_node1()) == 1,
+                              max_time=WAIT)
+    remote_ref = next(iter(found_on_node1()))
+    p = P.testkit.TestProbe(nodes[1])
+    remote_ref.tell("hi", p.ref)
+    reply = p.receive_one(5.0)
+    return [remote_ref.path.name,
+            remote_ref.path.address == nodes[0].provider.local_address,
+            reply]
+
+
+def test_receptionist_cluster_visibility(systems):
+    """The cluster receptionist replicates its registry through ddata's
+    replicator, on both packages: node 1 finds node 0's service and its
+    ref reaches node 0."""
+    assert side_by_side(_cluster_visibility, systems) == [
+        "clustered-echo", True, ("echo", "hi")]
 
 
 def _delivery_trace(probe, n):
