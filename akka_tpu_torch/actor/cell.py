@@ -72,6 +72,9 @@ class ActorCell:
         self._failure_cause: Optional[BaseException] = None
         self._pending_recreate_cause: Optional[BaseException] = None
         self._pending_recreate_wait: set = set()
+        # children this cell asked to stop that have not yet terminated
+        # (reference: ChildrenContainer.shallDie)
+        self._dying: set = set()
         self.uid = self_ref.path.uid
         self.receive_timeout: Optional[float] = None
         self._receive_timeout_task = None
@@ -164,6 +167,11 @@ class ActorCell:
     def stop(self, ref: Optional[ActorRef] = None) -> None:
         """Stop self or a child (reference: ActorCell.stop)."""
         target = ref if ref is not None else self.self_ref
+        if ref is not None:
+            name = ref.path.name
+            with self._children_lock:
+                if self._children.get(name) == ref:
+                    self._dying.add(name)
         if isinstance(target, InternalActorRef):
             target.send_system_message(sysmsg.Terminate())
 
@@ -395,12 +403,15 @@ class ActorCell:
             failed_actor.pre_restart(cause, self.current_message.message if self.current_message else None)
         except Exception as e:  # noqa: BLE001
             self._log_error(e, "exception in pre_restart")
-        # wait only for children that are actually terminating (the default
-        # pre_restart stops them all, but a user pre_restart may keep children
-        # alive — reference: faultRecreate waits for ChildrenContainer.Termination
-        # entries only, not all children)
+        # wait only for children that are asked to stop or terminating (the
+        # default pre_restart stops them all, but a user pre_restart may keep
+        # children alive — reference: faultRecreate waits for
+        # ChildrenContainer.Termination entries only, not all children). A
+        # child counts from the stop request on, not from when it starts to
+        # terminate: the fresh actor may re-create children of those names.
         stopping = {name for name, child in self._children.items()
-                    if self._child_is_terminating(child)}
+                    if name in self._dying
+                    or self._child_is_terminating(child)}
         if stopping:
             self._pending_recreate_cause = cause if cause is not None else RuntimeError("restart")
             self._pending_recreate_wait = stopping
@@ -546,6 +557,7 @@ class ActorCell:
             with self._children_lock:
                 self._children.pop(name, None)
                 self._child_stats.pop(name, None)
+                self._dying.discard(name)
             if self.actor is not None:
                 self._strategy().handle_child_terminated(self, actor, self.children)
             self._pending_recreate_wait.discard(name)

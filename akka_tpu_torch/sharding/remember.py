@@ -16,7 +16,11 @@ them.
 
 A region with `DeviceEntity.remember_store` adds every entity id on its
 first allocation, and `restore()` respawns every remembered id before the
-journals replay.
+journals replay. The host `Shard` (`region.py`) takes its store from
+`make_remember_entities_store`, a copy of the reference's
+(`akka_tpu/sharding/region.py:285-312`), and reads and writes through
+`remembered_async`, `add_async` and `remove_async`: its ids carry no
+row.
 """
 
 from __future__ import annotations
@@ -24,15 +28,22 @@ from __future__ import annotations
 import os
 import pickle
 import threading
+from concurrent.futures import Future
 from typing import Any, Dict, Iterable, Optional, Set, Tuple
 
 from ..persistence.journal import repair_record_log, scan_record_log
 
 __all__ = ["RememberEntitiesStore", "InProcRememberEntitiesStore",
-           "JournalRememberEntitiesStore", "DDataRememberEntitiesStore"]
+           "JournalRememberEntitiesStore", "DDataRememberEntitiesStore",
+           "make_remember_entities_store"]
 
 
 class RememberEntitiesStore:
+    """The host `Shard` reads and writes through the `_async` methods (a
+    port addition), so a store that waits on another actor (ddata) parks
+    no dispatcher thread. Their defaults call the synchronous method and
+    return a Future that is already done, holding its result or error."""
+
     def remembered(self, type_name: str, shard_id: str) -> Set[str]:
         raise NotImplementedError
 
@@ -41,6 +52,27 @@ class RememberEntitiesStore:
 
     def remove(self, type_name: str, shard_id: str, entity_id: str) -> None:
         raise NotImplementedError
+
+    def remembered_async(self, type_name: str, shard_id: str) -> Future:
+        return _done(self.remembered, type_name, shard_id)
+
+    def add_async(self, type_name: str, shard_id: str,
+                  entity_id: str) -> Future:
+        return _done(self.add, type_name, shard_id, entity_id)
+
+    def remove_async(self, type_name: str, shard_id: str,
+                     entity_id: str) -> Future:
+        return _done(self.remove, type_name, shard_id, entity_id)
+
+
+def _done(fn, *args) -> Future:
+    """A Future already holding fn(*args), or the error it raised."""
+    out: Future = Future()
+    try:
+        out.set_result(fn(*args))
+    except Exception as e:  # noqa: BLE001 — handed to the caller
+        out.set_exception(e)
+    return out
 
 
 class InProcRememberEntitiesStore(RememberEntitiesStore):
@@ -197,15 +229,21 @@ class DDataRememberEntitiesStore(RememberEntitiesStore):
         from ..ddata import Key
         return Key(f"{self.key_prefix}-{type_name}-{shard_id}")
 
+    # the synchronous calls (the device region's) wait as the reference's
+    # ask_sync does: the ask's own timeout, then one second more
     def remembered(self, type_name, shard_id):
+        return self.remembered_async(type_name, shard_id).result(
+            self.timeout + 1.0)
+
+    def remembered_async(self, type_name, shard_id) -> Future:
         from ..ddata import Get, GetSuccess, ReadLocal
-        from ..pattern.ask import ask_sync
-        rep = ask_sync(self.replicator,
-                       Get(self._key(type_name, shard_id), ReadLocal()),
-                       timeout=self.timeout, system=self.system)
-        if isinstance(rep, GetSuccess):
-            return set(rep.data.elements)
-        return set()  # NotFound: nothing remembered yet
+        from ..pattern.ask import ask
+        got = ask(self.replicator,
+                  Get(self._key(type_name, shard_id), ReadLocal()),
+                  timeout=self.timeout, system=self.system)
+        # NotFound: nothing remembered yet
+        return _then(got, lambda rep: set(rep.data.elements)
+                     if isinstance(rep, GetSuccess) else set())
 
     def _rows_key(self, type_name: str, shard_id: str):
         from ..ddata import Key
@@ -279,21 +317,76 @@ class DDataRememberEntitiesStore(RememberEntitiesStore):
                 raise RuntimeError(
                     f"remember-entities ddata update failed: {rep!r}")
 
-    def _update(self, type_name, shard_id, modify) -> None:
+    def _update_async(self, type_name, shard_id, modify) -> Future:
         from ..ddata import ORSet, Update, UpdateSuccess, WriteLocal
-        from ..pattern.ask import ask_sync
-        rep = ask_sync(self.replicator,
-                       Update(self._key(type_name, shard_id),
-                              ORSet.empty(), WriteLocal(), modify=modify),
-                       timeout=self.timeout, system=self.system)
-        if not isinstance(rep, UpdateSuccess):
-            raise RuntimeError(
-                f"remember-entities ddata update failed: {rep!r}")
+        from ..pattern.ask import ask
+        got = ask(self.replicator,
+                  Update(self._key(type_name, shard_id), ORSet.empty(),
+                         WriteLocal(), modify=modify),
+                  timeout=self.timeout, system=self.system)
+
+        def ok(rep):
+            if not isinstance(rep, UpdateSuccess):
+                raise RuntimeError(
+                    f"remember-entities ddata update failed: {rep!r}")
+            return rep
+        return _then(got, ok)
+
+    def add_async(self, type_name, shard_id, entity_id) -> Future:
+        return self._update_async(type_name, shard_id,
+                                  lambda s: s.add(self.node, entity_id))
+
+    def remove_async(self, type_name, shard_id, entity_id) -> Future:
+        return self._update_async(type_name, shard_id,
+                                  lambda s: s.remove(self.node, entity_id))
 
     def add(self, type_name, shard_id, entity_id):
-        self._update(type_name, shard_id,
-                     lambda s: s.add(self.node, entity_id))
+        self.add_async(type_name, shard_id, entity_id).result(
+            self.timeout + 1.0)
 
     def remove(self, type_name, shard_id, entity_id):
-        self._update(type_name, shard_id,
-                     lambda s: s.remove(self.node, entity_id))
+        self.remove_async(type_name, shard_id, entity_id).result(
+            self.timeout + 1.0)
+
+
+def _then(fut: Future, fn) -> Future:
+    """A Future of fn(fut's result); fut's failure, or fn's, passes
+    through."""
+    out: Future = Future()
+
+    def done(f):
+        try:
+            out.set_result(fn(f.result()))
+        except BaseException as e:  # noqa: BLE001 — handed to the caller
+            out.set_exception(e)
+    fut.add_done_callback(done)
+    return out
+
+
+def make_remember_entities_store(
+        settings: Any, system=None,
+        flight_recorder: Any = None) -> Optional[RememberEntitiesStore]:
+    """Resolve `settings.remember_entities_store` (a
+    `ClusterShardingSettings`) to an impl (None when remember_entities is
+    off). "journal" needs remember_entities_dir; "ddata" needs the
+    ActorSystem hosting the replicator."""
+    if not settings.remember_entities:
+        return None
+    kind = settings.remember_entities_store or "inproc"
+    if kind == "inproc":
+        return InProcRememberEntitiesStore()
+    if kind == "journal":
+        if not settings.remember_entities_dir:
+            raise ValueError(
+                "remember_entities_store='journal' needs "
+                "remember_entities_dir")
+        return JournalRememberEntitiesStore(
+            os.path.join(settings.remember_entities_dir,
+                         "remember_entities.journal"),
+            flight_recorder=flight_recorder)
+    if kind == "ddata":
+        if system is None:
+            raise ValueError(
+                "remember_entities_store='ddata' needs the ActorSystem")
+        return DDataRememberEntitiesStore(system)
+    raise ValueError(f"unknown remember_entities_store {kind!r}")

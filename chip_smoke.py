@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --remote-phase N   # remote_paths alone, N times
     python3 chip_smoke.py --ddata-phase N    # ddata_paths alone, N times
+    python3 chip_smoke.py --sharding-phase N # sharding_paths alone, N times
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the
    ring-mailbox kernels from akka_tpu_torch/csrc (nvcc, sm_90a).
@@ -341,6 +342,28 @@ phase's systems, and their graph pools, are freed before the next.
    as the limit. K1 is held to its plain version on the fullest inbox of
    node 0's waves. Every system is terminated and awaited; the phase
    must finish within 60 s.
+19. Host sharding in front of the device region (sharding_paths,
+   ROADMAP A12.4). Two provider = cluster systems over TCP loopback
+   (FAST_MEMBERSHIP, the replicator at the fast settings); sh0 joins
+   first, so it is the oldest and holds the shard coordinator.
+   ClusterShardingTyped.init_device on sh0 builds gateway_region(0)'s
+   full-width counter region (K1) behind an AskBatcher and a host front
+   registered with the cluster Receptionist. Typed Account entities on
+   both nodes (64 host shards, remember-entities in the ddata store,
+   the reference's fast 0.1 s retry and 0.3 s rebalance) each own one
+   device row; 2048 ids are started and balanced over the two regions
+   first. 16 rounds of 256 concurrent EntityRef.asks (seed 11, a round's
+   ids distinct), half through each node's entity_ref_for: the Account
+   asks the front (ctx.ask, the reply piped back) and answers with its
+   row's total, held to a host oracle. After round 8 sh1 leaves and
+   terminates; one StartEntity per shard it hosted brings those shards
+   home to sh0, whose Shards restart the rest of their remembered ids
+   (every remembered id of sh1 must run on sh0); rounds 9-16 run from
+   sh0 alone. Every touched device row equals the oracle; K1 launches
+   once a region step and is held to its plain version on the fullest
+   inbox. It prints asks/s and ask p50/p99 ms per leg, the hand-off
+   seconds, the remembered restarts and the card's busy ms; the phase
+   must finish within 60 s. `--sharding-phase N` runs it alone.
 
 Any failure raises and the exit code is non-zero. The last lines are the
 kernel report (JSON, one row per kernel and payload dtype; `ms` and the
@@ -414,8 +437,11 @@ from akka_tpu_torch.persistence import (Effect, EventSourcedBehavior,
                                         SnapshotSelectionCriteria)
 from akka_tpu_torch.remote.provider import RemoteActorRef
 from akka_tpu_torch.routing.router import GetRoutees, RoundRobinGroup
-from akka_tpu_torch.sharding import (AskBatcher, DeviceEntity,
-                                     DeviceShardRegion)
+from akka_tpu_torch.sharding import (AskBatcher, ClusterShardingTyped,
+                                     DeviceEntity, DeviceShardRegion,
+                                     EntityTypeKey, GetShardRegionState,
+                                     StartEntity,
+                                     make_default_extract_shard_id)
 from akka_tpu_torch.stream import DevicePipeline
 from akka_tpu_torch.testkit import TestProbe
 from akka_tpu_torch.testkit.chaos import CRASH_SALT, chaos_hit_np, inject
@@ -4396,11 +4422,12 @@ class ReplicaReader(Actor):
                                       for n in message]), self.self_ref)
 
 
-def dd_wait(cond, what: str, limit: float = 10.0) -> float:
+def dd_wait(cond, what: str, limit: float = 10.0,
+            label: str = "ddata_paths") -> float:
     """Poll cond() until true; fails after `limit` s. Returns the wait."""
     t0 = time.perf_counter()
     while not cond():
-        check(time.perf_counter() - t0 < limit, f"ddata_paths: {what}")
+        check(time.perf_counter() - t0 < limit, f"{label}: {what}")
         time.sleep(0.005)
     return time.perf_counter() - t0
 
@@ -4754,6 +4781,345 @@ def ddata_phase_only(runs: int, smi: str) -> int:
     return 0
 
 
+# --------------------------- host sharding in front of the device region
+SH_PHASE_S = 60.0           # the phase's limit
+SH_SEED, SH_ENTITIES = 11, 2048     # Account ids, seeded traffic
+SH_ROUNDS, SH_CONC = 16, 256        # rounds of concurrent asks
+SH_LEAVE_AFTER = 8          # rounds before node 1 leaves
+SH_HOST_SHARDS = 64         # the Account type's host shards
+SH_FRONT = ServiceKey("device-front")
+SH_ACCOUNT = EntityTypeKey("Account")
+# the nodes' membership, with the replicator at the fast settings
+SH_CLUSTER = {**FAST_MEMBERSHIP, "distributed-data": DD_REPLICATOR}
+
+
+def sharding_region(system, device: str = "cuda"):
+    """gateway_region(0)'s full-width counter region (K1), made through
+    the typed facade's device entry point."""
+    return ClusterShardingTyped.get(system).init_device(DeviceEntity(
+        "counter", counter_behavior(PAYLOAD_W), n_shards=256,
+        entities_per_shard=4096, n_devices=1, spare_blocks=2,
+        mailbox_slots=0), device=device)
+
+
+class DeviceFront(Actor):
+    """Node 0's front of the device region: ("add", id, v, reply_to)
+    resolves the id's row and pipes the batcher's reply, the row's total
+    after the add, to reply_to (no dispatcher thread waits)."""
+
+    def __init__(self, region, batcher):
+        super().__init__()
+        self.region, self.batcher = region, batcher
+
+    def receive(self, message):
+        _, eid, v, reply_to = message
+        ref = self.region.entity_ref(eid)
+        pipe(then(self.batcher.submit(ref.shard, ref.index,
+                                      [v, 0.0, 0.0, 0.0]),
+                  lambda r: float(r[0])), reply_to, self.self_ref)
+
+
+def account(entity_id: str, front):
+    """The Account entity (typed): ("add", v, reply_to) asks the front
+    with its own reply ref (ctx.ask pipes the reply to the entity) and
+    answers ("total", id, total), or ("failed", id, error)."""
+    def on_message(ctx, msg):
+        if msg[0] == "add":
+            _, v, reply_to = msg
+            ctx.ask(front, lambda r: ("add", entity_id, v, r),
+                    lambda rep, err: ("added", rep, err, reply_to),
+                    timeout=ACTOR_TIMEOUT)
+        elif msg[0] == "added":
+            _, total, err, reply_to = msg
+            reply_to.tell(("total", entity_id, total) if err is None
+                          else ("failed", entity_id, repr(err)))
+        return Behaviors.same
+    return Behaviors.receive(on_message)
+
+
+def region_states(regions, probes) -> list:
+    """Each host region's (shard count, ids), through
+    GetShardRegionState; None for a region that did not answer."""
+    out = []
+    for r, p in zip(regions, probes):
+        r.tell(GetShardRegionState(), p.ref)
+        try:
+            st = p.receive_one(ACTOR_TIMEOUT)
+        except AssertionError:
+            out.append(None)
+            continue
+        out.append((len(st.shards),
+                    {e for sh in st.shards for e in sh.entity_ids}))
+    return out
+
+
+def sh_settle(regions, probes, ids, label: str) -> list:
+    """StartEntity through node 0's region for every id not yet hosted,
+    at each poll (a shard a rebalance handed off comes back on demand),
+    until the regions host them all with shard counts within one of each
+    other, so the coordinator has nothing to move while asks are in
+    flight. One id a host shard goes first: shards allocated before
+    sh1's region registered then move with one entity each. Returns each
+    region's ids."""
+    got = []
+
+    def balanced(want):
+        hosted = set().union(*(e for _, e in got)) if got else set()
+        for eid in want:
+            if eid not in hosted:
+                regions[0].tell(StartEntity(eid))
+        got[:] = [g or (0, set()) for g in region_states(regions,
+                                                          probes)]
+        counts = [c for c, _ in got]
+        return set().union(*(e for _, e in got)) >= set(want) and \
+            max(counts) - min(counts) <= 1
+    extract = make_default_extract_shard_id(SH_HOST_SHARDS)
+    firsts = {}
+    for eid in ids:
+        firsts.setdefault(extract(StartEntity(eid)), eid)
+    for want in (sorted(firsts.values()), ids):
+        dd_wait(lambda: balanced(want), "the Account ids start, balanced",
+                limit=30.0, label=label)
+    return [e for _, e in got]
+
+
+def sh_rounds(shardings, rounds: int, rng, oracle: dict, lat: list) -> float:
+    """`rounds` rounds of SH_CONC concurrent EntityRef.ask adds, a
+    round's ids distinct, dealt in turn to the nodes' entity_ref_for;
+    every reply held to the oracle's running total. Returns the wall
+    seconds."""
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        picks = rng.choice(SH_ENTITIES, SH_CONC, replace=False)
+        vals = rng.integers(1, 100, SH_CONC).astype(np.float64)
+        futs = []
+        for k, (i, v) in enumerate(zip(picks, vals)):
+            eid = f"acct-{int(i)}"
+            ref = shardings[k % len(shardings)].entity_ref_for(SH_ACCOUNT,
+                                                               eid)
+            t = time.perf_counter()
+            f = ref.ask(lambda r, v=float(v): ("add", v, r),
+                        timeout=ACTOR_TIMEOUT)
+            f.add_done_callback(
+                lambda _f, t=t: lat.append(time.perf_counter() - t))
+            futs.append((eid, float(v), f))
+        for eid, v, f in futs:
+            oracle[eid] = oracle.get(eid, 0.0) + v
+            rep = f.result(ACTOR_TIMEOUT)
+            check(rep == ("total", eid, oracle[eid]), f"sharding_paths: "
+                  f"{rep} == the oracle's {oracle[eid]} for {eid}")
+    return time.perf_counter() - t0
+
+
+def sharding_paths(launches: dict, device: str = "cuda") -> dict:
+    """sharding_paths (ROADMAP A12.4): two provider = cluster nodes over
+    TCP loopback (FAST_MEMBERSHIP, the replicator at the fast settings);
+    sh0 joins first, so it is the oldest and holds the coordinator.
+    ClusterShardingTyped.init_device on sh0 gives gateway_region(0)'s
+    full-width counter region (K1) behind an AskBatcher and a DeviceFront
+    registered with the cluster Receptionist. Account entities (typed,
+    SH_HOST_SHARDS host shards, remember-entities in the ddata store) run
+    on both nodes, each owning one device row; an add goes EntityRef.ask
+    -> Account (on either node) -> ctx.ask of the front -> the batcher,
+    and the Account answers with the row's total. SH_ROUNDS rounds of
+    SH_CONC asks over SH_ENTITIES ids (seed SH_SEED), half through each
+    node's entity_ref_for, every reply held to a host oracle. After
+    SH_LEAVE_AFTER rounds sh1 leaves and terminates; one StartEntity per
+    shard it hosted brings the shards home to sh0, whose Shards restart
+    the rest of their remembered ids (hand-off s: leave to every id on
+    sh0); the remaining rounds run from sh0 alone. The device rows of
+    every touched id equal the oracle. Returns the fullest inbox for the
+    K1 row."""
+    from akka_tpu_torch.sharding import ClusterShardingSettings, Entity
+    from akka_tpu_torch.sharding.remember import DDataRememberEntitiesStore
+    from akka_tpu_torch.testkit.sharding import region_entity_ids
+    label = "sharding_paths"
+    t_phase = time.perf_counter()
+    systems = [ActorSystem.create(f"sh{i}", node_config(
+        "tcp", "cluster", cluster=SH_CLUSTER)) for i in range(2)]
+    region = batcher = None
+    try:
+        clusters = [Cluster.get(s) for s in systems]
+        clusters[0].join(addr_of(systems[0]))
+        dd_wait(lambda: any(m.status is MemberStatus.UP
+                            for m in clusters[0].state.members),
+                "sh0 is Up", label=label)
+        clusters[1].join(addr_of(systems[0]))
+        form_s = dd_wait(lambda: all(
+            sum(m.status is MemberStatus.UP for m in c.state.members) == 2
+            for c in clusters), "both nodes are Up", label=label)
+        region = sharding_region(systems[0], device)
+        region.system.warmup()
+        batcher = AskBatcher(region, max_batch=SH_CONC)
+        front = systems[0].actor_of(Props.create(DeviceFront, region,
+                                                 batcher), "front")
+        Receptionist.get(systems[0]).register(SH_FRONT, front)
+        # the reference's fast intervals (tests/test_sharding.py): a
+        # shard allocated before sh1's region registered moves within
+        # seconds, three at a time
+        settings = ClusterShardingSettings(
+            number_of_shards=SH_HOST_SHARDS, retry_interval=0.1,
+            rebalance_interval=0.3, remember_entities=True,
+            remember_entities_store="ddata")
+        shardings, regions, probes = [], [], []
+        for s in systems:
+            probe = TestProbe(s)
+
+            def fronts(s=s, probe=probe):
+                Receptionist.get(s).find(SH_FRONT, probe.ref)
+                return probe.receive_one(ACTOR_TIMEOUT).service_instances
+            dd_wait(lambda: len(fronts()) == 1, f"{s.name} finds the front",
+                    label=label)
+            (ref,) = fronts()
+            sh = ClusterShardingTyped.get(s)
+            regions.append(sh.init(Entity(
+                SH_ACCOUNT, lambda ctx, ref=ref: account(ctx.entity_id, ref),
+                settings=settings)))
+            shardings.append(sh)
+            probes.append(probe)
+        ids = [f"acct-{i}" for i in range(SH_ENTITIES)]
+        t0 = time.perf_counter()
+        hosted = sh_settle(regions, probes, ids, label)
+        settle_s = time.perf_counter() - t0
+        check(all(hosted), f"{label}: both nodes host Accounts")
+        print(f"{label} setup_s {time.perf_counter() - t_phase} form_s "
+              f"{form_s} settle_s {settle_s} rows {region.system.capacity} "
+              f"accounts_by_node {[len(h) for h in hosted]}")
+
+        rng = np.random.default_rng(SH_SEED)
+        oracle: dict = {}
+        count = Launches()
+        steps = 0
+        inbox = None
+        for leg, (nodes, rounds) in enumerate(
+                ((shardings, SH_LEAVE_AFTER),
+                 (shardings[:1], SH_ROUNDS - SH_LEAVE_AFTER))):
+            lat: list = []
+            s0 = region.system._host_step
+            with StepProbe(region.system, True, *DD_PROBE) as probe_in:
+                wall = count(lambda: sh_rounds(nodes, rounds, rng, oracle,
+                                               lat))
+            steps += region.system._host_step - s0
+            if inbox is None or probe_in.rows > inbox.rows:
+                inbox = probe_in
+            n_ask = rounds * SH_CONC
+            check(len(lat) == n_ask, f"{label}: every ask resolved")
+            tag = ("two_nodes", "one_node")[leg]
+            print(f"{label} {tag} rounds {rounds} asks_per_s "
+                  f"{n_ask / wall} ask p50_ms "
+                  f"{np.percentile(lat, 50) * 1e3} p99_ms "
+                  f"{np.percentile(lat, 99) * 1e3} region_steps "
+                  f"{region.system._host_step - s0} busy_ms "
+                  f"{probe_in.busy_ms} (host clock; CUDA events around "
+                  f"each run)")
+            if leg:
+                break
+            # ---- the hand-off: sh1 leaves, its shards come home to sh0
+            on_1 = region_entity_ids(regions[1], probes[1], ACTOR_TIMEOUT)
+            check(bool(on_1), f"{label}: sh1 hosts Accounts")
+            store = DDataRememberEntitiesStore(systems[0],
+                                               timeout=ACTOR_TIMEOUT)
+
+            def remembered():
+                return set().union(*(store.remembered("Account", str(sh))
+                                     for sh in range(SH_HOST_SHARDS)))
+            dd_wait(lambda: remembered() >= set(oracle),
+                    "sh0's replica remembers every asked id", label=label)
+            rows = {}
+            for sh in range(SH_HOST_SHARDS):
+                rows.update(store.remembered_rows("Account", str(sh)))
+            check(set(rows.values()) == {None}, f"{label}: host ids have "
+                  f"no device row in the store")
+            leaving = addr_of(systems[1])
+            t0 = time.perf_counter()
+            clusters[1].leave(leaving)
+            dd_wait(lambda: leaving not in {
+                m.address_str for m in clusters[0].state.members},
+                "sh0 removed sh1", label=label)
+            removed_s = time.perf_counter() - t0
+            systems[1].terminate()
+            check(systems[1].await_termination(ACTOR_TIMEOUT),
+                  f"{label}: sh1 terminated")
+            terminated_s = time.perf_counter() - t0
+            extract = make_default_extract_shard_id(SH_HOST_SHARDS)
+            kicked = {}
+            for eid in sorted(on_1):
+                kicked.setdefault(extract(StartEntity(eid)), eid)
+
+            def home():
+                # again at each poll: until the coordinator has freed
+                # sh1's shards, a StartEntity may go to the dead region
+                for eid in kicked.values():
+                    regions[0].tell(StartEntity(eid))
+                st = region_states(regions[:1], probes[:1])[0]
+                return st is not None and st[0] == SH_HOST_SHARDS and \
+                    st[1] >= on_1
+            dd_wait(home, "every shard's home is sh0 and every id sh1 "
+                    "hosted runs there", label=label)
+            handoff_s = time.perf_counter() - t0
+            lost = (on_1 & remembered()) - region_entity_ids(
+                regions[0], probes[0], ACTOR_TIMEOUT)
+            check(not lost, f"{label}: remembered ids of sh1 run on sh0 "
+                  f"({sorted(lost)[:4]})")
+            print(f"{label} handoff_s {handoff_s} leave_to_removed_s "
+                  f"{removed_s} leave_to_terminated_s {terminated_s} "
+                  f"shards_kicked {len(kicked)} "
+                  f"remembered_restarts {len(on_1) - len(kicked)} of "
+                  f"{len(on_1)} ids on sh1 (host clock)")
+        count.report(label, "ring_reduce", launches, steps)
+        names = sorted(oracle)
+        rows = np.asarray([region.entity_ref(n).row for n in names])
+        got = region.system.read_state("total", rows)
+        check(all(float(g) == oracle[n] for g, n in zip(got, names)),
+              f"{label}: every touched device row == the oracle "
+              f"({len(names)} entities)")
+        check(batcher.stats()["asks"] == SH_ROUNDS * SH_CONC,
+              f"{label}: one batcher ask per EntityRef.ask")
+        check(inbox.rows > 0 and int(inbox.inputs[0][3].sum()) > 0,
+              f"{label}: K1's input carries messages ({inbox.rows} rows)")
+        print(f"{label} kernel_input live_rows {inbox.rows} of "
+              f"{inbox.inputs[0][0].shape[0]} batches "
+              f"{batcher.stats()['batches']}")
+        out = {label: ("K1", inbox.inputs, SLOTS)}
+    finally:
+        if batcher is not None:
+            batcher.close()
+        for s in systems:
+            s.terminate()
+    for s in systems:
+        check(s.await_termination(ACTOR_TIMEOUT),
+              f"{label}: {s.name} terminated")
+    del region, batcher, systems
+    free()
+    print(f"{label} phase_s {time.perf_counter() - t_phase}")
+    return out
+
+
+def sharding_phase_only(runs: int, smi: str) -> int:
+    """`python3 chip_smoke.py --sharding-phase N`: sharding_paths alone, N
+    times in one process, every check as in the whole run and K1 held to
+    its plain version on each run's fullest inbox. The last line is
+    {"sharding_phase_s": [...]}."""
+    lib = cm.build()
+    times = []
+    for r in range(runs):
+        launches: Dict[str, dict] = {}
+        t0 = time.perf_counter()
+        flat = sharding_paths(launches)
+        times.append(time.perf_counter() - t0)
+        check(times[-1] < SH_PHASE_S, f"sharding_paths run {r}: "
+              f"{times[-1]} s, more than {SH_PHASE_S}")
+        for label, (k, inputs, slots) in flat.items():
+            row = kernel_rows(label, *inputs, lib, kernels=(k,),
+                              slots=slots)[k]
+            print(f"sharding_phase_run {r} {k} {json.dumps(row)}")
+        print(f"sharding_phase_run {r} sharding_phase_s {times[-1]} "
+              f"k1_launches {launches['sharding_paths']['ring_reduce']}")
+    print(smi)
+    print(json.dumps({"sharding_phase_s": times}))
+    return 0
+
+
 def path_dtype(label: str) -> str:
     """The payload dtype of a path's system, by the path's name."""
     for name in ("int32", "bf16"):
@@ -4776,6 +5142,8 @@ def main() -> int:
         return remote_phase_only(int(sys.argv[2]), smi)
     if sys.argv[1:2] == ["--ddata-phase"]:
         return ddata_phase_only(int(sys.argv[2]), smi)
+    if sys.argv[1:2] == ["--sharding-phase"]:
+        return sharding_phase_only(int(sys.argv[2]), smi)
 
     t0 = time.perf_counter()
     rows, typed = kernel_phase(lib)
@@ -4823,6 +5191,12 @@ def main() -> int:
     print(f"ddata_phase_s {phase_s}")
     check(phase_s < DD_PHASE_S, f"ddata_paths: {phase_s} s, more than "
           f"{DD_PHASE_S}")
+    t0 = time.perf_counter()
+    sharding = sharding_paths(launches)
+    phase_s = time.perf_counter() - t0
+    print(f"sharding_phase_s {phase_s}")
+    check(phase_s < SH_PHASE_S, f"sharding_paths: {phase_s} s, more "
+          f"than {SH_PHASE_S}")
     # both kernels at the shapes the new paths gave them
     t0 = time.perf_counter()
     for label, flat in (("sharded_d8", sharded), ("region", region),
@@ -4832,13 +5206,13 @@ def main() -> int:
             rows.setdefault(label, {})[k] = kernel_rows(
                 label, inputs, n, lib, kernels=(k,))[k]
     for label, (k, (inputs, n), slots) in {**actor, **ledgers, **remote,
-                                           **ddata}.items():
+                                           **ddata, **sharding}.items():
         dtype = path_dtype(label)
         table = rows if dtype == "float32" else typed[dtype]
         table.setdefault(label, {})[k] = kernel_rows(
             label, inputs, n, lib, kernels=(k,), slots=slots)[k]
     del sharded, region, gateway, actor, router, failover, ranks, ledgers
-    del remote, ddata
+    del remote, ddata, sharding
     print(f"path_kernels_s {time.perf_counter() - t0}")
 
     entry = {"K1": ("ring_reduce", "_run(with_slots=False)"),

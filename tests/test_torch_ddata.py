@@ -229,8 +229,9 @@ def test_durable_store_written_by_the_reference_reads_into_the_port(
         tmp_path):
     """A durable directory the JAX package wrote with plain CRDTs reads
     into the port as equal port CRDTs; a file whose class the port
-    cannot resolve raises UnresolvedRecordClass and keeps its bytes."""
-    from akka_tpu.sharding.messages import ShardingEnvelope
+    cannot resolve (a module neither package has) raises
+    UnresolvedRecordClass and keeps its bytes."""
+    from torch_host_fixture import class_of_no_package
 
     from akka_tpu_torch.serialization.records import UnresolvedRecordClass
     J, T = ddata("akka_tpu"), ddata("akka_tpu_torch")
@@ -250,10 +251,12 @@ def test_durable_store_written_by_the_reference_reads_into_the_port(
     assert got == values(T)
     assert {type(v).__module__ for v in got.values()} == \
         {"akka_tpu_torch.ddata.crdt"}
-    J.DurableStore(d).store("x", ShardingEnvelope("e", 1))
+    with class_of_no_package() as Absent:
+        J.DurableStore(d).store("x", Absent("e", 1))
     before = {n: open(os.path.join(d, n), "rb").read()
               for n in os.listdir(d)}
-    with pytest.raises(UnresolvedRecordClass):
+    with pytest.raises(UnresolvedRecordClass,
+                       match="akka_tpu_torch.no_such_module"):
         T.DurableStore(d).load_all()
     assert {n: open(os.path.join(d, n), "rb").read()
             for n in os.listdir(d)} == before

@@ -156,7 +156,21 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "akka_tpu_torch.cluster_tools.pubsub",
                  "akka_tpu_torch.cluster_tools.singleton",
                  "akka_tpu_torch.cluster_tools.client",
-                 "akka_tpu_torch.cluster_tools.metrics"):
+                 "akka_tpu_torch.cluster_tools.metrics",
+                 # the host tier of sharding and the rest of testkit
+                 "akka_tpu_torch.sharding.messages",
+                 "akka_tpu_torch.sharding.coordinator",
+                 "akka_tpu_torch.sharding.region",
+                 "akka_tpu_torch.sharding.sharding",
+                 "akka_tpu_torch.sharding.typed",
+                 "akka_tpu_torch.sharding.daemon_process",
+                 "akka_tpu_torch.testkit.behavior_testkit",
+                 "akka_tpu_torch.testkit.dilation",
+                 "akka_tpu_torch.testkit.event_filter",
+                 "akka_tpu_torch.testkit.manual_time",
+                 "akka_tpu_torch.testkit.multi_node",
+                 "akka_tpu_torch.testkit.multi_process",
+                 "akka_tpu_torch.testkit.sharding"):
         assert name in MODULES, name
 
 
@@ -187,7 +201,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
     from akka_tpu_torch.models.baseline_benches import (build_cross_shard,
                                                         build_ring,
                                                         ring_behavior)
-    from akka_tpu_torch.sharding import DeviceEntity, DeviceShardRegion
+    from akka_tpu_torch.sharding import (ClusterShardingTyped, DeviceEntity,
+                                         DeviceShardRegion)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     spec = DeviceEntity("c", counter_behavior(4), n_shards=2,
@@ -199,12 +214,23 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
                       capacity=8, behaviors=[ring_behavior], n_devices=2,
                       **kw),
                   lambda **kw: build_cross_shard(2, 4, n_devices=2, **kw),
-                  lambda **kw: DeviceShardRegion(spec, **kw)):
+                  lambda **kw: DeviceShardRegion(spec, **kw),
+                  # the typed facade's device entry point, over a system
+                  # stub: init_device starts nothing of the actor system
+                  lambda **kw: ClusterShardingTyped.get(
+                      _ExtensionHost()).init_device(spec, **kw)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
         built = build(device="cpu")
         sys_ = getattr(built, "system", built)
         assert sys_.device.type == "cpu"
+
+
+class _ExtensionHost:
+    """Stands in for an ActorSystem where only extensions are made."""
+
+    def register_extension(self, ext):
+        return ext.create_extension(self)
 
 
 # ------------------------------------------------ exports (ROADMAP C1)
@@ -295,12 +321,6 @@ def test_package_exports_what_the_reference_package_exports():
 # Reference modules the port has no file for yet, by the item that ports
 # them: a name a reference __init__ imports from one of them is excepted.
 UNPORTED_MODULES = {
-    **{f"sharding/{m}.py": "A12.4" for m in (
-        "region", "coordinator", "messages", "sharding", "typed",
-        "daemon_process")},
-    **{f"testkit/{m}.py": "A12.4" for m in (
-        "behavior_testkit", "dilation", "event_filter", "manual_time",
-        "multi_node", "multi_process", "sharding")},
     **{f"stream/{m}.py": "A12.5" for m in (
         "stage", "interpreter", "dsl", "ops", "killswitch", "hub",
         "framing", "retry", "streamref", "attributes", "context",
@@ -399,16 +419,17 @@ def test_ported_file_has_the_references_public_names(rel):
 
 
 def test_exception_lists_name_only_later_items():
-    """The exceptions belong to A12, and the jnp dtypes; they name no
+    """The exceptions belong to A12.5, and the jnp dtypes; they name no
     module the port has a file for, and no name the port has. A10.2 (the
     distributed init and its config hook), A12.1 (the typed API and the
     host tier of persistence), A12.2 (remoting, PKI and cluster
-    membership) and A12.3 (ddata's replicator and CRDTs, cluster_tools)
-    are ported: no label of theirs is left, and no source of the port
-    names A12.2."""
+    membership), A12.3 (ddata's replicator and CRDTs, cluster_tools) and
+    A12.4 (the host tier of sharding, the rest of testkit) are ported: no
+    label of theirs is left, and no source of the port names A12.2."""
     labels = set(UNPORTED_MODULES.values()) | set(UNPORTED_NAMES.values())
-    assert labels <= {"A12.4", "A12.5", "for good: a jnp dtype"}, labels
-    assert not labels & {"A10.2", "A12.1", "A12.2", "A12.3"}, labels
+    assert labels <= {"A12.5", "for good: a jnp dtype"}, labels
+    assert not labels & {"A10.2", "A12.1", "A12.2", "A12.3", "A12.4"}, \
+        labels
     for path in SOURCES + sorted(ROOT.glob("tests/*torch_*.py")) + [
             ROOT / "chip_smoke.py"]:
         if path.name != "test_torch_imports.py":
@@ -437,7 +458,13 @@ def test_exception_lists_name_only_later_items():
                 "cluster_tools/__init__.py", "cluster_tools/lease.py",
                 "cluster_tools/discovery.py", "cluster_tools/pubsub.py",
                 "cluster_tools/singleton.py", "cluster_tools/client.py",
-                "cluster_tools/metrics.py"):
+                "cluster_tools/metrics.py", "sharding/messages.py",
+                "sharding/coordinator.py", "sharding/region.py",
+                "sharding/sharding.py", "sharding/typed.py",
+                "sharding/daemon_process.py", "testkit/behavior_testkit.py",
+                "testkit/dilation.py", "testkit/event_filter.py",
+                "testkit/manual_time.py", "testkit/multi_node.py",
+                "testkit/multi_process.py", "testkit/sharding.py"):
         assert rel in PORTED_FILES, rel
 
 

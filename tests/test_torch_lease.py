@@ -11,8 +11,9 @@ rebalance outcomes) must equal the reference's, and each test also
 asserts the trace's values.
 
 The reference's timing windows are dilated by its machine load
-(`akka_tpu.testkit.dilation`, which the port has with ROADMAP A12.4);
-here both packages run the reference's undilated values. Every
+(`akka_tpu.testkit.dilation`; the port's copy is
+`akka_tpu_torch.testkit.dilation`); here both packages run the
+reference's undilated values. Every
 heartbeat a scenario starts is stopped before it returns, every system
 and thread starts through the `nodes` fixture, and every wait is at most
 10 s.

@@ -29,8 +29,8 @@ import time
 
 import pytest
 
-from torch_host_fixture import (QUIET, WAIT, Systems, package,
-                                side_by_side)
+from torch_host_fixture import (QUIET, WAIT, Systems, class_of_no_package,
+                                package, side_by_side)
 
 MAX = 2**63 - 1
 INMEM_SNAPSHOTS = {"akka": {**QUIET["akka"], "persistence": {
@@ -962,22 +962,21 @@ def test_local_snapshot_store_read_by_the_other_package(
 
 
 def test_unresolvable_record_class_raises_and_keeps_the_log(tmp_path):
-    """A record whose class the port cannot resolve (here a message of
-    the JAX package's host sharding, which the port does not have yet,
-    ROADMAP A12.4) makes the port's FileJournal raise ImportError on
-    open; the log's bytes stay as they were (the reference would read it
-    as a torn tail)."""
-    from akka_tpu.sharding.messages import ShardingEnvelope
+    """A record whose class the port cannot resolve (a class of a module
+    that neither package has) makes the port's FileJournal raise
+    ImportError on open; the log's bytes stay as they were (the reference
+    would read it as a torn tail)."""
     ref, port = (package(n).persistence for n in ("akka_tpu",
                                                   "akka_tpu_torch"))
     d = str(tmp_path / "j")
     j = ref.FileJournal(d)
     j.write_atomic(ref.AtomicWrite((ref.PersistentRepr("ok", 1, "p"),)))
-    j.write_atomic(ref.AtomicWrite((ref.PersistentRepr(
-        ShardingEnvelope("e1", "hi"), 2, "p"),)))
+    with class_of_no_package() as Absent:
+        j.write_atomic(ref.AtomicWrite((ref.PersistentRepr(
+            Absent("e1", "hi"), 2, "p"),)))
     logs = {n: open(os.path.join(d, n), "rb").read()
             for n in os.listdir(d)}
-    with pytest.raises(ImportError, match="akka_tpu_torch.sharding.messages"):
+    with pytest.raises(ImportError, match="akka_tpu_torch.no_such_module"):
         port.FileJournal(d)
     with pytest.raises(port.UnresolvedRecordClass):
         list(port.scan_record_log(j._pid_path("p")))
@@ -1069,18 +1068,17 @@ def test_a_record_whose_import_loads_jax_is_refused(tmp_path, monkeypatch):
 
 
 def test_unresolvable_snapshot_class_raises(tmp_path):
-    """A snapshot that names a class the port cannot resolve (a message
-    of the JAX package's host sharding, ROADMAP A12.4) fails the load
-    (LoadSnapshotFailed through the actor) instead of falling back to an
-    older snapshot."""
-    from akka_tpu.sharding.messages import ShardingEnvelope
+    """A snapshot that names a class the port cannot resolve (a class of
+    a module that neither package has) fails the load (LoadSnapshotFailed
+    through the actor) instead of falling back to an older snapshot."""
     ref, port = (package(n).persistence for n in ("akka_tpu",
                                                   "akka_tpu_torch"))
     d = str(tmp_path / "s")
     ref.LocalSnapshotStore(d).save(ref.SnapshotMetadata("p", 1, 1.0), "old")
-    ref.LocalSnapshotStore(d).save(ref.SnapshotMetadata("p", 2, 2.0),
-                                   ShardingEnvelope("e1", "hi"))
-    with pytest.raises(ImportError):
+    with class_of_no_package() as Absent:
+        ref.LocalSnapshotStore(d).save(ref.SnapshotMetadata("p", 2, 2.0),
+                                       Absent("e1", "hi"))
+    with pytest.raises(ImportError, match="akka_tpu_torch.no_such_module"):
         port.LocalSnapshotStore(d).load(
             "p", port.SnapshotSelectionCriteria.latest())
 

@@ -6,8 +6,9 @@ system and read on the other over the in-proc transport written once
 over a package namespace and run on both packages through `side_by_side`
 (each package's systems on their own wire, equal traces), and the
 port's refusal of an instrument class of the JAX package. The
-reference's two-process scenario needs testkit/multi_process.py (ROADMAP
-A12.4) and a subprocess, so it waits for that item.
+reference's two-process scenario starts subprocesses, which tier-1
+forbids: its port runs on `akka_tpu_torch.testkit.multi_process` in the
+slow tier (tests/test_torch_multi_process.py).
 
 Every system starts through the `nodes` fixture
 (tests/torch_remote_fixture.py). Every wait is at most 10 s.

@@ -12,10 +12,13 @@ Every system a scenario starts goes through the file's `systems` fixture
 and asserts that no thread a test started is still alive.
 """
 
+import contextlib
 import importlib
+import sys
 import threading
 import time
-from types import SimpleNamespace
+from dataclasses import dataclass
+from types import ModuleType, SimpleNamespace
 
 PACKAGES = ("akka_tpu", "akka_tpu_torch")
 QUIET = {"akka": {"stdout-loglevel": "OFF", "log-dead-letters": 0}}
@@ -37,6 +40,31 @@ def package(name: str) -> SimpleNamespace:
         messages=m("persistence.messages"),
         testkit=m("testkit"), backoff=m("pattern.backoff"),
         serialization=m("serialization"), ask=m("pattern.ask"))
+
+
+@contextlib.contextmanager
+def class_of_no_package():
+    """A class that the JAX package can pickle and that maps to no module
+    of the port: it lives in `akka_tpu.no_such_module`, registered in
+    sys.modules only inside the block. The port's reader maps the path to
+    `akka_tpu_torch.no_such_module`, which neither package has, now or
+    later, so a record of it stays unresolvable."""
+    name = "akka_tpu.no_such_module"
+    mod = ModuleType(name)
+
+    @dataclass(frozen=True)
+    class Absent:
+        entity_id: str
+        message: object
+
+    Absent.__module__ = name
+    Absent.__qualname__ = "Absent"
+    mod.Absent = Absent
+    sys.modules[name] = mod
+    try:
+        yield Absent
+    finally:
+        del sys.modules[name]
 
 
 def threads() -> set:

@@ -44,6 +44,15 @@ from torch_actor_fixture import Actors
 PKI = Path(__file__).resolve().parent / "data" / "torch_pki"
 PACKAGES = ("akka_tpu", "akka_tpu_torch")
 WAIT = 10.0         # every ask, probe and condition wait of these tests
+# the membership settings of the reference's sharding tests
+# (tests/test_sharding.py FAST): gossip and leader actions every 0.05 s,
+# heartbeats every 0.1 s with a 2 s acceptable pause, no downing
+SHARDING_CLUSTER = {"gossip-interval": "0.05s",
+                    "leader-actions-interval": "0.05s",
+                    "unreachable-nodes-reaper-interval": "0.1s",
+                    "failure-detector": {
+                        "heartbeat-interval": "0.1s",
+                        "acceptable-heartbeat-pause": "2s"}}
 
 
 def package(name: str) -> SimpleNamespace:
