@@ -277,6 +277,8 @@ class ShardedBatchedSystem:
         self._next_row = 0
         self._lock = threading.Lock()
         self._host_staged: List[Tuple[int, int, np.ndarray]] = []
+        # host rows the staged tells take in the next flush, by shard
+        self._host_rows: Dict[int, int] = {}
         self._host_step = 0
         # the step's CUDA graphs on a card, keyed (pair_cap, stray_mode);
         # the eager step on the CPU, over a gloo group (which a graph
@@ -453,16 +455,38 @@ class ShardedBatchedSystem:
     def tell(self, dst: int, payload, mtype: int = 0) -> None:
         """Host-side tell to one actor: staged, flushed into its shard's
         host rows by the next run()."""
+        self._stage(dst, payload, mtype, bounded=False)
+
+    def try_tell(self, dst: int, payload, mtype: int = 0) -> bool:
+        """tell(), unless the next flush has no host row left in `dst`'s
+        shard (it holds `host_inbox` of them and skips tells past that):
+        then nothing is staged or journaled, and False. The room is
+        checked, journaled and taken under the staging lock."""
+        return self._stage(dst, payload, mtype, bounded=True)
+
+    def _stage(self, dst, payload, mtype, bounded: bool) -> bool:
         pl = np.zeros(self.payload_width, dtype=self._np_payload_dtype)
         arr = np.asarray(payload).reshape(-1)
         pl[: arr.shape[0]] = arr
         # an int, or the one-row array a replayed WAL record holds
         dst, mtype = int(np.asarray(dst).item()), int(np.asarray(mtype).item())
-        if self.tell_journal is not None:
+        # the shard whose host row the tell takes in the flush, if any
+        s = dst // self.local_n if 0 <= dst < self.capacity else None
+        journal = self.tell_journal
+        if journal is not None and not bounded:
             # WAL: the normalized row, before it is staged
-            self.tell_journal.append(self._host_step, "tell", dst, pl, mtype)
+            journal.append(self._host_step, "tell", dst, pl, mtype)
+            journal = None
         with self._lock:
+            if bounded and s is not None \
+                    and self._host_rows.get(s, 0) >= self.host_inbox:
+                return False
+            if journal is not None:  # try_tell: once the row is taken
+                journal.append(self._host_step, "tell", dst, pl, mtype)
             self._host_staged.append((dst, mtype, pl))
+            if s is not None:
+                self._host_rows[s] = self._host_rows.get(s, 0) + 1
+        return True
 
     def _flush_staged(self) -> None:
         """Write staged tells into each destination shard's host rows, in
@@ -471,6 +495,7 @@ class ShardedBatchedSystem:
         [0, capacity)."""
         with self._lock:
             staged, self._host_staged = self._host_staged, []
+            self._host_rows = {}
         if not staged:
             return
         used: Dict[int, int] = {}
@@ -1000,7 +1025,7 @@ class ShardedBatchedSystem:
         self._metrics_seen_epoch = 0
         self._host_step = int(self.step_count.item())
         with self._lock:
-            self._host_staged = []
+            self._host_staged, self._host_rows = [], {}
         if journal is not None:
             replay_journal(self, journal)
         return self._host_step

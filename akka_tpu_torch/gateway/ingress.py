@@ -2,9 +2,9 @@
 
 Port of `akka_tpu/gateway/ingress.py`. Two transports in the reference:
 "evloop" (selector loop threads, `gateway/evloop.py`) is ported;
-"stream" (a stream-stage graph per connection) needs the reference's
-`ActorSystem` and stream layer, so `start()` raises NotImplementedError
-for it (ROADMAP A12), while in-proc use (`handle_frame`,
+"stream" (a stream-stage graph per connection) needs the stream layer's
+framing and TCP stages, the rest of ROADMAP A12.5, so `start()` raises
+NotImplementedError for it, while in-proc use (`handle_frame`,
 `handle_frame_batch`, `submit_frames`) works with either setting. The
 admin op `checkpoint` snapshots the region (it needs the region's
 `attach_journal`), and a region restored before the gateway comes up
@@ -545,9 +545,9 @@ class GatewayServer:
             self.host, self.port = self._evloop.start()
             return self.host, self.port
         raise NotImplementedError(
-            "GatewayServer transport='stream' needs the stream layer and "
-            "the actor system, which are not ported yet (ROADMAP A12); "
-            "use transport='evloop'")
+            "GatewayServer transport='stream' needs the stream layer's "
+            "framing and TCP stages, which are not ported yet (ROADMAP "
+            "A12.5); use transport='evloop'")
 
     def stop(self) -> None:
         if self._evloop is not None:

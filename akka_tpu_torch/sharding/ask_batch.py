@@ -194,21 +194,27 @@ def _assemble_slots(region, batch: Sequence[BatchAsk]) -> List[BatchAsk]:
     return live
 
 
-def _stage_tell(sys, a: BatchAsk, cum: int) -> None:
+def _stage_tell(sys, a: BatchAsk, cum: int) -> bool:
     """Stage ONE ask's tell into the next flush (shared stage phase):
     payload body + reply-to promise row in the last column, `start`
-    stamped with the step count the timeout clock runs against."""
+    stamped with the step count the timeout clock runs against. False,
+    and nothing staged, when the flush has no host row left in the
+    row's shard: the flush would skip the tell and the ask could only
+    time out, so both engines keep it for a later round (a port fix;
+    the reference stages it and loses it)."""
     payload = np.zeros((sys.payload_width,), np.float32)
     body = np.atleast_1d(
         np.asarray(a.message, np.float32)).reshape(-1)
     payload[:min(len(body), sys.payload_width - 1)] = \
         body[:sys.payload_width - 1]
     payload[-1] = float(a.prow)
-    sys.tell(a.row, payload)
+    if not sys.try_tell(a.row, payload):
+        return False
     a.start = cum
     if a.trace is not None:
         a.t_stage = time.monotonic()
         a.step_stage = int(sys._host_step)
+    return True
 
 
 def execute_ask_batch(region, batch: Sequence[BatchAsk]) -> None:
@@ -271,10 +277,9 @@ def execute_ask_batch(region, batch: Sequence[BatchAsk]) -> None:
             nonlocal waiting
             rest: List[BatchAsk] = []
             for a in waiting:
-                if a.row in in_flight:
+                if a.row in in_flight or not _stage_tell(sys, a, cum):
                     rest.append(a)
                     continue
-                _stage_tell(sys, a, cum)
                 in_flight[a.row] = a
             waiting = rest
 
@@ -298,12 +303,14 @@ def execute_ask_batch(region, batch: Sequence[BatchAsk]) -> None:
                         n_deferred=len(waiting))
         first = True
         rounds = 0
-        while in_flight:
+        while in_flight or waiting:
             # shared budget: one `steps`-deep round for the whole wave,
             # then single steps — a batch of one runs the exact schedule
-            # the pre-batching ask() ran ([steps] + [1]*max_extra_steps)
-            n_steps = min(a.steps for a in in_flight.values()) \
-                if first else 1
+            # the pre-batching ask() ran ([steps] + [1]*max_extra_steps);
+            # a round with nothing in flight (the flush was full) frees
+            # the host rows for the waiting asks
+            n_steps = min((a.steps for a in in_flight.values()),
+                          default=1) if first else 1
             first = False
             rounds += 1
             with wspan.child("wave.step_round", wave_id=wave_id,
@@ -349,7 +356,7 @@ def execute_ask_batch(region, batch: Sequence[BatchAsk]) -> None:
                     done_rows.append(row)
             for row in done_rows:
                 del in_flight[row]
-            if waiting:  # duplicates deferred from earlier waves
+            if waiting:  # duplicates, and asks past a full flush
                 with wspan.child("wave.flush", wave_id=wave_id,
                                  deferred=True, n_staged=len(waiting)):
                     stage_ready()
@@ -432,6 +439,10 @@ class ContinuousWaveScheduler:
     (from the SAME wave or any later one), staged into the next step
     round the moment the row frees. Per-entity linearization is
     therefore submit order, exactly as under the serialized engine.
+    A round's flush holds `host_inbox` tells a system shard and skips
+    the rest, so an ask that finds its shard's host rows full defers
+    the same way (a port fix: the reference stages it, the flush skips
+    its tell, and the ask times out).
 
     Locking: every piece of scheduler wave state (_row_owner, _deferred,
     _waves, _cum, _resolve_seq) is mutated only under `region._ask_lock`
@@ -531,15 +542,17 @@ class ContinuousWaveScheduler:
                     a.wave = h
                     # a row already in flight OR with older deferred
                     # waiters queues behind them — cross-wave FIFO per
-                    # destination row, never a queue jump
+                    # destination row, never a queue jump; so does an
+                    # ask whose shard's host rows the next flush has
+                    # filled (_stage_tell stages nothing then)
                     if a.row in self._row_owner \
-                            or self._deferred_rows.get(a.row):
+                            or self._deferred_rows.get(a.row) \
+                            or not _stage_tell(sys, a, self._cum):
                         a.was_deferred = True
                         self._deferred.append(a)
                         self._deferred_rows[a.row] = \
                             self._deferred_rows.get(a.row, 0) + 1
                     else:
-                        _stage_tell(sys, a, self._cum)
                         self._row_owner[a.row] = a
                         staged += 1
             h.t_stage1 = time.monotonic() if tracer is not None else 0.0
@@ -627,18 +640,18 @@ class ContinuousWaveScheduler:
 
     def _stage_deferred_locked(self, sys) -> None:
         """Admit late joiners into the NEXT step round of the open
-        schedule: deferred asks whose destination row has freed stage
-        now (coalescing into this round's single flush), in submit
-        order — the first waiter per row wins, later ones keep
-        waiting."""
+        schedule: deferred asks whose destination row has freed, and
+        whose shard has host rows left in this round's flush, stage now
+        (coalescing into this round's single flush), in submit order —
+        the first waiter per row wins, later ones keep waiting."""
         if not self._deferred:
             return
         rest: List[BatchAsk] = []
         for a in self._deferred:
-            if a.row in self._row_owner:
+            if a.row in self._row_owner \
+                    or not _stage_tell(sys, a, self._cum):
                 rest.append(a)
                 continue
-            _stage_tell(sys, a, self._cum)
             self._row_owner[a.row] = a
             n = self._deferred_rows.get(a.row, 1) - 1
             if n:

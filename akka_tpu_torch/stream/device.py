@@ -20,8 +20,9 @@ The scan carry may be a tensor or a tuple, list or dict of tensors, as a
 initial carry: each step's new carry is cast to them (torch widens an
 int32 sum to int64 where jnp keeps int32).
 
-`as_flow()` turns the pipeline into an operator of the host stream DSL,
-which is not ported yet (ROADMAP A12.5): it raises.
+`as_flow()` turns the pipeline into an operator of the host stream DSL
+(ROADMAP A12.5): a `Flow().map` that runs the same step per element, a
+CUDA-graph replay on a card, and threads the carry across elements.
 """
 
 from __future__ import annotations
@@ -311,8 +312,18 @@ class DevicePipeline:
 
     # -- host-stream integration ---------------------------------------------
     def as_flow(self):
-        """A Flow operator running this pipeline per stream element. Needs
-        the host stream DSL, which is not ported yet (ROADMAP A12.5)."""
-        raise NotImplementedError(
-            "DevicePipeline.as_flow needs the stream DSL, which lands with "
-            "ROADMAP A12.5")
+        """A Flow operator running this pipeline per stream element (each
+        element is one chunk, moved to the pipeline's device); emits
+        (out_chunk, mask) pairs. The carry is threaded across elements, a
+        stateful fused stage. The step is `compile()`'s, as `run` uses it:
+        a CUDA graph replay on a card, the eager chain only on the CPU or
+        in an eager twin."""
+        from .dsl import Flow
+        step = self.compile()
+        state = {"carry": self._initial_carry()}
+
+        def apply(chunk):
+            x = torch.as_tensor(chunk, device=self.device)
+            state["carry"], (out, mask) = step(state["carry"], x)
+            return out, mask
+        return Flow().map(apply)

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --remote-phase N   # remote_paths alone, N times
     python3 chip_smoke.py --ddata-phase N    # ddata_paths alone, N times
     python3 chip_smoke.py --sharding-phase N # sharding_paths alone, N times
+    python3 chip_smoke.py --stream-phase N   # stream_paths alone, N times
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the
    ring-mailbox kernels from akka_tpu_torch/csrc (nvcc, sm_90a).
@@ -364,6 +365,30 @@ phase's systems, and their graph pools, are freed before the next.
    inbox. It prints asks/s and ask p50/p99 ms per leg, the hand-off
    seconds, the remembered restarts and the card's busy ms; the phase
    must finish within 60 s. `--sharding-phase N` runs it alone.
+20. The stream DSL in front of the device tier (stream_paths, ROADMAP
+   A12.5, the core), one ActorSystem hosting the streams' interpreter
+   actors. stream_region: gateway_region(0)'s full-width counter region
+   (K1) behind RegionBackend(continuous=True, pipeline_depth=4);
+   Source.from_iterable of 34 waves of 256 adds -> map_async(4, a wave
+   staged through ask_many_async, a Future completed by its on_done) ->
+   Sink.fold: the replies in element order, each the oracle's running
+   total; a second run of 32 waves through KillSwitches.single(), shut
+   down once 8 waves are answered: every wave that passed the switch is
+   answered and the region's totals hold exactly those. stream_ask:
+   actor_ask's 4096 counters (2^20 rows, 4 bounded slots: K2) asked
+   from a stream, 8192 elements through map_async(256, tell + ask) with
+   a row's asks never in flight together, then Flow().ask(8, ref) of
+   1024 adds on one ref of a dispatcher with 8 slots and 8 emissions a
+   row (ask_log: each reply the running total after its add); every
+   reply equals the oracle, K2 once a step. stream_pipeline:
+   device_pipeline's chain over its 64 chunks through
+   Source.from_iterable(chunks).via(pipe.as_flow()) into Sink.seq, each
+   (out, mask) and the final carry bit-equal to run(); ms per chunk of
+   both in 3 interleaved pairs. It prints waves/s and adds/s, asks/s
+   with p50/p99, and ms per chunk; K1 and K2 are held to their plain
+   versions on the fullest inboxes (K2 at both dispatchers' shapes,
+   S = 4 and S = 8); the phase must finish within 60 s.
+   `--stream-phase N` runs it alone.
 
 Any failure raises and the exit code is non-zero. The last lines are the
 kernel report (JSON, one row per kernel and payload dtype; `ms` and the
@@ -408,7 +433,8 @@ from akka_tpu_torch.event.flight_recorder import (InMemoryFlightRecorder,
                                                   start_trace, stop_trace)
 from akka_tpu_torch.event.metrics import MetricsRegistry
 from akka_tpu_torch.event.tracing import Tracer
-from akka_tpu_torch.gateway import GatewayClient, counter_behavior
+from akka_tpu_torch.gateway import (GatewayClient, RegionBackend,
+                                    counter_behavior)
 from akka_tpu_torch.models.baseline_benches import (PAYLOAD_W,
                                                     build_cross_shard,
                                                     build_cross_shard_slots,
@@ -442,6 +468,7 @@ from akka_tpu_torch.sharding import (AskBatcher, ClusterShardingTyped,
                                      EntityTypeKey, GetShardRegionState,
                                      StartEntity,
                                      make_default_extract_shard_id)
+from akka_tpu_torch import stream as st
 from akka_tpu_torch.stream import DevicePipeline
 from akka_tpu_torch.testkit import TestProbe
 from akka_tpu_torch.testkit.chaos import CRASH_SALT, chaos_hit_np, inject
@@ -2515,27 +2542,36 @@ def ping_pong(launches: dict) -> None:
         leg["count"].report(name, None, launches)
 
 
+def pipe_chain(device: str = "cuda") -> DevicePipeline:
+    """device_pipeline's chain: map -> filter -> map -> scan, the scan
+    carrying the kept-lane count and the running max."""
+    return (DevicePipeline(device=device)
+            .map(lambda x: x * 3.0 - 1.0)
+            .filter(lambda x: x > 0.5)
+            .map(lambda x: x * 0.5)
+            .scan(lambda c, x: ((c[0] + (x != 0).sum(),
+                                 torch.maximum(c[1], x.max())),
+                                x + c[0].to(torch.float32)),
+                  (torch.tensor(0, dtype=torch.int32),
+                   torch.tensor(0.0))))
+
+
+def pipe_chunks(device: str = "cuda") -> torch.Tensor:
+    """device_pipeline's input: PIPE_CHUNKS stacked chunks of PIPE_LEN
+    float32 normals (seed 7)."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    return torch.randn((PIPE_CHUNKS, PIPE_LEN), generator=gen,
+                       device=device)
+
+
 def pipeline_paths(launches: dict) -> None:
     """device_pipeline: map -> filter -> map -> scan over PIPE_CHUNKS
     stacked chunks of PIPE_LEN float32 on the card, as CUDA-graph replays
     (one capture) against the same chain run eagerly, PAIRS interleaved
     pairs: outputs, masks and the carry bit-equal, and compact() equal to
     a numpy oracle of the chain. Prints ms per chunk for both."""
-    def build():
-        return (DevicePipeline(device="cuda")
-                .map(lambda x: x * 3.0 - 1.0)
-                .filter(lambda x: x > 0.5)
-                .map(lambda x: x * 0.5)
-                .scan(lambda c, x: ((c[0] + (x != 0).sum(),
-                                     torch.maximum(c[1], x.max())),
-                                    x + c[0].to(torch.float32)),
-                      (torch.tensor(0, dtype=torch.int32),
-                       torch.tensor(0.0))))
-
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    chunks = torch.randn((PIPE_CHUNKS, PIPE_LEN), generator=gen,
-                         device="cuda")
-    g, e = build(), build()
+    chunks = pipe_chunks()
+    g, e = pipe_chain(), pipe_chain()
     e._eager = True
     count = Launches()
     t0 = time.perf_counter()
@@ -5120,6 +5156,395 @@ def sharding_phase_only(runs: int, smi: str) -> int:
     return 0
 
 
+# ------------------------------------------- the stream DSL on the card
+ST_PHASE_S = 60.0           # the phase's limit
+ST_CONC = 4                 # stream_region's waves in flight (map_async)
+ST_CUT = 8                  # stream_region's cut run: replies before the cut
+ST_ONE_PAR = 8              # stream_ask's single-ref Flow.ask parallelism
+ST_ONE_ASKS = 1024          # asks of the single-ref leg
+ST_ASK_SEED, ST_WAVE_SEED = 29, 17
+# the single-ref leg's dispatcher: as many bounded slots and emissions a
+# row as the Flow.ask's parallelism, so that every ask in flight lands in
+# a slot of one step and gets its own reply (K2)
+ST_ONE_DISPATCHER = {"type": "tpu-batched", "capacity": 4096,
+                     "payload-width": PAYLOAD_W, "mailbox-slots": ST_ONE_PAR,
+                     "out-degree": ST_ONE_PAR, "spill-capacity": 0,
+                     "promise-rows": 256, "host-inbox": 4096,
+                     "pipeline-depth": 4}
+
+
+@behavior("ask_log", {"total": ((), torch.float32)}, inbox="slots")
+def ask_log(state, mailbox, ctx):
+    """Adds each message's payload[0] to the total in slot (arrival)
+    order and replies to each message's reply row with the total after
+    it: one emission a slot."""
+    n, slots = mailbox.valid.shape
+    dev = ctx.actor_id.device
+    total = state["total"]
+    dst = torch.full((n, slots), -1, dtype=torch.int32, device=dev)
+    pay = torch.zeros((n, slots, mailbox.payload.shape[-1]), device=dev)
+    for j in range(slots):
+        v = mailbox.valid[:, j]
+        total = torch.where(v, total + mailbox.payload[:, j, 0], total)
+        dst[:, j] = torch.where(v, reply_dst(mailbox.payload[:, j]), -1)
+        pay[:, j, 0] = total
+    return {"total": total}, Emit(dst=dst, payload=pay, valid=dst >= 0,
+                                  type=torch.zeros_like(dst))
+
+
+def wave_entry(backend):
+    """A stream element (one wave of (entity, add) pairs) staged through
+    the gateway's async wave entry, RegionBackend.ask_many_async, on the
+    calling thread; the Future completes on the scheduler thread at the
+    wave's resolve boundary with the outcomes in the wave's order."""
+    def wave(asks) -> Future:
+        fut: Future = Future()
+        backend.ask_many_async([n for n, _ in asks], [v for _, v in asks],
+                               None, lambda out, _seqs: fut.set_result(out))
+        return fut
+    return wave
+
+
+def hold_waves(label: str, trace, replies, oracle: dict) -> None:
+    """Each wave's replies, in element order, against the oracle's running
+    totals in staging order (which it advances)."""
+    check(len(replies) == len(trace), f"{label}: {len(replies)} of "
+          f"{len(trace)} waves answered")
+    for asks, out in zip(trace, replies):
+        for (n, v), o in zip(asks, out):
+            check(not isinstance(o, BaseException), f"{label}: {o!r}")
+            oracle[n] = oracle.get(n, 0.0) + v
+            check(o == oracle[n], f"{label}: reply {o} == oracle "
+                  f"{oracle[n]} for {n}")
+
+
+def stream_region(system, launches: dict, flat: dict) -> None:
+    """stream_region: gateway_region(0)'s full-width counter region (K1)
+    behind RegionBackend(continuous=True, pipeline_depth=4); a
+    Source.from_iterable of make_trace's WAVES + 2 waves of 256 adds goes
+    through map_async(ST_CONC, wave_entry) into Sink.fold. The replies
+    must come out in element order, each equal to the oracle's running
+    total. A second run of WAVES waves goes through
+    KillSwitches.single() before the map_async; the switch is shut down
+    once ST_CUT waves are answered: every wave that passed it is
+    answered, and the region's totals hold exactly those waves."""
+    label = "stream_region"
+    region = gateway_region(0)
+    region.system.warmup()
+    backend = RegionBackend(region, continuous=True, pipeline_depth=4)
+    wave = wave_entry(backend)
+    oracle: dict = {}
+    try:
+        trace = make_trace(ST_WAVE_SEED)
+        count = Launches()
+        s0 = region.system._host_step
+
+        def whole():
+            out = st.Source.from_iterable(trace) \
+                .map_async(ST_CONC, wave) \
+                .run_with(st.Sink.fold([], lambda acc, o: acc + [o]),
+                          system).result(ACTOR_TIMEOUT)
+            check(backend.batcher.quiesce(ACTOR_TIMEOUT),
+                  f"{label}: quiesce")
+            return out
+        with StepProbe(region.system, True, *DD_PROBE) as probe:
+            t0 = time.perf_counter()
+            replies = count(whole)
+            wall = time.perf_counter() - t0
+        steps = region.system._host_step - s0
+        hold_waves(label, trace, replies, oracle)
+        adds = sum(len(w) for w in trace)
+        print(f"{label} waves {len(trace)} waves_per_s {len(trace) / wall} "
+              f"adds_per_s {adds / wall} steps {steps} busy_ms "
+              f"{probe.busy_ms} wall_ms {wall * 1e3} (host clock; CUDA "
+              f"events around each run)")
+
+        # the cut: the switch sits before the map_async, so every wave
+        # that passed it is staged and answered before the stream ends
+        cut = make_trace(ST_WAVE_SEED + 1, WAVES)
+        got, enough = [], threading.Event()
+
+        def on_reply(out):
+            got.append(out)
+            if len(got) >= ST_CUT:
+                enough.set()
+
+        def cut_run():
+            switch, done = st.Source.from_iterable(cut) \
+                .via_mat(st.KillSwitches.single(), st.Keep.right) \
+                .map_async(ST_CONC, wave) \
+                .to_mat(st.Sink.foreach(on_reply), st.Keep.both) \
+                .run(system)
+            check(enough.wait(ACTOR_TIMEOUT), f"{label}: {ST_CUT} waves "
+                  f"answered before the cut")
+            at_cut = len(got)
+            switch.shutdown()
+            done.result(ACTOR_TIMEOUT)
+            check(backend.batcher.quiesce(ACTOR_TIMEOUT),
+                  f"{label}: quiesce after the cut")
+            return at_cut
+        s1 = region.system._host_step
+        at_cut = count(cut_run)
+        steps += region.system._host_step - s1
+        passed = len(got)
+        check(ST_CUT <= at_cut <= passed < len(cut), f"{label}: the cut "
+              f"ends the stream ({at_cut} answered at the cut, {passed} "
+              f"passed the switch, of {len(cut)})")
+        hold_waves(label + " cut", cut[:passed], got, oracle)
+        names = sorted(oracle)
+        rows = np.asarray([region.entity_ref(n).row for n in names])
+        totals = region.system.read_state("total", rows)
+        check(all(float(t) == oracle[n] for t, n in zip(totals, names)),
+              f"{label}: every touched row == the oracle ({len(names)} "
+              f"entities)")
+        check(backend.sum_all() == sum(oracle.values()), f"{label}: "
+              f"sum_all == the oracle's sum (no wave after the cut)")
+        print(f"{label} cut answered_at_cut {at_cut} passed {passed} of "
+              f"{len(cut)}")
+        count.report(label, "ring_reduce", launches, steps)
+        check(probe.rows > 0 and int(probe.inputs[0][3].sum()) > 0,
+              f"{label}: K1's input carries messages ({probe.rows} rows)")
+        print(f"{label} kernel_input live_rows {probe.rows} of "
+              f"{probe.inputs[0][0].shape[0]}")
+        flat[label] = ("K1", probe.inputs, SLOTS)
+    finally:
+        backend.close()
+    del region, backend
+    free()
+
+
+def stream_ask(system, launches: dict, flat: dict) -> None:
+    """stream_ask: actor_ask's block (ASK_ACTORS slots counters on a
+    tpu-batched dispatcher of 2^20 rows, ASK_SLOTS bounded slots: K2)
+    asked from a stream: ASK_ROUNDS * ASK_CONC elements (row, add)
+    through map_async(ASK_CONC, tell the add, then ask(refs[row], GET)),
+    Flow.ask's own body over many refs; any ASK_ACTORS consecutive
+    elements name distinct rows, so a row has one ask in flight. Then
+    Flow().ask(ST_ONE_PAR, ref) of ST_ONE_ASKS adds on one ref (ask_log,
+    on a dispatcher with ST_ONE_PAR slots and emissions a row): each
+    reply is the running total after its add. Every reply equals the
+    oracle, and K2 launches once a step of each dispatcher. One more
+    untimed window of each (a sync a step) gives K2's inputs at both
+    shapes: ASK_SLOTS slots (stream_ask) and ST_ONE_PAR (stream_ask_one)."""
+    label = "stream_ask"
+    block = system.actor_of(device_props(
+        slots_counter, n=ASK_ACTORS,
+        dispatcher="akka.actor.stream-ask-dispatcher"), "stream-counters")
+    refs = [block[i] for i in range(ASK_ACTORS)]
+    one = system.actor_of(device_props(
+        ask_log, n=1, dispatcher="akka.actor.stream-one-dispatcher"),
+        "stream-log")
+    h = get_handle(system, "akka.actor.stream-ask-dispatcher")
+    h1 = get_handle(system, "akka.actor.stream-one-dispatcher")
+    check(h.runtime.spill_cap == 0 and h1.runtime.spill_cap == 0,
+          f"{label}: bounded slots mailboxes (K2)")
+    rng = np.random.default_rng(ST_ASK_SEED)
+    n_el = ASK_ROUNDS * ASK_CONC
+    rows = rng.permutation(ASK_ACTORS)[np.arange(n_el) % ASK_ACTORS]
+    vals = rng.integers(1, 100, n_el).astype(np.float64)
+    oracle = np.zeros(ASK_ACTORS)
+    want = []
+    for r, v in zip(rows, vals):
+        oracle[r] += v
+        want.append(oracle[r])
+    one_vals = rng.integers(1, 100, ST_ONE_ASKS).astype(np.float64)
+    one_more = rng.integers(1, 100, ST_ONE_PAR * 4).astype(np.float64)
+    lat: list = []
+
+    def ask_one(e):
+        r, v = e
+        refs[r].tell((ADD, [v]))
+        t = time.perf_counter()
+        f = ask(refs[r], (GET, [0.0]), ACTOR_TIMEOUT)
+        f.add_done_callback(
+            lambda _f, t=t: lat.append(time.perf_counter() - t))
+        return f
+
+    def one_ref(vals):
+        return st.Source.from_iterable([(ADD, [v]) for v in vals]) \
+            .via(st.Flow().ask(ST_ONE_PAR, one, ACTOR_TIMEOUT)) \
+            .run_with(st.Sink.seq(), system).result(ACTOR_TIMEOUT * 4)
+
+    def drive():
+        with StepProbe(h.runtime) as probe:
+            t0 = time.perf_counter()
+            got = st.Source.from_iterable(
+                list(zip(rows.tolist(), vals.tolist()))) \
+                .map_async(ASK_CONC, ask_one) \
+                .run_with(st.Sink.seq(), system).result(ACTOR_TIMEOUT * 4)
+            wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got1 = one_ref(one_vals)
+        wall1 = time.perf_counter() - t0
+        # K2's inputs: the fullest inbox of one more window of asks on
+        # each dispatcher
+        with StepProbe(h.runtime, live=True) as live:
+            extra = rng.permutation(ASK_ACTORS)[:ASK_CONC]
+            st.Source.from_iterable([(int(r), 1.0) for r in extra]) \
+                .map_async(ASK_CONC, ask_one) \
+                .run_with(st.Sink.ignore(), system).result(ACTOR_TIMEOUT)
+            oracle[extra] += 1.0
+        with StepProbe(h1.runtime, live=True) as live1:
+            got1 += one_ref(one_more)
+        return got, wall, got1, wall1, probe, live, live1
+
+    (got, wall, got1, wall1, probe, live, live1), steps, count = \
+        handles_window([h, h1], drive)
+    bad = [(i, g[0], w) for i, (g, w) in enumerate(zip(got, want))
+           if g[0] != w]
+    check(len(got) == n_el and not bad, f"{label}: every reply equals the "
+          f"oracle, in element order ({bad[:4]})")
+    run = np.cumsum(np.concatenate([one_vals, one_more]))
+    bad1 = [(i, g[0], w) for i, (g, w) in enumerate(zip(got1, run))
+            if g[0] != w]
+    check(len(got1) == len(run) and not bad1, f"{label}: Flow.ask on "
+          f"one ref: every reply is the running total ({bad1[:4]})")
+    check(np.array_equal(block.read_state("count"),
+                         oracle.astype(np.float32)),
+          f"{label}: every counter equals the oracle")
+    for hh in (h, h1):
+        check(hh.ask_pool_stats()["in_flight"] == 0,
+              f"{label}: no ask left in flight")
+    print(f"{label} asks_per_s {n_el / wall} ask {json.dumps(pcts_us(lat))} "
+          f"steps {steps[0]} busy_ms {probe.busy_ms} wall_ms {wall * 1e3}")
+    print(f"{label} one_ref asks_per_s {ST_ONE_ASKS / wall1} parallelism "
+          f"{ST_ONE_PAR} steps {steps[1]}")
+    count.report(label, "ring_slots", launches, sum(steps))
+    for key, lv, slots in ((label, live, ASK_SLOTS),
+                           (label + "_one", live1, ST_ONE_PAR)):
+        inputs, n = lv.inputs
+        check(lv.rows > 0 and int(inputs[3].sum()) > 0,
+              f"{key}: K2's input carries messages ({lv.rows} rows)")
+        print(f"{key} kernel_input live_rows {lv.rows} of "
+              f"{inputs[0].shape[0]} slots {slots}")
+        flat[key] = ("K2", (inputs, n), slots)
+
+
+def stream_pipeline(system, launches: dict, device: str = "cuda") -> None:
+    """stream_pipeline: device_pipeline's chain over its PIPE_CHUNKS chunks
+    as Source.from_iterable(chunks).via(pipe.as_flow()) into Sink.seq:
+    every (out, mask) and the final carry (the captured step's carry
+    buffer after the last element) bit-equal to pipe.run(chunks) of the
+    same chain on the same card. Prints ms per chunk of the stream and of
+    run() (host clock, a sync after each), beside device_pipeline's."""
+    label = "stream_pipeline"
+    chunks = pipe_chunks(device)
+    flow_pipe, run_pipe = pipe_chain(device), pipe_chain(device)
+    count = Launches()
+
+    def through():
+        out = st.Source.from_iterable(chunks).via(flow_pipe.as_flow()) \
+            .run_with(st.Sink.seq(), system).result(ACTOR_TIMEOUT)
+        torch.cuda.synchronize()
+        return out
+
+    def ran():
+        res = run_pipe.run(chunks)
+        torch.cuda.synchronize()
+        return res
+    t0 = time.perf_counter()
+    out = count(through)     # the first element captures
+    first_s = time.perf_counter() - t0
+    ref = ran()
+    times = {"stream": [], "run": []}
+    for _ in range(PAIRS):
+        for mode, fn in (("stream", through), ("run", ran)):
+            t0 = time.perf_counter()
+            res = count(fn)
+            times[mode].append((time.perf_counter() - t0) * 1e3
+                               / PIPE_CHUNKS)
+            if mode == "stream":
+                out = res
+    step = flow_pipe.compile()
+    if device == "cuda":
+        check(step.captures == 1, f"{label}: one capture "
+              f"({step.captures})")
+        (slot,) = step.slots.values()
+        carry = slot.carry
+    else:
+        carry = None
+    ro, rm, (rc, rx) = ref
+    check(len(out) == PIPE_CHUNKS, f"{label}: {len(out)} elements")
+    check(all(torch.equal(o, ro[i]) and torch.equal(m, rm[i])
+              for i, (o, m) in enumerate(out)),
+          f"{label}: every (out, mask) bit-equal to run()")
+    if carry is not None:
+        check(torch.equal(carry[0], rc) and torch.equal(carry[1], rx),
+              f"{label}: the final carry bit-equal to run()'s")
+    for mode, ts in times.items():
+        print(f"{label} {mode} ms_per_chunk {float(np.median(ts))} pairs "
+              f"{ts}")
+    print(f"{label} first_run_s {first_s} (the capture included)")
+    count.report(label, None, launches)
+    del chunks, flow_pipe, run_pipe, out, ref
+    free()
+
+
+def stream_paths(launches: dict, device: str = "cuda") -> dict:
+    """stream_paths (ROADMAP A12.5, the core): stream_region,
+    stream_ask and stream_pipeline in one ActorSystem, whose default
+    dispatcher hosts the streams' interpreter actors; returns the K1 and
+    K2 delivery inputs by label."""
+    extra = {"device": "cpu"} if device == "cpu" else {}
+    cfg = {"akka": {"stdout-loglevel": "OFF", "log-dead-letters": 0,
+                    "actor": {
+                        "stream-ask-dispatcher": {**ASK_DISPATCHER,
+                                                  **extra},
+                        "stream-one-dispatcher": {**ST_ONE_DISPATCHER,
+                                                  **extra}}}}
+    flat: dict = {}
+    # what earlier phases left in the process: its threads and the
+    # objects the collector tracks
+    print(f"stream_paths threads_at_start {threading.active_count()} "
+          f"gc_objects {len(gc.get_objects())}")
+    t_phase = time.perf_counter()
+    system = ActorSystem.create("stream-paths", cfg)
+    try:
+        for label, leg in (("stream_region", stream_region),
+                           ("stream_ask", stream_ask)):
+            t0 = time.perf_counter()
+            leg(system, launches, flat)
+            print(f"{label} phase_s {time.perf_counter() - t0}")
+        t0 = time.perf_counter()
+        stream_pipeline(system, launches, device)
+        print(f"stream_pipeline phase_s {time.perf_counter() - t0}")
+    finally:
+        system.terminate()
+        check(system.await_termination(ACTOR_TIMEOUT),
+              "stream_paths: the system terminated")
+    del system
+    free()
+    print(f"stream_paths phase_s {time.perf_counter() - t_phase}")
+    return flat
+
+
+def stream_phase_only(runs: int, smi: str) -> int:
+    """`python3 chip_smoke.py --stream-phase N`: stream_paths alone, N
+    times in one process, every check as in the whole run and K1 and K2
+    held to their plain versions on each run's fullest inboxes. The last
+    line is {"stream_phase_s": [...]}."""
+    lib = cm.build()
+    times = []
+    for r in range(runs):
+        launches: Dict[str, dict] = {}
+        t0 = time.perf_counter()
+        flat = stream_paths(launches)
+        times.append(time.perf_counter() - t0)
+        check(times[-1] < ST_PHASE_S, f"stream_paths run {r}: "
+              f"{times[-1]} s, more than {ST_PHASE_S}")
+        for label, (k, (inputs, n), slots) in flat.items():
+            row = kernel_rows(label, inputs, n, lib, kernels=(k,),
+                              slots=slots)[k]
+            print(f"stream_phase_run {r} {label} {k} {json.dumps(row)}")
+        print(f"stream_phase_run {r} stream_phase_s {times[-1]} launches "
+              f"{json.dumps(launches)}")
+    print(smi)
+    print(json.dumps({"stream_phase_s": times}))
+    return 0
+
+
+
+
 def path_dtype(label: str) -> str:
     """The payload dtype of a path's system, by the path's name."""
     for name in ("int32", "bf16"):
@@ -5144,6 +5569,8 @@ def main() -> int:
         return ddata_phase_only(int(sys.argv[2]), smi)
     if sys.argv[1:2] == ["--sharding-phase"]:
         return sharding_phase_only(int(sys.argv[2]), smi)
+    if sys.argv[1:2] == ["--stream-phase"]:
+        return stream_phase_only(int(sys.argv[2]), smi)
 
     t0 = time.perf_counter()
     rows, typed = kernel_phase(lib)
@@ -5197,6 +5624,12 @@ def main() -> int:
     print(f"sharding_phase_s {phase_s}")
     check(phase_s < SH_PHASE_S, f"sharding_paths: {phase_s} s, more "
           f"than {SH_PHASE_S}")
+    t0 = time.perf_counter()
+    stream = stream_paths(launches)
+    phase_s = time.perf_counter() - t0
+    print(f"stream_phase_s {phase_s}")
+    check(phase_s < ST_PHASE_S, f"stream_paths: {phase_s} s, more than "
+          f"{ST_PHASE_S}")
     # both kernels at the shapes the new paths gave them
     t0 = time.perf_counter()
     for label, flat in (("sharded_d8", sharded), ("region", region),
@@ -5206,13 +5639,14 @@ def main() -> int:
             rows.setdefault(label, {})[k] = kernel_rows(
                 label, inputs, n, lib, kernels=(k,))[k]
     for label, (k, (inputs, n), slots) in {**actor, **ledgers, **remote,
-                                           **ddata, **sharding}.items():
+                                           **ddata, **sharding,
+                                           **stream}.items():
         dtype = path_dtype(label)
         table = rows if dtype == "float32" else typed[dtype]
         table.setdefault(label, {})[k] = kernel_rows(
             label, inputs, n, lib, kernels=(k,), slots=slots)[k]
     del sharded, region, gateway, actor, router, failover, ranks, ledgers
-    del remote, ddata, sharding
+    del remote, ddata, sharding, stream
     print(f"path_kernels_s {time.perf_counter() - t0}")
 
     entry = {"K1": ("ring_reduce", "_run(with_slots=False)"),

@@ -593,3 +593,54 @@ def test_concurrent_continuous_asks_linearized_and_conserved():
         assert sorted(diffs) == sorted(sent[r.row])
         assert total(region, r) - before[r.row] == sum(sent[r.row]) \
             == chain[-1]
+
+
+@pytest.mark.parametrize("engine", ["continuous", "serialized"])
+def test_a_round_stages_no_more_tells_than_its_host_rows(engine):
+    """400 asks to 400 distinct entities staged for one round: 400 tells
+    for a one-shard system whose flush holds 256 host rows. Continuous:
+    two async waves of 200, both submitted before the scheduler's first
+    round (the region's ask lock held). Serialized: one region.ask_many
+    of 400. The reference stages them all, the flush skips 144, and
+    those asks time out; the port keeps the asks past the host rows for
+    the next round, and every ask is answered (ROADMAP C)."""
+    outs = {}
+    for name, entity, region_cls, counter, batcher_cls, kw in (
+            ("ref", JEntity, JRegion, j_counter, JBatcher, {}),
+            ("port", TEntity, TRegion, t_counter, TBatcher,
+             {"device": "cpu"})):
+        region = region_cls(entity(
+            "rows", counter(P), n_shards=2, entities_per_shard=512,
+            n_devices=1, payload_width=P, spare_blocks=2), **kw)
+        assert region.system.host_inbox == 256
+        rs = [region.entity_ref(f"hr-{i}") for i in range(400)]
+        asks = [(r.shard, r.index, [1.0]) for r in rs]
+        if engine == "serialized":
+            outs[name] = region.ask_many(asks)
+            continue
+        waves = [asks[k:k + 200] for k in (0, 200)]
+        batcher = batcher_cls(region, max_batch=256, continuous=True,
+                              pipeline_depth=4)
+        done = [threading.Event() for _ in waves]
+        got = [None] * len(waves)
+
+        def on_done(k):
+            def cb(outcomes, seqs):
+                got[k] = list(outcomes)
+                done[k].set()
+            return cb
+        try:
+            with region._ask_lock:
+                for k, w in enumerate(waves):
+                    batcher.ask_many_async(w, on_done=on_done(k))
+            for ev in done:
+                assert ev.wait(WAIT_S)
+            assert batcher.quiesce(WAIT_S)
+        finally:
+            batcher.close()
+        outs[name] = [o for w in got for o in w]
+    lost = [o for o in outs["ref"] if isinstance(o, TimeoutError)]
+    assert len(lost) == 400 - 256
+    assert len(outs["port"]) == 400
+    assert all(not isinstance(o, BaseException) and float(o[0]) == 1.0
+               for o in outs["port"])

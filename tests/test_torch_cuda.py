@@ -1421,3 +1421,114 @@ def test_event_sourced_behavior_over_device_counters_recovers(card,
     finally:
         system.terminate()
         assert system.await_termination(10.0)
+
+
+# ------------------------------------------- the stream DSL on the card
+
+def _stream_system(name, dispatchers=None):
+    from akka_tpu_torch import ActorSystem
+    return ActorSystem.create(name, {"akka": {
+        "stdout-loglevel": "OFF", "log-dead-letters": 0,
+        "actor": dict(dispatchers or {})}})
+
+
+def test_device_pipeline_as_flow_on_the_card_matches_run(card):
+    """`as_flow` of a CUDA pipeline runs each element as a replay of the
+    pipeline's captured step (one capture, nothing eager, nothing on the
+    CPU): every (out, mask) and the final carry bit-equal to `run` of the
+    same chain on the same chunks."""
+    from akka_tpu_torch.stream import Sink, Source
+
+    chunks = torch.randn((6, 4096), generator=torch.Generator(
+        device="cuda").manual_seed(2), device=card)
+    flow_pipe, run_pipe = _chain(card), _chain(card)
+    system = _stream_system("as-flow-cuda")
+    try:
+        got = Source.from_iterable(chunks).via(flow_pipe.as_flow()) \
+            .run_with(Sink.seq(), system).result(10.0)
+    finally:
+        system.terminate()
+        assert system.await_termination(10.0)
+    ro, rm, (rc, rx) = run_pipe.run(chunks)
+    assert len(got) == 6
+    for i, (o, m) in enumerate(got):
+        assert o.is_cuda and m.is_cuda
+        assert torch.equal(o, ro[i]) and torch.equal(m, rm[i]), i
+    step = flow_pipe.compile()
+    assert step.captures == 1
+    ((c_n, c_max),) = [s.carry for s in step.slots.values()]
+    assert torch.equal(c_n, rc) and torch.equal(c_max, rx)
+
+
+def _ask_log():
+    from akka_tpu_torch.batched import Emit, behavior, reply_dst
+
+    @behavior("ask_log", {"total": ((), torch.float32)}, inbox="slots")
+    def ask_log(state, mailbox, ctx):
+        """Each message adds payload[0] in slot order; each gets its own
+        reply, the total after it."""
+        n, slots = mailbox.valid.shape
+        dev = ctx.actor_id.device
+        total = state["total"]
+        dst = torch.full((n, slots), -1, dtype=torch.int32, device=dev)
+        pay = torch.zeros((n, slots, tbb.PAYLOAD_W), device=dev)
+        for j in range(slots):
+            v = mailbox.valid[:, j]
+            total = torch.where(v, total + mailbox.payload[:, j, 0], total)
+            dst[:, j] = torch.where(v, reply_dst(mailbox.payload[:, j]), -1)
+            pay[:, j, 0] = total
+        return {"total": total}, Emit(dst=dst, payload=pay, valid=dst >= 0,
+                                      type=torch.zeros_like(dst))
+    return ask_log
+
+
+def test_flow_ask_of_a_cuda_device_block_matches_the_oracle(card):
+    """A stream asks device actors on the card (bounded slots: K2): map_async
+    of a tell and an ask over 64 counters (Flow.ask's body over many refs;
+    a row's asks never in flight together), then Flow().ask(4, ref) on one
+    row whose behavior answers every message of a step. Every reply
+    equals the host oracle in element order, and K2 launched."""
+    from akka_tpu_torch.batched import device_props
+    from akka_tpu_torch.pattern.ask import ask
+    from akka_tpu_torch.stream import Flow, Sink, Source
+
+    base = {"type": "tpu-batched", "capacity": 4096,
+            "payload-width": tbb.PAYLOAD_W, "spill-capacity": 0,
+            "promise-rows": 64, "host-inbox": 1024}
+    system = _stream_system("flow-ask-cuda", {
+        "many-dispatcher": {**base, "mailbox-slots": 2},
+        "one-dispatcher": {**base, "mailbox-slots": 4, "out-degree": 4}})
+    rng = np.random.default_rng(8)
+    rows = np.tile(rng.permutation(64), 4)  # a row every 64 elements
+    vals = rng.integers(1, 50, rows.shape[0]).astype(np.float64)
+    oracle, want = np.zeros(64), []
+    for r, v in zip(rows, vals):
+        oracle[r] += v
+        want.append(oracle[r])
+    one_vals = rng.integers(1, 50, 40).astype(np.float64)
+    try:
+        block = system.actor_of(device_props(
+            _es_counter(), n=64, dispatcher="akka.actor.many-dispatcher"),
+            "counters")
+        one = system.actor_of(device_props(
+            _ask_log(), n=1, dispatcher="akka.actor.one-dispatcher"), "log")
+        cm.reset_launches()
+
+        def tell_ask(e):
+            r, v = e
+            block[r].tell((ES_ADD, [v]))
+            return ask(block[r], (ES_GET, [0.0]), 10.0)
+        got = Source.from_iterable(list(zip(rows.tolist(), vals.tolist()))) \
+            .map_async(16, tell_ask).run_with(Sink.seq(), system) \
+            .result(10.0)
+        assert [float(g[0]) for g in got] == want
+        got1 = Source.from_iterable([(ES_ADD, [v]) for v in one_vals]) \
+            .via(Flow().ask(4, one, 10.0)).run_with(Sink.seq(), system) \
+            .result(10.0)
+        assert [float(g[0]) for g in got1] == np.cumsum(one_vals).tolist()
+        assert cm.LAUNCHES["ring_slots"] > 0
+        np.testing.assert_array_equal(block.read_state("count"),
+                                      oracle.astype(np.float32))
+    finally:
+        system.terminate()
+        assert system.await_termination(10.0)

@@ -98,11 +98,31 @@ def test_tuple_and_dict_carries_match_the_reference(path):
 
 
 def test_one_scan_per_pipeline_and_as_flow_waits_for_a12_5():
-    pipe = TPipe(device="cpu").scan(lambda c, x: (c, x), torch.tensor(0))
+    """One scan per pipeline; `as_flow` (the stream DSL of ROADMAP A12.5)
+    on the CPU emits what `run` returns, chunk by chunk, with the carry
+    threaded across elements."""
+    from akka_tpu_torch import ActorSystem
+    from akka_tpu_torch.stream import Sink, Source
+
+    pipe = TPipe(device="cpu").scan(lambda c, x: (c + x.sum(), x + c),
+                                    torch.tensor(0, dtype=torch.int32))
     with pytest.raises(ValueError, match="one scan"):
         pipe.scan(lambda c, x: (c, x), torch.tensor(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12.5"):
-        pipe.as_flow()
+    chunks = [np.arange(i, i + 4, dtype=np.int32) for i in range(0, 12, 4)]
+    outs, masks, carry = pipe.run(chunks)
+    system = ActorSystem.create("as-flow", {"akka": {
+        "stdout-loglevel": "OFF", "log-dead-letters": 0}})
+    try:
+        got = Source.from_iterable(chunks).via(pipe.as_flow()) \
+            .run_with(Sink.seq(), system).result(10.0)
+    finally:
+        system.terminate()
+        assert system.await_termination(10.0)
+    assert [o.tolist() for o, _ in got] == outs.tolist()
+    assert [m.tolist() for _, m in got] == masks.tolist()
+    assert all(o.dtype == torch.int32 and o.device.type == "cpu"
+               for o, _ in got)
+    assert int(carry) == 66
 
 
 def test_compiled_step_is_the_chain():

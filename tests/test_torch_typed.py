@@ -610,9 +610,10 @@ def test_topic_pubsub(systems):
 
 def test_actor_source_and_acked_sink():
     """ActorSource and ActorSink (the reference's akka_tpu/stream/typed.py)
-    stand on the stream DSL, which the port has not yet (ROADMAP A12.5):
-    the port has no stream-typed module and no Source."""
+    stand on the stream DSL's core, which the port has (ROADMAP A12.5,
+    part one); the stream-typed module itself comes with the rest of
+    A12.5, so the port has Source but no stream-typed module yet."""
     import akka_tpu_torch.stream as tstream
     assert importlib.util.find_spec("akka_tpu.stream.typed") is not None
     assert importlib.util.find_spec("akka_tpu_torch.stream.typed") is None
-    assert not hasattr(tstream, "Source")
+    assert hasattr(tstream, "Source")
