@@ -12,8 +12,8 @@ The planes, each its own module:
 - replica:    hot-entity read replica (local, or fed by ddata's replicator)
 - slo:        p50/p99 latency vs targets, error budget, per-tenant counters
 
-Not ported: the "stream" transport (it needs the stream layer's framing
-and TCP stages, the rest of ROADMAP A12.5).
+Both transports of the reference are ported: "stream" (a framed stage
+graph per connection over `stream/tcp.py`) and "evloop".
 """
 
 from .admission import (AdmissionController, AskPoolExhausted, Reject,

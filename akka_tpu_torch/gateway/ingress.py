@@ -1,10 +1,14 @@
 """Ingress: the framed-TCP front door onto sharded device entities.
 
-Port of `akka_tpu/gateway/ingress.py`. Two transports in the reference:
-"evloop" (selector loop threads, `gateway/evloop.py`) is ported;
-"stream" (a stream-stage graph per connection) needs the stream layer's
-framing and TCP stages, the rest of ROADMAP A12.5, so `start()` raises
-NotImplementedError for it, while in-proc use (`handle_frame`,
+Port of `akka_tpu/gateway/ingress.py`. Both transports of the reference
+are ported: "stream" (the default: a framed stage graph per connection
+over `stream/tcp.py`, which needs the `ActorSystem` the server was given;
+`start()` raises ValueError without one) and "evloop" (selector loop
+threads, `gateway/evloop.py`, no system needed). The stream transport
+binds the configured port once, port 0 included, and reads the bound
+address back from its `ServerBinding`; the reference picks a free port
+with a throwaway socket first and binds it again, a race. `stop()`
+unbinds and waits until nothing listens. In-proc use (`handle_frame`,
 `handle_frame_batch`, `submit_frames`) works with either setting. The
 admin op `checkpoint` snapshots the region (it needs the region's
 `attach_journal`), and a region restored before the gateway comes up
@@ -482,6 +486,7 @@ class GatewayServer:
         self.host = host
         self.port = port
         self.max_frame = max_frame
+        self._binding = None  # the stream transport's ServerBinding
         self._seq = 0
         self._registry = registry
         self.pipeline_depth = int(pipeline_depth)
@@ -514,10 +519,10 @@ class GatewayServer:
                 "gateway_decode_ns_per_frame",
                 "nanoseconds of wire decode per binary request record")
         # C1M front door: transport picks who owns the
-        # sockets — "stream" would materialize a per-connection stage
-        # graph (not ported: start() raises, ROADMAP A12), "evloop" runs
-        # ALL sockets on selector loop threads (evloop.EvLoopIngress).
-        # Both funnel frames into the same serve path.
+        # sockets — "stream" materializes a per-connection stage graph,
+        # "evloop" runs ALL sockets on selector loop threads
+        # (evloop.EvLoopIngress). Both funnel frames into the same serve
+        # path.
         self.transport = transport
         self.accept_shards = max(1, int(accept_shards))
         self._evloop = None
@@ -544,15 +549,50 @@ class GatewayServer:
                 idle_timeout_s=self.idle_timeout_s)
             self.host, self.port = self._evloop.start()
             return self.host, self.port
-        raise NotImplementedError(
-            "GatewayServer transport='stream' needs the stream layer's "
-            "framing and TCP stages, which are not ported yet (ROADMAP "
-            "A12.5); use transport='evloop'")
+        if self.system is None:
+            raise ValueError(
+                "GatewayServer transport='stream' runs its connections as "
+                "streams of an ActorSystem: pass the system, or use "
+                "transport='evloop'")
+        from ..stream.dsl import Keep, Sink
+        from ..stream.framing import Framing
+        from ..stream.tcp import Tcp
+        tcp = Tcp.get(self.system)
+
+        def handle(conn):
+            stage = Framing.simple_framing_protocol_decoder(self.max_frame)
+            if self.aggregator is not None:
+                # bounded per-connection pipelining: up to pipeline_depth
+                # frames of one socket in flight at the shared aggregator;
+                # MapAsync's ordered drain preserves per-connection reply
+                # order and its in-flight cap keeps the demand chain
+                # intact (a slow consumer still throttles its own socket)
+                cid = next(self._conn_ids)
+                stage = stage.map_async(
+                    self.pipeline_depth,
+                    lambda body, _c=cid: self.aggregator.submit(body, _c))
+            else:
+                stage = stage.map(self.handle_frame)
+            conn.handle_with(
+                stage.via(Framing.simple_framing_protocol_encoder(
+                    self.max_frame)),
+                self.system)
+
+        # one bind, port 0 included: the bound address comes back with
+        # the binding
+        fut = tcp.bind(self.host, self.port) \
+            .to_mat(Sink.foreach(handle), Keep.left).run(self.system)
+        self._binding = fut.result(10.0)
+        self.host, self.port = self._binding.local_address[:2]
+        return self.host, self.port
 
     def stop(self) -> None:
         if self._evloop is not None:
             self._evloop.stop()
             self._evloop = None
+        if self._binding is not None:
+            binding, self._binding = self._binding, None
+            binding.unbind().result(10.0)
         if self.aggregator is not None:
             self.aggregator.close()
 

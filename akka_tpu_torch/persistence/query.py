@@ -14,8 +14,7 @@ JournalPlugin and registers a listener for the live variants.
 `current_*` queries return plain lists (the finite snapshot); `events_by_*`
 live queries return an EventStream handle: iterate, poll, or attach a
 callback; close() detaches. The reference has no EventStream.to_source
-yet; neither package bridges an EventStream into the stream DSL (the
-port's has its core since ROADMAP A12.5).
+yet; neither package bridges an EventStream into the stream DSL.
 """
 
 from __future__ import annotations

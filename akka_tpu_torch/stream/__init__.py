@@ -1,14 +1,14 @@
 """Streams: backpressured processing pipelines.
 
-Host path (ROADMAP A12.5, the core): the push/pull GraphInterpreter
-port-state machine hosted in one actor per materialized graph, with the
-Source/Flow/Sink DSL, the operator library (ops, ops2-ops4, sub-streams,
-restart, kill switches) and the stream probes of `stream.testkit`; copies
-of the reference package's host code. Device path: `DevicePipeline`, a
-chain of per-chunk tensor ops run as one CUDA-graph replay per chunk on a
-card, which `as_flow()` puts into a host stream. Hubs, framing, retry,
-stream refs and the context flows are the rest of A12.5 and not ported
-yet.
+Host path: the push/pull GraphInterpreter port-state machine hosted in
+one actor per materialized graph, with the Source/Flow/Sink DSL, the
+operator library (ops, ops2-ops4, sub-streams, restart, kill switches),
+the hubs, framing, retry, the context flows, stream refs, TCP and file
+stages, the typed adapters, the compliance harness (`stream.tck`) and the
+stream probes of `stream.testkit`; copies of the reference package's host
+code. Device path: `DevicePipeline`, a chain of per-chunk tensor ops run
+as one CUDA-graph replay per chunk on a card, which `as_flow()` puts into
+a host stream.
 """
 
 from .stage import (FanInShape, FanOutShape, FlowShape, GraphStage,  # noqa: F401
@@ -23,8 +23,13 @@ from .ops import (BufferOverflowException, NoSuchElementException,  # noqa: F401
                   SinkQueue, SourceQueue, TickCancellable)
 from .killswitch import (KillSwitches, SharedKillSwitch,  # noqa: F401
                          UniqueKillSwitch)
+from .hub import BroadcastHub, ConsumerInfo, MergeHub, PartitionHub  # noqa: F401
+from .framing import Framing, FramingException, JsonFraming  # noqa: F401
+from .retry import RetryFlow  # noqa: F401
 from .device import DevicePipeline  # noqa: F401
+from .streamref import SinkRef, SourceRef, StreamRefs  # noqa: F401
 from .attributes import Attributes, Supervision  # noqa: F401
+from .context import FlowWithContext, SourceWithContext  # noqa: F401
 from .restart import (RestartFlow, RestartSettings, RestartSink,  # noqa: F401
                       RestartSource)
 from .ops import _QUEUE_END as QUEUE_END  # noqa: F401
@@ -40,7 +45,11 @@ __all__ = [
     "SourceQueue", "SinkQueue", "QUEUE_END", "TickCancellable",
     "NoSuchElementException", "BufferOverflowException",
     "KillSwitches", "UniqueKillSwitch", "SharedKillSwitch",
-    "DevicePipeline",
+    "MergeHub", "BroadcastHub", "PartitionHub", "ConsumerInfo",
+    "DevicePipeline", "Framing", "FramingException", "JsonFraming",
+    "RetryFlow",
+    "StreamRefs", "SourceRef", "SinkRef",
     "Attributes", "Supervision",
     "RestartSource", "RestartFlow", "RestartSink", "RestartSettings",
+    "SourceWithContext", "FlowWithContext",
 ]

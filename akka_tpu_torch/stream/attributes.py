@@ -7,8 +7,7 @@ stop, honored per element by the interpreter rather than per-operator
 try/catch as in Ops.scala, which is the same contract centralized).
 
 A copy of `akka_tpu/stream/attributes.py` at commit 05a11d4 (host code, no
-jax; ROADMAP A12.5: the port keeps its own copy of every module it
-needs).
+jax; the port keeps its own copy of every module it needs).
 
 Usage (scaladsl `withAttributes(supervisionStrategy(resumingDecider))`):
 

@@ -20,9 +20,9 @@ The scan carry may be a tensor or a tuple, list or dict of tensors, as a
 initial carry: each step's new carry is cast to them (torch widens an
 int32 sum to int64 where jnp keeps int32).
 
-`as_flow()` turns the pipeline into an operator of the host stream DSL
-(ROADMAP A12.5): a `Flow().map` that runs the same step per element, a
-CUDA-graph replay on a card, and threads the carry across elements.
+`as_flow()` turns the pipeline into an operator of the host stream DSL:
+a `Flow().map` that runs the same step per element, a CUDA-graph replay
+on a card, and threads the carry across elements.
 """
 
 from __future__ import annotations

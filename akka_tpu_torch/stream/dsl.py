@@ -1,8 +1,7 @@
 """Source/Flow/Sink DSL + materializer.
 
 A copy of `akka_tpu/stream/dsl.py` at commit 05a11d4 (host code, no
-jax; ROADMAP A12.5: the port keeps its own copy of every module it
-needs).
+jax; the port keeps its own copy of every module it needs).
 
 Reference parity: akka-stream/src/main/scala/akka/stream/scaladsl/
 (Source.scala, Flow.scala, Sink.scala, Keep.scala, RunnableGraph in

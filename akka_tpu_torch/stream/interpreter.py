@@ -1,8 +1,7 @@
 """GraphInterpreter: the push/pull execution engine + its host actor.
 
 A copy of `akka_tpu/stream/interpreter.py` at commit 05a11d4 (host code, no
-jax; ROADMAP A12.5: the port keeps its own copy of every module it
-needs).
+jax; the port keeps its own copy of every module it needs).
 
 Reference parity: akka-stream/src/main/scala/akka/stream/impl/fusing/
 GraphInterpreter.scala — per-connection port-state machine (state docs

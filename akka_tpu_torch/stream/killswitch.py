@@ -1,8 +1,7 @@
 """Kill switches: external stream termination.
 
 A copy of `akka_tpu/stream/killswitch.py` at commit 05a11d4 (host code, no
-jax; ROADMAP A12.5: the port keeps its own copy of every module it
-needs).
+jax; the port keeps its own copy of every module it needs).
 
 Reference parity: akka-stream/src/main/scala/akka/stream/KillSwitch.scala —
 UniqueKillSwitch (one materialization, via KillSwitches.single) and

@@ -1,8 +1,7 @@
 """Operator stage library.
 
 A copy of `akka_tpu/stream/ops.py` at commit 05a11d4 (host code, no
-jax; ROADMAP A12.5: the port keeps its own copy of every module it
-needs).
+jax; the port keeps its own copy of every module it needs).
 
 Reference parity: akka-stream/src/main/scala/akka/stream/impl/fusing/
 Ops.scala (map/filter/take/drop/scan/fold/grouped/sliding/conflate/batch/

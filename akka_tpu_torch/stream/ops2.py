@@ -2,8 +2,7 @@
 dedup, recover-with, watch-termination.
 
 A copy of `akka_tpu/stream/ops2.py` at commit 05a11d4 (host code, no
-jax; ROADMAP A12.5: the port keeps its own copy of every module it
-needs).
+jax; the port keeps its own copy of every module it needs).
 
 Reference parity: scaladsl/Flow.scala (196 defs) — takeWithin/dropWithin/
 groupedWithin (impl/fusing/Ops.scala timed stages), limit/limitWeighted,

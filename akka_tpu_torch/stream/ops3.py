@@ -3,8 +3,7 @@ round-2 verdict named — divertTo, mergeSorted/mergePrioritized,
 zipLatest/zipAll, foldAsync/scanAsync, onErrorComplete, lazy/never sources.
 
 A copy of `akka_tpu/stream/ops3.py` at commit 05a11d4 (host code, no
-jax; ROADMAP A12.5: the port keeps its own copy of every module it
-needs).
+jax; the port keeps its own copy of every module it needs).
 
 Reference parity: scaladsl/Flow.scala (divertTo :2061, mergeSorted,
 mergePrioritized, zipLatest/zipLatestWith, zipAll, foldAsync, scanAsync,

@@ -5,8 +5,7 @@ mergeLatest/watch, async sources (maybe, unfoldAsync, unfoldResourceAsync,
 zipN, actorRefWithBackpressure), lazy/future/cancelled sinks, switchMap.
 
 A copy of `akka_tpu/stream/ops4.py` at commit 05a11d4 (host code, no
-jax; ROADMAP A12.5: the port keeps its own copy of every module it
-needs).
+jax; the port keeps its own copy of every module it needs).
 
 Reference parity: scaladsl/Flow.scala (statefulMap, mapWithResource,
 mapAsyncPartitioned, groupedWeighted, groupedWeightedWithin, batchWeighted,

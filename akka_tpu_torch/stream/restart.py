@@ -1,8 +1,7 @@
 """RestartSource / RestartFlow / RestartSink: self-healing stream sections.
 
 A copy of `akka_tpu/stream/restart.py` at commit 05a11d4 (host code, no
-jax; ROADMAP A12.5: the port keeps its own copy of every module it
-needs).
+jax; the port keeps its own copy of every module it needs).
 
 Reference parity: akka-stream/src/main/scala/akka/stream/scaladsl/
 RestartSource.scala:20 (withBackoff / onFailuresWithBackoff), RestartFlow

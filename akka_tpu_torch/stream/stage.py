@@ -1,8 +1,7 @@
 """GraphStage API: user-definable stream operators.
 
 A copy of `akka_tpu/stream/stage.py` at commit 05a11d4 (host code, no
-jax; ROADMAP A12.5: the port keeps its own copy of every module it
-needs).
+jax; the port keeps its own copy of every module it needs).
 
 Reference parity: akka-stream/src/main/scala/akka/stream/stage/
 GraphStage.scala — GraphStageLogic with per-port InHandler/OutHandler,

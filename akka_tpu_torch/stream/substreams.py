@@ -2,8 +2,7 @@
 prefixAndTail.
 
 A copy of `akka_tpu/stream/substreams.py` at commit 05a11d4 (host code, no
-jax; ROADMAP A12.5: the port keeps its own copy of every module it
-needs).
+jax; the port keeps its own copy of every module it needs).
 
 Reference parity: akka-stream's stream-of-streams stages
 (impl/fusing/StreamOfStreams.scala — GroupBy, Split, FlattenMerge;

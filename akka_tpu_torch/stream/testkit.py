@@ -1,8 +1,7 @@
 """Stream testkit: manually driven sources and asserting sinks.
 
 A copy of `akka_tpu/stream/testkit.py` at commit 05a11d4 (host code, no
-jax; ROADMAP A12.5: the port keeps its own copy of every module it
-needs).
+jax; the port keeps its own copy of every module it needs).
 
 Reference parity: akka-stream-testkit/src/main/scala/akka/stream/testkit/
 scaladsl/TestSource.scala & TestSink.scala and StreamTestKit.scala probes —

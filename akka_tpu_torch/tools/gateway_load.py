@@ -99,20 +99,22 @@ def client_traces(seed: int, clients: int, entities: int, adds: int,
 
 
 def serve_stack(region, continuous: bool = True, pipeline_depth: int = 4,
-                host: str = "127.0.0.1"):
-    """RegionBackend + GatewayServer (evloop transport, ingest windows)
-    over `region`, admission wide open but for the ask-pool pressure
-    signal; started, after the region's step graph is captured (a no-op
-    on the CPU or once captured), so that no capture runs beside the
-    front end's threads. Returns (backend, server)."""
+                host: str = "127.0.0.1", transport: str = "evloop",
+                system=None):
+    """RegionBackend + GatewayServer (ingest windows; the evloop
+    transport, or `transport="stream"` with the `ActorSystem` its
+    connection streams run on) over `region`, admission wide open but for
+    the ask-pool pressure signal; started, after the region's step graph
+    is captured (a no-op on the CPU or once captured), so that no capture
+    runs beside the front end's threads. Returns (backend, server)."""
     region.system.warmup()
     backend = RegionBackend(region, continuous=continuous,
                             pipeline_depth=pipeline_depth)
     adm = AdmissionController(
         rate=1e9, burst=1e9, pressure_signals=backend.pressure_signals(),
         thresholds={"ask_pool_occupancy": 0.9})
-    srv = GatewayServer(None, backend, adm, SloTracker(), host=host,
-                        transport="evloop", aggregate=True)
+    srv = GatewayServer(system, backend, adm, SloTracker(), host=host,
+                        transport=transport, aggregate=True)
     srv.start()
     return backend, srv
 

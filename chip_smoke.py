@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ddata-phase N    # ddata_paths alone, N times
     python3 chip_smoke.py --sharding-phase N # sharding_paths alone, N times
     python3 chip_smoke.py --stream-phase N   # stream_paths alone, N times
+    python3 chip_smoke.py --stream-io-phase N  # stream_io_paths alone
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the
    ring-mailbox kernels from akka_tpu_torch/csrc (nvcc, sm_90a).
@@ -389,6 +390,29 @@ phase's systems, and their graph pools, are freed before the next.
    versions on the fullest inboxes (K2 at both dispatchers' shapes,
    S = 4 and S = 8); the phase must finish within 60 s.
    `--stream-phase N` runs it alone.
+21. io/ and the rest of stream/ in front of the device tier
+   (stream_io_paths). stream_gateway: two gateway_region(0) full-width
+   counter regions (K1), one behind gl.serve_stack(transport="stream")
+   (the gateway's default transport: a framed stage graph per accepted
+   connection over stream/tcp.py and io/tcp.py), one behind the evloop
+   transport; gateway_serve's trace (16 clients x 512 adds, windows of 8,
+   depth 4, TCP loopback) in interleaved legs stream, evloop, evloop,
+   stream (client_traces seeds 1, 1, 2, 2): no error replies, every reply
+   its client's running total, each seed's replies equal across the
+   transports, sum_all == acked + warm-up; requests/s and reply p50/p99
+   per leg; stop() unbinds the stream transport. streamref_region: two
+   provider = remote systems over the in-proc transport; node B offers
+   a SourceRef of 32 waves of 256 adds (seed 11) and a SinkRef over the
+   wire; node A runs the ref through map_async(4, ask_many_async) into
+   the full-width counter region (K1) and the replies back through the
+   SinkRef: every reply B receives is the oracle's running total, in
+   element order; waves/s and adds/s. hub_region: a MergeHub with 4
+   producers (8 waves of 256 adds each, ids of their own) into
+   map_async(4) over gateway_region(SLOTS) (K2), the replies out through
+   a BroadcastHub to 2 consumers: each sees every reply, each producer's
+   in its order, equal to the oracle. K1 and K2 once a region step, held
+   to their plain versions on the fullest inboxes; the phase must finish
+   within 60 s. `--stream-io-phase N` runs it alone.
 
 Any failure raises and the exit code is non-zero. The last lines are the
 kernel report (JSON, one row per kernel and payload dtype; `ms` and the
@@ -5544,6 +5568,364 @@ def stream_phase_only(runs: int, smi: str) -> int:
 
 
 
+# ------------------------- io/ and the rest of stream/ on the card
+SI_PHASE_S = 60.0           # the phase's limit
+SI_CONC = 4                 # waves in flight through map_async
+SI_GW_LEGS = (("stream", 1), ("evloop", 1), ("evloop", 2), ("stream", 2))
+SI_REF_WAVES, SI_REF_SEED = 32, 11     # streamref_region's waves of 256
+SI_HUB_PRODUCERS, SI_HUB_WAVES, SI_HUB_SEED = 4, 8, 13  # hub_region
+SI_HUB_CONSUMERS = 2
+SI_HUB_SETTLE_S = 0.5       # the hub's consumers register before producers
+SI_REMOTE = {"akka": {"stdout-loglevel": "OFF", "log-dead-letters": 0,
+                      "actor": {"provider": "remote"},
+                      "remote": {"transport": "inproc",
+                                 "canonical": {"hostname": "local",
+                                               "port": 0}}}}
+
+
+def stream_gateway(system, launches: dict, flat: dict) -> None:
+    """stream_gateway: two gateway_region(0) full-width counter regions
+    (K1), one behind gl.serve_stack(transport="stream") on `system` (a
+    framed stage graph per accepted connection), one behind the evloop
+    transport. gateway_serve's trace (16 clients x 512 adds over 64
+    entities each, windows of 8, depth 4, real TCP loopback) runs as
+    interleaved legs stream, evloop, evloop, stream: the first pair on
+    client_traces seed 1 over fresh regions, the second on seed 2 (fresh
+    entities on both). No error replies; every reply its client's running
+    total; each seed's replies equal across the transports; sum_all ==
+    the acked adds + the warm-up. K1 once a region step, held to its plain
+    version on the fullest inbox of one more (untimed) stream-transport
+    load."""
+    label = "stream_gateway"
+    stacks, counts, steps = {}, {}, {}
+    try:
+        for transport in ("stream", "evloop"):
+            region = gateway_region(0)
+            backend, srv = gl.serve_stack(
+                region, transport=transport,
+                system=system if transport == "stream" else None)
+            stacks[transport] = (region, backend, srv)
+            warm = backend.ask_many([f"warm-{i}" for i in range(GW_WARM)],
+                                    [1.0] * GW_WARM)
+            check(warm == [1.0] * GW_WARM, f"{label}: {transport} warm-up")
+            counts[transport], steps[transport] = Launches(), 0
+        check(stacks["stream"][2]._binding is not None,
+              f"{label}: the stream transport bound its port once")
+        results: Dict[int, dict] = {}
+        acked = {"stream": 0.0, "evloop": 0.0}
+        for transport, seed in SI_GW_LEGS:
+            region, backend, srv = stacks[transport]
+            traces = gl.client_traces(seed, GW_CLIENTS, GW_ENTS, GW_ADDS)
+            s0 = region.system._host_step
+
+            def leg():
+                res = gl.drive(srv.host, srv.port, traces)
+                check(backend.batcher.quiesce(ACTOR_TIMEOUT),
+                      f"{label}: {transport} quiesce")
+                return res
+            res = counts[transport](leg)
+            steps[transport] += region.system._host_step - s0
+            check(not res.errors, f"{label}: {transport} seed {seed}: no "
+                  f"error replies ({res.errors[:3]})")
+            want = sum(len(w) for t in traces for w in t)
+            check(res.requests == want, f"{label}: {transport}: "
+                  f"{res.requests} acked of {want} adds")
+            check(gl.running_totals_hold(res), f"{label}: {transport}: "
+                  f"every reply equals its client's running total")
+            acked[transport] += res.acked
+            results.setdefault(seed, {})[transport] = res
+            lat = np.asarray(res.latencies) * 1e3
+            print(f"{label} leg {transport} seed {seed} requests "
+                  f"{res.requests} requests_per_s "
+                  f"{res.requests / res.seconds} reply_ms_p50 "
+                  f"{np.percentile(lat, 50)} reply_ms_p99 "
+                  f"{np.percentile(lat, 99)} sheds {res.sheds} (per window "
+                  f"of 8, client side; host clock)")
+        for seed, by in results.items():
+            check(by["stream"].replies == by["evloop"].replies,
+                  f"{label}: seed {seed}: the stream transport's replies "
+                  f"equal the evloop transport's")
+        for transport, (region, backend, srv) in stacks.items():
+            total = backend.sum_all()
+            check(total == acked[transport] + GW_WARM, f"{label}: "
+                  f"{transport} sum_all {total} == acked "
+                  f"{acked[transport]} + warm-up {GW_WARM}")
+            check(region.ask_pool_stats()["in_flight"] == 0,
+                  f"{label}: {transport}: no ask in flight")
+        for transport in ("stream", "evloop"):
+            rates = [r[transport].requests / r[transport].seconds
+                     for r in results.values()]
+            print(f"{label} {transport} requests_per_s_median "
+                  f"{float(np.median(rates))} legs {rates}")
+        # K1's input: the fullest inbox of one more load, untimed
+        region, backend, srv = stacks["stream"]
+        extra = gl.client_traces(3, GW_CLIENTS, 8, 64)
+        s0 = region.system._host_step
+        with StepProbe(region.system, True, *DD_PROBE) as probe:
+            res = counts["stream"](lambda: (
+                gl.drive(srv.host, srv.port, extra),
+                backend.batcher.quiesce(ACTOR_TIMEOUT))[0])
+        steps["stream"] += region.system._host_step - s0
+        check(not res.errors and gl.running_totals_hold(res),
+              f"{label}: the probed load's replies")
+        graph_line(label, region.system)
+        counts["stream"].report(label, "ring_reduce", launches,
+                                steps["stream"])
+        counts["evloop"].report(label + "_evloop", "ring_reduce", launches,
+                                steps["evloop"])
+        check(probe.rows > 0 and int(probe.inputs[0][3].sum()) > 0,
+              f"{label}: K1's input carries messages ({probe.rows} rows)")
+        print(f"{label} kernel_input live_rows {probe.rows} of "
+              f"{probe.inputs[0][0].shape[0]}")
+        flat[label] = ("K1", probe.inputs, SLOTS)
+    finally:
+        for region, backend, srv in stacks.values():
+            srv.stop()
+            backend.close()
+    for transport, (region, backend, srv) in stacks.items():
+        if transport == "stream":
+            check(srv._binding is None, f"{label}: stop() unbound the "
+                  f"stream transport")
+    del stacks
+    free()
+
+
+class RefOffer(Actor):
+    """streamref_region's node B: answers "offer" with (the SourceRef of
+    its waves, the SinkRef its replies come back through). A stream ref's
+    materialized value is a local lazy class that the wire codec refuses
+    (in both packages): what crosses is `SourceRef(origin_path)` and
+    `SinkRef(target_path)`, as the reference's own tests build them."""
+
+    def __init__(self, source_ref, sink_ref):
+        super().__init__()
+        self.refs = (st.SourceRef(source_ref.origin_path),
+                     st.SinkRef(sink_ref.target_path))
+
+    def receive(self, message):
+        if message == "offer":
+            self.sender.tell(self.refs, self.self_ref)
+        else:
+            return NotImplemented
+
+
+def streamref_region(launches: dict, flat: dict) -> None:
+    """streamref_region: two provider = remote systems over the in-proc
+    transport. Node B runs SI_REF_WAVES waves of 256 adds (make_trace,
+    seed SI_REF_SEED) into StreamRefs.source_ref() and materializes
+    StreamRefs.sink_ref() into Sink.seq; an actor of B hands both refs to
+    node A over the wire. Node A, with gateway_region(0)'s full-width
+    counter region (K1) behind RegionBackend(continuous=True), runs
+    SourceRef.source(ref) -> map_async(SI_CONC, ask_many_async) ->
+    SinkRef.sink(ref): every reply B receives equals the oracle's running
+    total, in element order. K1 once a region step, held to its plain
+    version on the fullest inbox (CUDA events and a sync around each
+    flush, as stream_region)."""
+    label = "streamref_region"
+    a = ActorSystem.create("streamref-a", SI_REMOTE)
+    b = ActorSystem.create("streamref-b", SI_REMOTE)
+    backend = None
+    try:
+        trace = make_trace(SI_REF_SEED, SI_REF_WAVES)
+        source_ref = st.Source.from_iterable(trace).run_with(
+            st.StreamRefs.source_ref(), b)
+        sink_ref, got = st.StreamRefs.sink_ref().to_mat(
+            st.Sink.seq(), st.Keep.both).run(b)
+        b.actor_of(Props.create(RefOffer, source_ref, sink_ref), "offer")
+        offer = a.provider.resolve_actor_ref(
+            f"{b.provider.local_address}/user/offer")
+        check(isinstance(offer, RemoteActorRef), f"{label}: B's offer is "
+              f"a remote ref on A")
+        src, sink = ask_sync(offer, "offer", ACTOR_TIMEOUT, a)
+        check(type(src) is st.SourceRef and type(sink) is st.SinkRef,
+              f"{label}: the refs crossed the wire "
+              f"({type(src).__name__}, {type(sink).__name__})")
+        region = gateway_region(0)
+        region.system.warmup()
+        backend = RegionBackend(region, continuous=True, pipeline_depth=4)
+        wave = wave_entry(backend)
+        count = Launches()
+        s0 = region.system._host_step
+
+        def run():
+            st.SourceRef.source(src).map_async(SI_CONC, wave) \
+                .run_with(st.SinkRef.sink(sink), a)
+            out = got.result(ACTOR_TIMEOUT * 2)
+            check(backend.batcher.quiesce(ACTOR_TIMEOUT),
+                  f"{label}: quiesce")
+            return out
+        with StepProbe(region.system, True, *DD_PROBE) as probe:
+            t0 = time.perf_counter()
+            replies = count(run)
+            wall = time.perf_counter() - t0
+        steps = region.system._host_step - s0
+        oracle: dict = {}
+        hold_waves(label, trace, replies, oracle)
+        check(backend.sum_all() == sum(oracle.values()),
+              f"{label}: sum_all == the oracle's sum")
+        adds = sum(len(w) for w in trace)
+        print(f"{label} waves {len(trace)} waves_per_s {len(trace) / wall} "
+              f"adds_per_s {adds / wall} steps {steps} busy_ms "
+              f"{probe.busy_ms} wall_ms {wall * 1e3} (host clock; CUDA "
+              f"events around each flush)")
+        count.report(label, "ring_reduce", launches, steps)
+        check(probe.rows > 0 and int(probe.inputs[0][3].sum()) > 0,
+              f"{label}: K1's input carries messages ({probe.rows} rows)")
+        print(f"{label} kernel_input live_rows {probe.rows} of "
+              f"{probe.inputs[0][0].shape[0]}")
+        flat[label] = ("K1", probe.inputs, SLOTS)
+    finally:
+        if backend is not None:
+            backend.close()
+        for s in (a, b):
+            s.terminate()
+        for s in (a, b):
+            check(s.await_termination(ACTOR_TIMEOUT),
+                  f"{label}: {s.name} terminated")
+    free()
+
+
+def hub_region(system, launches: dict, flat: dict) -> None:
+    """hub_region: gateway_region(SLOTS)'s full-width bounded-slots
+    counter region (K2) behind RegionBackend(continuous=True). A MergeHub
+    source -> KillSwitches.single() -> map_async(SI_CONC, ask_many_async)
+    -> BroadcastHub sink; SI_HUB_CONSUMERS consumers attach to the
+    broadcast side, then SI_HUB_PRODUCERS producers, each SI_HUB_WAVES
+    waves of 256 adds on ids of their own, attach to the merge side. Each
+    consumer sees every reply wave, each producer's in its order, every
+    reply the oracle's running total; the switch then ends the hub.
+    K2 once a region step, held to its plain version on the fullest
+    inbox."""
+    label = "hub_region"
+    region = gateway_region(SLOTS)
+    region.system.warmup()
+    backend = RegionBackend(region, continuous=True, pipeline_depth=4)
+    try:
+        def tagged(e):
+            p, k, asks = e
+            fut: Future = Future()
+            backend.ask_many_async(
+                [n for n, _ in asks], [v for _, v in asks], None,
+                lambda out, _s: fut.set_result((p, k, out)))
+            return fut
+        traces = {p: [[(f"hub{p}-{n}", v) for n, v in w]
+                      for w in make_trace(SI_HUB_SEED + p, SI_HUB_WAVES)]
+                  for p in range(SI_HUB_PRODUCERS)}
+        n_waves = SI_HUB_PRODUCERS * SI_HUB_WAVES
+        count = Launches()
+        s0 = region.system._host_step
+
+        def run():
+            (attach_sink, switch), attach_source = \
+                st.MergeHub.source(16) \
+                .via_mat(st.KillSwitches.single(), st.Keep.both) \
+                .map_async(SI_CONC, tagged) \
+                .to_mat(st.BroadcastHub.sink(64), st.Keep.both) \
+                .run(system)
+            seen = [attach_source.take(n_waves).run_with(st.Sink.seq(),
+                                                         system)
+                    for _ in range(SI_HUB_CONSUMERS)]
+            time.sleep(SI_HUB_SETTLE_S)
+            t0 = time.perf_counter()
+            for p, waves in traces.items():
+                st.Source.from_iterable(
+                    [(p, k, w) for k, w in enumerate(waves)]) \
+                    .to(attach_sink, st.Keep.right).run(system)
+            out = [f.result(ACTOR_TIMEOUT * 2) for f in seen]
+            wall = time.perf_counter() - t0
+            switch.shutdown()
+            check(backend.batcher.quiesce(ACTOR_TIMEOUT),
+                  f"{label}: quiesce")
+            return out, wall
+        with StepProbe(region.system, True, *DD_PROBE) as probe:
+            (seen, wall) = count(run)
+        steps = region.system._host_step - s0
+        check(seen[0] == seen[1], f"{label}: both consumers saw the same "
+              f"reply stream")
+        for c, waves in enumerate(seen):
+            check(len(waves) == n_waves, f"{label}: consumer {c} saw "
+                  f"{len(waves)} of {n_waves} waves")
+            oracle: dict = {}
+            for p, trace in traces.items():
+                mine = [(k, out) for q, k, out in waves if q == p]
+                check([k for k, _ in mine] == list(range(SI_HUB_WAVES)),
+                      f"{label}: consumer {c}: producer {p}'s waves in "
+                      f"its order")
+                hold_waves(f"{label} consumer {c}", trace,
+                           [out for _, out in mine], oracle)
+        check(backend.sum_all() == sum(oracle.values()),
+              f"{label}: sum_all == the oracle's sum")
+        adds = n_waves * WAVE_ASKS
+        print(f"{label} waves {n_waves} waves_per_s {n_waves / wall} "
+              f"adds_per_s {adds / wall} steps {steps} busy_ms "
+              f"{probe.busy_ms} wall_ms {wall * 1e3} (host clock from the "
+              f"producers' start; CUDA events around each flush)")
+        count.report(label, "ring_slots", launches, steps)
+        check(probe.rows > 0 and int(probe.inputs[0][3].sum()) > 0,
+              f"{label}: K2's input carries messages ({probe.rows} rows)")
+        print(f"{label} kernel_input live_rows {probe.rows} of "
+              f"{probe.inputs[0][0].shape[0]}")
+        flat[label] = ("K2", probe.inputs, SLOTS)
+    finally:
+        backend.close()
+    del region, backend
+    free()
+
+
+def stream_io_paths(launches: dict) -> dict:
+    """stream_io_paths: stream_gateway and hub_region on one ActorSystem,
+    streamref_region on two of its own; every system terminated and
+    awaited. Returns the K1 and K2 delivery inputs by label."""
+    cfg = {"akka": {"stdout-loglevel": "OFF", "log-dead-letters": 0}}
+    flat: dict = {}
+    print(f"stream_io_paths threads_at_start {threading.active_count()}")
+    t_phase = time.perf_counter()
+    system = ActorSystem.create("stream-io-paths", cfg)
+    try:
+        t0 = time.perf_counter()
+        stream_gateway(system, launches, flat)
+        print(f"stream_gateway phase_s {time.perf_counter() - t0}")
+        t0 = time.perf_counter()
+        streamref_region(launches, flat)
+        print(f"streamref_region phase_s {time.perf_counter() - t0}")
+        t0 = time.perf_counter()
+        hub_region(system, launches, flat)
+        print(f"hub_region phase_s {time.perf_counter() - t0}")
+    finally:
+        system.terminate()
+        check(system.await_termination(ACTOR_TIMEOUT),
+              "stream_io_paths: the system terminated")
+    del system
+    free()
+    print(f"stream_io_paths phase_s {time.perf_counter() - t_phase}")
+    return flat
+
+
+def stream_io_phase_only(runs: int, smi: str) -> int:
+    """`python3 chip_smoke.py --stream-io-phase N`: stream_io_paths alone,
+    N times in one process, every check as in the whole run and K1 and K2
+    held to their plain versions on each run's fullest inboxes. The last
+    line is {"stream_io_phase_s": [...]}."""
+    lib = cm.build()
+    times = []
+    for r in range(runs):
+        launches: Dict[str, dict] = {}
+        t0 = time.perf_counter()
+        flat = stream_io_paths(launches)
+        times.append(time.perf_counter() - t0)
+        check(times[-1] < SI_PHASE_S, f"stream_io_paths run {r}: "
+              f"{times[-1]} s, more than {SI_PHASE_S}")
+        for label, (k, (inputs, n), slots) in flat.items():
+            row = kernel_rows(label, inputs, n, lib, kernels=(k,),
+                              slots=slots)[k]
+            print(f"stream_io_phase_run {r} {label} {k} {json.dumps(row)}")
+        print(f"stream_io_phase_run {r} stream_io_phase_s {times[-1]} "
+              f"launches {json.dumps(launches)}")
+    print(smi)
+    print(json.dumps({"stream_io_phase_s": times}))
+    return 0
+
+
 
 def path_dtype(label: str) -> str:
     """The payload dtype of a path's system, by the path's name."""
@@ -5571,6 +5953,8 @@ def main() -> int:
         return sharding_phase_only(int(sys.argv[2]), smi)
     if sys.argv[1:2] == ["--stream-phase"]:
         return stream_phase_only(int(sys.argv[2]), smi)
+    if sys.argv[1:2] == ["--stream-io-phase"]:
+        return stream_io_phase_only(int(sys.argv[2]), smi)
 
     t0 = time.perf_counter()
     rows, typed = kernel_phase(lib)
@@ -5630,6 +6014,12 @@ def main() -> int:
     print(f"stream_phase_s {phase_s}")
     check(phase_s < ST_PHASE_S, f"stream_paths: {phase_s} s, more than "
           f"{ST_PHASE_S}")
+    t0 = time.perf_counter()
+    stream_io = stream_io_paths(launches)
+    phase_s = time.perf_counter() - t0
+    print(f"stream_io_phase_s {phase_s}")
+    check(phase_s < SI_PHASE_S, f"stream_io_paths: {phase_s} s, more "
+          f"than {SI_PHASE_S}")
     # both kernels at the shapes the new paths gave them
     t0 = time.perf_counter()
     for label, flat in (("sharded_d8", sharded), ("region", region),
@@ -5639,14 +6029,14 @@ def main() -> int:
             rows.setdefault(label, {})[k] = kernel_rows(
                 label, inputs, n, lib, kernels=(k,))[k]
     for label, (k, (inputs, n), slots) in {**actor, **ledgers, **remote,
-                                           **ddata, **sharding,
-                                           **stream}.items():
+                                           **ddata, **sharding, **stream,
+                                           **stream_io}.items():
         dtype = path_dtype(label)
         table = rows if dtype == "float32" else typed[dtype]
         table.setdefault(label, {})[k] = kernel_rows(
             label, inputs, n, lib, kernels=(k,), slots=slots)[k]
     del sharded, region, gateway, actor, router, failover, ranks, ledgers
-    del remote, ddata, sharding, stream
+    del remote, ddata, sharding, stream, stream_io
     print(f"path_kernels_s {time.perf_counter() - t0}")
 
     entry = {"K1": ("ring_reduce", "_run(with_slots=False)"),

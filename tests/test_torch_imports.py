@@ -109,6 +109,20 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "akka_tpu_torch.stream.substreams",
                  "akka_tpu_torch.stream.dsl",
                  "akka_tpu_torch.stream.testkit",
+                 # io/ and the rest of stream/
+                 "akka_tpu_torch.io",
+                 "akka_tpu_torch.io.tcp",
+                 "akka_tpu_torch.io.udp",
+                 "akka_tpu_torch.io.dns",
+                 "akka_tpu_torch.stream.framing",
+                 "akka_tpu_torch.stream.tcp",
+                 "akka_tpu_torch.stream.context",
+                 "akka_tpu_torch.stream.retry",
+                 "akka_tpu_torch.stream.hub",
+                 "akka_tpu_torch.stream.fileio",
+                 "akka_tpu_torch.stream.streamref",
+                 "akka_tpu_torch.stream.typed",
+                 "akka_tpu_torch.stream.tck",
                  "akka_tpu_torch.utils.u32",
                  "akka_tpu_torch.native",
                  "akka_tpu_torch.native.lib",
@@ -250,7 +264,7 @@ class _ExtensionHost:
 
 EXPORT_PACKAGES = ("batched", "ops", "sharding", "gateway", "event",
                    "serialization", "testkit", "typed", "persistence",
-                   "pki", "cluster", "remote", "stream")
+                   "pki", "cluster", "remote", "stream", "io")
 
 
 def _reference_exports(sub: str) -> set:
@@ -333,10 +347,8 @@ def test_package_exports_what_the_reference_package_exports():
 
 # Reference modules the port has no file for yet, by the item that ports
 # them: a name a reference __init__ imports from one of them is excepted.
-UNPORTED_MODULES = {
-    **{f"stream/{m}.py": "A12.5" for m in (
-        "hub", "framing", "retry", "streamref", "context")},
-}
+# Every module is ported (NOT_A_FILE, test_every_reference_module_has_a_file).
+UNPORTED_MODULES: dict = {}
 
 # Public names of ported reference files that the port's file lacks, by
 # the item that ports them.
@@ -429,18 +441,42 @@ def test_ported_file_has_the_references_public_names(rel):
         assert not lacking, f"akka_tpu_torch/{rel} {cls} lacks {lacking}"
 
 
+# reference modules with no file of the same path in the port, and why
+NOT_A_FILE = {
+    "ops/pallas_mailbox.py": "the TPU kernel: csrc/ring_mailbox.cu",
+    "utils/platform.py": "not to port (TPU platform probing)",
+}
+
+
+def test_every_reference_module_has_a_file():
+    """The port has a file for every module of akka_tpu/, but the Pallas
+    kernel's (ported as CUDA) and the TPU platform probe; the CUDA source
+    that replaces the kernel is there."""
+    ref = {str(p.relative_to(ROOT / "akka_tpu"))
+           for p in (ROOT / "akka_tpu").rglob("*.py")
+           if "_build" not in p.parts}
+    missing = sorted(r for r in ref if not (PKG / r).exists())
+    assert missing == sorted(NOT_A_FILE), missing
+    assert (PKG / "csrc" / "ring_mailbox.cu").exists()
+
+
 def test_exception_lists_name_only_later_items():
-    """The exceptions belong to A12.5, and the jnp dtypes; they name no
-    module the port has a file for, and no name the port has. A10.2 (the
+    """The only exceptions left are the jnp dtypes; they name no module
+    the port has a file for, and no name the port has. A10.2 (the
     distributed init and its config hook), A12.1 (the typed API and the
     host tier of persistence), A12.2 (remoting, PKI and cluster
-    membership), A12.3 (ddata's replicator and CRDTs, cluster_tools) and
-    A12.4 (the host tier of sharding, the rest of testkit) are ported: no
-    label of theirs is left, and no source of the port names A12.2."""
+    membership), A12.3 (ddata's replicator and CRDTs, cluster_tools),
+    A12.4 (the host tier of sharding, the rest of testkit) and A12.5 (the
+    stream DSL, io/ and the rest of stream/) are ported: no label of
+    theirs is left, no source of the port names A12.2 or A12.5, and no
+    test or chip script names A12.2."""
     labels = set(UNPORTED_MODULES.values()) | set(UNPORTED_NAMES.values())
-    assert labels <= {"A12.5", "for good: a jnp dtype"}, labels
-    assert not labels & {"A10.2", "A12.1", "A12.2", "A12.3", "A12.4"}, \
-        labels
+    assert labels <= {"for good: a jnp dtype"}, labels
+    assert not labels & {"A10.2", "A12.1", "A12.2", "A12.3", "A12.4",
+                         "A12.5"}, labels
+    assert not UNPORTED_MODULES
+    for path in SOURCES:
+        assert "A12.5" not in path.read_text(), path
     for path in SOURCES + sorted(ROOT.glob("tests/*torch_*.py")) + [
             ROOT / "chip_smoke.py"]:
         if path.name != "test_torch_imports.py":
@@ -480,7 +516,12 @@ def test_exception_lists_name_only_later_items():
                 "stream/interpreter.py", "stream/ops.py", "stream/ops2.py",
                 "stream/ops3.py", "stream/restart.py", "stream/ops4.py",
                 "stream/killswitch.py", "stream/substreams.py",
-                "stream/dsl.py", "stream/testkit.py"):
+                "stream/dsl.py", "stream/testkit.py",
+                "io/__init__.py", "io/tcp.py", "io/udp.py", "io/dns.py",
+                "stream/framing.py", "stream/tcp.py", "stream/context.py",
+                "stream/retry.py", "stream/hub.py", "stream/fileio.py",
+                "stream/streamref.py", "stream/typed.py", "stream/tck.py",
+                "stream/__init__.py"):
         assert rel in PORTED_FILES, rel
 
 

@@ -7,15 +7,12 @@ port's trace must equal the reference's (tests/torch_stream_fixture.py).
 
 Where the reference holds a duration against a budget (throttle, delay),
 both packages are held to the order of events and the elements instead.
-The reference's three hub cases stand on `stream/hub.py`, which the port
-has not yet (ROADMAP A12.5, the rest): their scenarios run the same
-producers and consumers through the fan-in and fan-out operators the
-port has. `DevicePipeline.as_flow` runs the reference's jnp pipeline and
-the port's torch pipeline on the CPU: integers bit-equal, float32 within
-rtol 1e-6.
+The three hub cases run through each package's `MergeHub` and
+`BroadcastHub` (stream/hub.py). `DevicePipeline.as_flow` runs the
+reference's jnp pipeline and the port's torch pipeline on the CPU:
+integers bit-equal, float32 within rtol 1e-6.
 """
 
-import threading
 import time
 from concurrent.futures import Future
 
@@ -379,38 +376,32 @@ def test_shared_kill_switch_abort(S):
     return [err(fut1), str(fut1.exception()), err(fut2)]
 
 
-# -- many producers, many consumers (the reference's hub cases) ---------------
+# -- hubs ---------------------------------------------------------------------
 
 @side_by_side
 def test_merge_hub_many_producers(S):
-    """tests/test_stream.py's MergeHub case (three producers into one
-    consumer) through a queue source offered from two producer threads:
-    every element arrives, each producer's in order."""
-    queue, fut = S.Source.queue(16).via(S.Flow().take(6)) \
+    """Two producer streams attach to one MergeHub's sink: every element
+    arrives, each producer's in its order."""
+    attach_sink, fut = S.MergeHub.source(16).via(S.Flow().take(6)) \
         .to_mat(S.Sink.seq(), S.Keep.both).run(S.system)
-
-    def produce(xs):
-        for x in xs:
-            assert queue.offer(x).result(WAIT) is True
-
-    producers = [threading.Thread(target=produce, args=(xs,))
-                 for xs in ([1, 2, 3], [10, 20, 30])]
-    for p in producers:
-        p.start()
-    for p in producers:
-        p.join(WAIT)
+    S.Source.from_iterable([1, 2, 3]).to(attach_sink, S.Keep.right) \
+        .run(S.system)
+    S.Source.from_iterable([10, 20, 30]).to(attach_sink, S.Keep.right) \
+        .run(S.system)
     out = fut.result(WAIT)
     assert sorted(out) == [1, 2, 3, 10, 20, 30]
     assert [x for x in out if x < 10] == [1, 2, 3]
+    assert [x for x in out if x >= 10] == [10, 20, 30]
     return sorted(out)
 
 
 @side_by_side
 def test_broadcast_hub_many_consumers(S):
-    """tests/test_stream.py's BroadcastHub case (a finished source's
-    elements to a consumer): a source pre-materialized, then consumed."""
-    _, attach_source = S.Source.from_iterable(range(5)).pre_materialize(
-        S.Materializer(S.system))
+    """A finished source's elements wait in the BroadcastHub's buffer for
+    the first consumer."""
+    attach_source = S.Source.from_iterable(range(5)) \
+        .to_mat(S.BroadcastHub.sink(64), S.Keep.right).run(S.system)
+    time.sleep(0.05)  # the hub sink runs; elements buffered pre-consumer
     out1 = attach_source.run_with(S.Sink.seq(), S.system).result(WAIT)
     assert out1 == list(range(5))
     return out1
@@ -418,20 +409,17 @@ def test_broadcast_hub_many_consumers(S):
 
 @side_by_side
 def test_broadcast_hub_live_fanout(S):
-    """tests/test_stream.py's live BroadcastHub case: a queue's elements
-    to two consumers, each seeing all of them in order (also_to)."""
-    side = S.Sink.seq()
-    futs = {}
-
-    def capture(b, upstream):
-        futs["f2"] = side._build(b, upstream)
-        return futs["f2"]
-    src_q, f1 = S.Source.queue(64).also_to(S.Sink(capture)) \
-        .to_mat(S.Sink.seq(), S.Keep.both).run(S.system)
+    """A queue's elements through a BroadcastHub to two consumers, each
+    seeing all of them in order."""
+    src_q, attach_source = S.Source.queue(64) \
+        .to_mat(S.BroadcastHub.sink(64), S.Keep.both).run(S.system)
+    f1 = attach_source.run_with(S.Sink.seq(), S.system)
+    f2 = attach_source.run_with(S.Sink.seq(), S.system)
+    time.sleep(0.5)  # both consumers registered
     for i in range(4):
         assert src_q.offer(i).result(WAIT)
     src_q.complete()
-    t = [f1.result(WAIT), futs["f2"].result(WAIT)]
+    t = [f1.result(WAIT), f2.result(WAIT)]
     assert t == [[0, 1, 2, 3]] * 2
     return t
 

@@ -2,11 +2,12 @@
 supervision and restart sections (akka_tpu_torch.stream) on the CPU, side
 by side with the JAX package's: the core cases of
 tests/test_stream_breadth.py (all but framing, file IO, gzip and TCP,
-which the port has not yet; the operator inventory is held to the
-reference's), the four BidiFlow and GraphDSL cases of
+which tests/test_torch_stream_io.py runs; the operator inventory is held
+to the reference's), the four BidiFlow and GraphDSL cases of
 tests/test_parity_breadth.py, the cases of tests/test_stream_supervision.py
-that need no `stream.tck` (part of the rest of ROADMAP A12.5), and lazy
-and future sinks over the restart bridge that they materialize through.
+but its two `stream.tck` cases (tests/test_torch_stream_tck.py and
+test_torch_stream_tck_sources.py run those), and lazy and future sinks over
+the restart bridge that they materialize through.
 Each scenario runs on both packages; the port's trace must equal the
 reference's (tests/torch_stream_fixture.py).
 
@@ -193,14 +194,13 @@ def _operators(S):
 
 def test_operator_breadth_at_least_160_distinct():
     """The distinct operator names across Source/Flow/Sink: at least 160
-    on each package, and the port's are the reference's but the two that
-    `stream/context.py` attaches to Source and Flow (the rest of ROADMAP
-    A12.5)."""
+    on each package, and the port's are the reference's, the two that
+    `stream/context.py` attaches to Source and Flow included."""
     traces = both(_operators)
     ref, port = set(traces["akka_tpu"]), set(traces["akka_tpu_torch"])
     assert len(ref) >= 160 and len(port) >= 160
-    assert ref - port == {"as_flow_with_context", "as_source_with_context"}
-    assert port <= ref
+    assert {"as_flow_with_context", "as_source_with_context"} <= port
+    assert port == ref
 
 
 # ------------------------ tests/test_parity_breadth.py: BidiFlow, GraphDSL

@@ -2,19 +2,18 @@
 side with the JAX package's: a port of the 8 scenarios of
 tests/test_typed.py (behaviors, setup/stopped, supervision, watch, timers,
 stash, message adapters) and the 8 of tests/test_typed_ecosystem.py
-(receptionist, reliable delivery, work pulling, topics). Each scenario is
-written once, runs on both packages, and the port's trace of replies and
-listings must equal the reference's. The cluster receptionist runs on two
-cluster nodes of each package over its own in-proc transport. The
-ecosystem scenario that needs modules the port does not have yet (the
-stream-typed adapters, ROADMAP A12.5) checks the port's refusal.
+(receptionist, reliable delivery, work pulling, topics, the stream-typed
+adapters). Each scenario is written once, runs on both packages, and the
+port's trace of replies and listings must equal the reference's. The
+cluster receptionist runs on two cluster nodes of each package over its
+own in-proc transport.
 
 Every system starts through the `systems` fixture
 (tests/torch_host_fixture.py), which asserts `await_termination(10.0)` and
 that no thread is left; every wait is at most 10 s.
 """
 
-import importlib.util
+import importlib
 import threading
 import time
 
@@ -608,12 +607,47 @@ def test_topic_pubsub(systems):
     assert side_by_side(_topic, systems) == ["hello", "hello"]
 
 
-def test_actor_source_and_acked_sink():
-    """ActorSource and ActorSink (the reference's akka_tpu/stream/typed.py)
-    stand on the stream DSL's core, which the port has (ROADMAP A12.5,
-    part one); the stream-typed module itself comes with the rest of
-    A12.5, so the port has Source but no stream-typed module yet."""
-    import akka_tpu_torch.stream as tstream
-    assert importlib.util.find_spec("akka_tpu.stream.typed") is not None
-    assert importlib.util.find_spec("akka_tpu_torch.stream.typed") is None
-    assert hasattr(tstream, "Source")
+def _actor_source_and_sink(P, systems):
+    st = importlib.import_module(f"{P.name}.stream")
+    typed = importlib.import_module(f"{P.name}.stream.typed")
+    system = systems.classic(P, "typed-eco")
+    ref, fut = typed.ActorSource.actor_ref(
+        complete_matcher=lambda m: m == "DONE",
+        failure_matcher=lambda m: None, buffer_size=64) \
+        .to_mat(st.Sink.seq(), st.Keep.both).run(system)
+    time.sleep(0.1)
+    for m in ("a", "b", "DONE"):
+        ref.tell(m)
+    sourced = fut.result(WAIT)
+
+    # the ack-based sink: the target acks each element before the next
+    class AckingTarget(P.Actor):
+        def __init__(self, probe):
+            super().__init__()
+            self.probe = probe
+
+        def receive(self, message):
+            if message in ("init", "done"):
+                self.probe.tell(message, self.self_ref)
+                if message == "init":
+                    self.sender.tell("ACK", self.self_ref)
+            else:
+                self.probe.tell(("elem", message), self.self_ref)
+                self.sender.tell("ACK", self.self_ref)
+
+    probe = P.testkit.TestProbe(system)
+    target = system.actor_of(P.Props.create(AckingTarget, probe.ref))
+    st.Source.from_iterable([1, 2, 3]).to(
+        typed.ActorSink.actor_ref_with_backpressure(
+            target, message_adapter=None, on_init_message="init",
+            ack_message="ACK", on_complete_message="done"),
+        st.Keep.right).run(system)
+    return sourced, [probe.receive_one(WAIT) for _ in range(5)]
+
+
+def test_actor_source_and_acked_sink(systems):
+    """tests/test_typed_ecosystem.py's stream-typed case: an ActorSource
+    fed by tells until its completion message, and an ActorSink that
+    waits for the target's ack before each next element."""
+    assert side_by_side(_actor_source_and_sink, systems) == (
+        ["a", "b"], ["init", ("elem", 1), ("elem", 2), ("elem", 3), "done"])
